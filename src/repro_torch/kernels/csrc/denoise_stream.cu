@@ -1,0 +1,259 @@
+// Hopper kernels for the PRISM subtract-and-average family (paper Alg 3 / 3 v2).
+//
+// Replaces four Pallas TPU kernels of the JAX package:
+//   alg3_stream_step            <- src/repro/kernels/denoise_stream.py    alg3_stream_step (_alg3_step_kernel)
+//   alg3_subtract_average       <- src/repro/kernels/denoise_stream.py    alg3_subtract_average (_alg3_kernel)
+//   multibank_stream_step       <- src/repro/kernels/denoise_multibank.py multibank_stream_step (_mb_step_kernel)
+//   multibank_subtract_average  <- src/repro/kernels/denoise_multibank.py multibank_subtract_average (_mb_kernel)
+// and fuses the shared dequantization prologue quant.pair_diff_block into each
+// of them as the __device__ function pair_diff below.
+//
+// Bound: HBM bytes. Per output pixel a step reads two wire pixels (2 x 1, 1.5
+// or 2 bytes) and reads + writes one float32 of running sum, for about five
+// floating-point operations: some 0.4 operations per byte, two orders of
+// magnitude below the ridge of an H100. The only lever is bytes, so every
+// input byte is read once and every output written once.
+//
+// Design (the simple one; cp.async/TMA pipelining is later work):
+//   * one thread per output pixel (per pixel pair for p12, whose 3 wire bytes
+//     hold two pixels), one block per output row (pair, image row), threads
+//     along W so that a warp's loads and stores are contiguous (coalesced);
+//   * the one-shot forms loop over the G groups inside the thread, keeping the
+//     sum in a register: this replaces the TPU's sequential innermost grid
+//     axis, whose VMEM-resident accumulator has no counterpart across blocks;
+//   * the bank axis is one more index decoded from the row number, so banks
+//     never touch each other's data, as on the TPU grid.
+//
+// Rounding is part of the contract: the reference's jitted kernels compute
+// (a) the u8 dequant as fma(e, S, -(c*S)) + offset, (b) x / G as x * f32(1/G),
+// and (c) the divide-first fold s + d / G as fma(d, 1/G, s). Each is written
+// here with _rn intrinsics, which nvcc never contracts or reorders, so the
+// default -fmad=true cannot change a result. The host passes 1/G already
+// rounded to float32.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum WireFormat : int { kU16 = 0, kU8 = 1, kP12 = 2 };
+
+// Logical pixels produced per thread item.
+template <int FMT>
+struct Item {
+  static constexpr int kPixels = FMT == kP12 ? 2 : 1;
+};
+
+// B1: dequantize one control/excitation pair at item x of a wire row and
+// return exc - ctl + offset for each of the item's pixels.
+template <int FMT>
+__device__ __forceinline__ void pair_diff(const uint8_t* __restrict__ ctl,
+                                          const uint8_t* __restrict__ exc,
+                                          int x, float offset, float u8_scale,
+                                          float d[Item<FMT>::kPixels]) {
+  if constexpr (FMT == kU16) {
+    const float c = static_cast<float>(reinterpret_cast<const uint16_t*>(ctl)[x]);
+    const float e = static_cast<float>(reinterpret_cast<const uint16_t*>(exc)[x]);
+    d[0] = __fadd_rn(__fsub_rn(e, c), offset);
+  } else if constexpr (FMT == kU8) {
+    const float c = static_cast<float>(ctl[x]);
+    const float e = static_cast<float>(exc[x]);
+    d[0] = __fadd_rn(__fmaf_rn(e, u8_scale, -__fmul_rn(c, u8_scale)), offset);
+  } else {
+    const uint8_t* cp = ctl + 3 * x;
+    const uint8_t* ep = exc + 3 * x;
+    const int c0 = cp[0], c1 = cp[1], c2 = cp[2];
+    const int e0 = ep[0], e1 = ep[1], e2 = ep[2];
+    const float clo = static_cast<float>(c0 | ((c1 & 0xF) << 8));
+    const float chi = static_cast<float>((c1 >> 4) | (c2 << 4));
+    const float elo = static_cast<float>(e0 | ((e1 & 0xF) << 8));
+    const float ehi = static_cast<float>((e1 >> 4) | (e2 << 4));
+    d[0] = __fadd_rn(__fsub_rn(elo, clo), offset);
+    d[1] = __fadd_rn(__fsub_rn(ehi, chi), offset);
+  }
+}
+
+template <bool DIVIDE_FIRST>
+__device__ __forceinline__ float fold(float s, float d, float rcp) {
+  if constexpr (DIVIDE_FIRST) return __fmaf_rn(d, rcp, s);
+  return __fadd_rn(s, d);
+}
+
+// B2/B4: fold one group into the running sum, in place. Row r of the grid is
+// (pair p, image row h) over all banks: a (B, N, H, wire) group is the same
+// memory as (B*N, H, wire), so the bank axis folds into the pair axis.
+template <int FMT, bool DIVIDE_FIRST>
+__global__ void stream_step_kernel(const uint8_t* __restrict__ frames,
+                                   float* __restrict__ sum, int height,
+                                   int items, int64_t row_bytes, float offset,
+                                   float u8_scale, float rcp, bool final_div) {
+  constexpr int P = Item<FMT>::kPixels;
+  const int64_t r = blockIdx.x;
+  const int64_t p = r / height;
+  const int64_t h = r - p * height;
+  const uint8_t* ctl = frames + ((2 * p) * height + h) * row_bytes;
+  const uint8_t* exc = ctl + height * row_bytes;
+  float* out = sum + r * static_cast<int64_t>(items) * P;
+  for (int x = threadIdx.x; x < items; x += blockDim.x) {
+    float d[P];
+    pair_diff<FMT>(ctl, exc, x, offset, u8_scale, d);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      float t = fold<DIVIDE_FIRST>(out[x * P + k], d[k], rcp);
+      if constexpr (!DIVIDE_FIRST) {
+        if (final_div) t = __fmul_rn(t, rcp);
+      }
+      out[x * P + k] = t;
+    }
+  }
+}
+
+// B3/B5: one-shot average over G groups. Row r is (bank b, pair p, row h);
+// the sum of one output pixel stays in registers across the group loop.
+template <int FMT, bool DIVIDE_FIRST>
+__global__ void subtract_average_kernel(const uint8_t* __restrict__ frames,
+                                        float* __restrict__ out, int groups,
+                                        int pairs, int height, int items,
+                                        int64_t row_bytes, float offset,
+                                        float u8_scale, float rcp) {
+  constexpr int P = Item<FMT>::kPixels;
+  const int64_t r = blockIdx.x;
+  const int64_t bp = r / height;
+  const int64_t h = r - bp * height;
+  const int64_t b = bp / pairs;
+  const int64_t p = bp - b * pairs;
+  const int64_t group_bytes = 2 * static_cast<int64_t>(pairs) * height * row_bytes;
+  const uint8_t* base =
+      frames + b * groups * group_bytes + ((2 * p) * height + h) * row_bytes;
+  float* dst = out + r * static_cast<int64_t>(items) * P;
+  for (int x = threadIdx.x; x < items; x += blockDim.x) {
+    float acc[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) acc[k] = 0.0f;
+#pragma unroll 4
+    for (int g = 0; g < groups; ++g) {
+      const uint8_t* ctl = base + g * group_bytes;
+      float d[P];
+      pair_diff<FMT>(ctl, ctl + height * row_bytes, x, offset, u8_scale, d);
+#pragma unroll
+      for (int k = 0; k < P; ++k) acc[k] = fold<DIVIDE_FIRST>(acc[k], d[k], rcp);
+    }
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      dst[x * P + k] = DIVIDE_FIRST ? acc[k] : __fmul_rn(acc[k], rcp);
+  }
+}
+
+int threads_for(int items) {
+  const int t = ((items + 31) / 32) * 32;
+  return t < 256 ? t : 256;
+}
+
+template <int FMT, bool DF>
+cudaError_t launch_step(const void* frames, void* sum, int64_t rows, int height,
+                        int items, int64_t row_bytes, float offset,
+                        float u8_scale, float rcp, bool final_div,
+                        cudaStream_t stream) {
+  stream_step_kernel<FMT, DF><<<static_cast<unsigned>(rows), threads_for(items), 0, stream>>>(
+      static_cast<const uint8_t*>(frames), static_cast<float*>(sum), height,
+      items, row_bytes, offset, u8_scale, rcp, final_div);
+  return cudaGetLastError();
+}
+
+template <int FMT, bool DF>
+cudaError_t launch_oneshot(const void* frames, void* out, int64_t rows,
+                           int groups, int pairs, int height, int items,
+                           int64_t row_bytes, float offset, float u8_scale,
+                           float rcp, cudaStream_t stream) {
+  subtract_average_kernel<FMT, DF><<<static_cast<unsigned>(rows), threads_for(items), 0, stream>>>(
+      static_cast<const uint8_t*>(frames), static_cast<float*>(out), groups,
+      pairs, height, items, row_bytes, offset, u8_scale, rcp);
+  return cudaGetLastError();
+}
+
+int step(const void* frames, void* sum, int64_t pairs, int64_t height,
+         int64_t items, int64_t row_bytes, int fmt, int divide_first,
+         int final_div, float offset, float u8_scale, float rcp, void* stream) {
+  const int64_t rows = pairs * height;
+  if (rows == 0 || items == 0) return cudaSuccess;
+  if (rows > 0x7fffffff || items > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int h = static_cast<int>(height), it = static_cast<int>(items);
+  const bool fd = final_div != 0;
+#define STEP(F, D) launch_step<F, D>(frames, sum, rows, h, it, row_bytes, offset, u8_scale, rcp, fd, s)
+  switch (fmt) {
+    case kU16: return divide_first ? STEP(kU16, true) : STEP(kU16, false);
+    case kU8: return divide_first ? STEP(kU8, true) : STEP(kU8, false);
+    case kP12: return divide_first ? STEP(kP12, true) : STEP(kP12, false);
+  }
+#undef STEP
+  return cudaErrorInvalidValue;
+}
+
+int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
+            int64_t pairs, int64_t height, int64_t items, int64_t row_bytes,
+            int fmt, int divide_first, float offset, float u8_scale, float rcp,
+            void* stream) {
+  const int64_t rows = banks * pairs * height;
+  if (rows == 0 || items == 0) return cudaSuccess;
+  if (rows > 0x7fffffff || items > 0x7fffffff || groups > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int g = static_cast<int>(groups), p = static_cast<int>(pairs);
+  const int h = static_cast<int>(height), it = static_cast<int>(items);
+#define ONESHOT(F, D) launch_oneshot<F, D>(frames, out, rows, g, p, h, it, row_bytes, offset, u8_scale, rcp, s)
+  switch (fmt) {
+    case kU16: return divide_first ? ONESHOT(kU16, true) : ONESHOT(kU16, false);
+    case kU8: return divide_first ? ONESHOT(kU8, true) : ONESHOT(kU8, false);
+    case kP12: return divide_first ? ONESHOT(kP12, true) : ONESHOT(kP12, false);
+  }
+#undef ONESHOT
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry points, one per TPU kernel, loaded with ctypes. Each returns
+// the cudaError_t of its launch (0 = launched). `items` is the number of
+// thread items per output row: W, or W/2 for p12. `row_bytes` is the wire
+// row length in bytes.
+extern "C" {
+
+int alg3_stream_step_launch(const void* frames, void* sum, int64_t pairs,
+                            int64_t height, int64_t items, int64_t row_bytes,
+                            int fmt, int divide_first, int final_div,
+                            float offset, float u8_scale, float rcp,
+                            void* stream) {
+  return step(frames, sum, pairs, height, items, row_bytes, fmt, divide_first,
+              final_div, offset, u8_scale, rcp, stream);
+}
+
+int multibank_stream_step_launch(const void* frames, void* sum, int64_t banks,
+                                 int64_t pairs, int64_t height, int64_t items,
+                                 int64_t row_bytes, int fmt, int divide_first,
+                                 int final_div, float offset, float u8_scale,
+                                 float rcp, void* stream) {
+  return step(frames, sum, banks * pairs, height, items, row_bytes, fmt,
+              divide_first, final_div, offset, u8_scale, rcp, stream);
+}
+
+int alg3_subtract_average_launch(const void* frames, void* out, int64_t groups,
+                                 int64_t pairs, int64_t height, int64_t items,
+                                 int64_t row_bytes, int fmt, int divide_first,
+                                 float offset, float u8_scale, float rcp,
+                                 void* stream) {
+  return oneshot(frames, out, 1, groups, pairs, height, items, row_bytes, fmt,
+                 divide_first, offset, u8_scale, rcp, stream);
+}
+
+int multibank_subtract_average_launch(const void* frames, void* out,
+                                      int64_t banks, int64_t groups,
+                                      int64_t pairs, int64_t height,
+                                      int64_t items, int64_t row_bytes,
+                                      int fmt, int divide_first, float offset,
+                                      float u8_scale, float rcp, void* stream) {
+  return oneshot(frames, out, banks, groups, pairs, height, items, row_bytes,
+                 fmt, divide_first, offset, u8_scale, rcp, stream);
+}
+
+}  // extern "C"

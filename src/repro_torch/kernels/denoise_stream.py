@@ -1,0 +1,230 @@
+"""Paper Algorithm 3 (+ v2) on Hopper: fused subtract-accumulate.
+
+Counterpart of ``repro.kernels.denoise_stream``. Two wrappers, each over
+its own CUDA kernel in ``csrc/denoise_stream.cu``:
+
+* :func:`alg3_stream_step` — fold one group ``(N, H, wire_W)`` into the
+  running sum ``(N/2, H, W)``. The sum is updated **in place** (the
+  reference donates it) and returned. Per step the HBM traffic is: read
+  ``N*H*wire_W`` wire bytes, read and write ``(N/2)*H*W`` float32.
+* :func:`alg3_subtract_average` — one shot over ``(G, N, H, wire_W)``:
+  each input byte is read once, the sum stays in registers across the
+  group loop, only the averaged ``(N/2, H, W)`` frames are written.
+
+Dispatch is by the tensors' device: on a CUDA tensor the wrapper checks
+device, dtype, shape and contiguity, launches its kernel on the current
+stream and counts the launch in ``<wrapper>.launches``; on a CPU tensor it
+runs the plain PyTorch version beside it (``*_plain``), the counterpart
+of the reference's interpret mode. It never falls back from one to the
+other. ``row_tile``, ``pair_tile`` and ``placement`` are accepted for
+signature parity and ignored: the CUDA kernels choose their own launch
+geometry, and the numerics of this family do not depend on tiles.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build, quant, ref
+
+__all__ = [
+    "alg3_stream_step",
+    "alg3_stream_step_plain",
+    "alg3_subtract_average",
+    "alg3_subtract_average_plain",
+]
+
+_FORMATS = {"u16": 0, "u8": 1, "p12": 2}
+#: float32 u8 scale, as the reference's ``jnp.asarray(U8_SCALE, f32)``
+U8_SCALE_F32 = float(np.float32(quant.U8_SCALE))
+#: ROADMAP.md item an unported request names
+NOT_PORTED_ACCUM = (
+    "the CUDA kernels accumulate in float32 only; other accumulators run "
+    "on the CPU (ROADMAP.md queue C, 'non-float32 accumulators on CUDA')"
+)
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises on a mix or on
+    another device type (the wrappers never move data between devices)."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(
+        f"tensors must all be on one CUDA device or all on the CPU, got "
+        f"{[str(t.device) for t in tensors]}"
+    )
+
+
+def check_kernel_operands(
+    frames: torch.Tensor, out: torch.Tensor, stream_dtype: str
+) -> tuple[int, int, int]:
+    """Validate a CUDA launch; returns ``(format code, items, row_bytes)``.
+
+    ``items`` is the per-row thread count (W, or W/2 for p12, whose 3 wire
+    bytes hold two pixels); ``row_bytes`` the wire row length in bytes.
+    """
+    quant.validate_stream_dtype(stream_dtype)
+    if out.dtype != torch.float32:
+        raise NotImplementedError(f"accumulator {out.dtype}: {NOT_PORTED_ACCUM}")
+    want = quant.container_torch_dtype(stream_dtype)
+    if frames.dtype != want:
+        raise TypeError(
+            f"stream_dtype={stream_dtype!r} kernels ingest {want} wire "
+            f"containers, got {frames.dtype}"
+        )
+    if not (frames.is_contiguous() and out.is_contiguous()):
+        raise ValueError("the CUDA kernels need contiguous frames and sums")
+    w = out.shape[-1]
+    items = w // 2 if stream_dtype == "p12" else w
+    return _FORMATS[stream_dtype], items, frames.shape[-1] * frames.element_size()
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error (0 = launched)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {rc})")
+
+
+def check_step_shapes(group_frames, sum_frame, stream_dtype, banked):
+    lead = 1 if banked else 0
+    if group_frames.ndim != 3 + lead or sum_frame.ndim != 3 + lead:
+        raise ValueError(
+            f"expected {'(B, ' if banked else '('}N, H, wire_W) frames and a "
+            f"matching sum, got {tuple(group_frames.shape)} and "
+            f"{tuple(sum_frame.shape)}"
+        )
+    n, h, wp = group_frames.shape[-3:]
+    want = group_frames.shape[:lead] + (n // 2, h, quant.logical_width(wp, stream_dtype))
+    if n % 2 or tuple(sum_frame.shape) != tuple(want):
+        raise ValueError(
+            f"sum shape {tuple(sum_frame.shape)} does not match frames "
+            f"{tuple(group_frames.shape)} (want {tuple(want)}, N even)"
+        )
+
+
+def alg3_stream_step_plain(
+    group_frames: torch.Tensor,
+    sum_frame: torch.Tensor,
+    *,
+    num_groups: int,
+    offset: float = 0.0,
+    divide_first: bool = False,
+    final: bool = False,
+    stream_dtype: str = "u16",
+) -> torch.Tensor:
+    """Plain PyTorch version of the step kernel; returns a new sum."""
+    total = ref.ref_stream_step(
+        sum_frame, group_frames, offset=offset,
+        variant="divide_first" if divide_first else "divide_last",
+        num_groups=num_groups, stream_dtype=stream_dtype,
+    )
+    if final and not divide_first:
+        total = ref.scale_reciprocal(total, num_groups)
+    return total
+
+
+def alg3_stream_step(
+    group_frames: torch.Tensor,
+    sum_frame: torch.Tensor,
+    *,
+    num_groups: int,
+    offset: float = 0.0,
+    divide_first: bool = False,
+    final: bool = False,
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    stream_dtype: str = "u16",
+    placement: str | None = None,
+) -> torch.Tensor:
+    """Fold one group (N, H, wire_W) into the running sum (N/2, H, W), in place."""
+    check_step_shapes(group_frames, sum_frame, stream_dtype, banked=False)
+    if not on_cuda(group_frames, sum_frame):
+        return sum_frame.copy_(alg3_stream_step_plain(
+            group_frames, sum_frame, num_groups=num_groups, offset=offset,
+            divide_first=divide_first, final=final, stream_dtype=stream_dtype,
+        ))
+    fmt, items, row_bytes = check_kernel_operands(group_frames, sum_frame, stream_dtype)
+    n, h, _ = group_frames.shape
+    lib = _build.library()
+    with torch.cuda.device(sum_frame.device):
+        rc = lib.alg3_stream_step_launch(
+            group_frames.data_ptr(), sum_frame.data_ptr(), n // 2, h, items,
+            row_bytes, fmt, int(divide_first), int(final and not divide_first),
+            float(offset), U8_SCALE_F32, ref.reciprocal(num_groups),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(rc, "alg3_stream_step")
+    alg3_stream_step.launches += 1
+    return sum_frame
+
+
+alg3_stream_step.launches = 0
+
+
+def alg3_subtract_average_plain(
+    frames: torch.Tensor,
+    *,
+    offset: float = 0.0,
+    divide_first: bool = False,
+    accum_dtype=torch.float32,
+    stream_dtype: str = "u16",
+) -> torch.Tensor:
+    """Plain PyTorch version of the one-shot kernel: groups folded in
+    order, then one reciprocal scale (divide_last)."""
+    *lead, g, n, h, wp = frames.shape
+    acc = ref.as_torch_dtype(accum_dtype)
+    total = torch.zeros(
+        (*lead, n // 2, h, quant.logical_width(wp, stream_dtype)),
+        dtype=acc, device=frames.device,
+    )
+    variant = "divide_first" if divide_first else "divide_last"
+    for k in range(g):
+        total = ref.ref_stream_step(
+            total, frames[..., k, :, :, :], offset=offset, variant=variant,
+            num_groups=g, stream_dtype=stream_dtype,
+        )
+    return total if divide_first else ref.scale_reciprocal(total, g)
+
+
+def alg3_subtract_average(
+    frames: torch.Tensor,
+    *,
+    offset: float = 0.0,
+    divide_first: bool = False,
+    accum_dtype=torch.float32,
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    stream_dtype: str = "u16",
+    placement: str | None = None,
+) -> torch.Tensor:
+    """frames (G, N, H, wire_W) -> averaged difference frames (N/2, H, W)."""
+    if frames.ndim != 4 or frames.shape[1] % 2:
+        raise ValueError(f"expected (G, N, H, wire_W) with N even, got {tuple(frames.shape)}")
+    if not on_cuda(frames):
+        return alg3_subtract_average_plain(
+            frames, offset=offset, divide_first=divide_first,
+            accum_dtype=accum_dtype, stream_dtype=stream_dtype,
+        )
+    g, n, h, wp = frames.shape
+    out = torch.empty(
+        (n // 2, h, quant.logical_width(wp, stream_dtype)),
+        dtype=ref.as_torch_dtype(accum_dtype), device=frames.device,
+    )
+    fmt, items, row_bytes = check_kernel_operands(frames, out, stream_dtype)
+    lib = _build.library()
+    with torch.cuda.device(frames.device):
+        rc = lib.alg3_subtract_average_launch(
+            frames.data_ptr(), out.data_ptr(), g, n // 2, h, items, row_bytes,
+            fmt, int(divide_first), float(offset), U8_SCALE_F32,
+            ref.reciprocal(g), torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(rc, "alg3_subtract_average")
+    alg3_subtract_average.launches += 1
+    return out
+
+
+alg3_subtract_average.launches = 0

@@ -1,0 +1,275 @@
+"""Public entry points for the denoise kernels (counterpart of
+``repro.kernels.ops``): the port's backend boundary.
+
+Dispatch follows the tensors' device, never a guess about the machine:
+
+* ``backend='auto'`` and ``'pallas'`` — on a CUDA tensor, the Hopper
+  kernel (``denoise_stream`` / ``denoise_multibank``); on a CPU tensor, the
+  kernel's plain PyTorch version (the counterpart of the reference's
+  interpret mode).
+* ``backend='xla'`` — the plain PyTorch composite, on whatever device the
+  tensors are on.
+
+Nothing catches a build or launch failure to run something else, and
+what this slice has not ported raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item (the Alg 1/2 baselines on CUDA). The running sums of
+``stream_step`` / ``multibank_stream_step`` are updated **in place**, where
+the reference donates them; both return the updated tensor.
+
+``row_tile`` / ``pair_tile`` / ``placement`` are accepted everywhere for
+parity and ignored (see :mod:`repro_torch.kernels.denoise_stream`).
+Rounding follows the reference's jitted functions, except
+``stream_finalize``, which like the reference (not jitted) divides truly
+on every device (:mod:`repro_torch.kernels.ref`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import denoise_multibank, denoise_stream, ref
+from repro_torch.kernels.quant import (  # noqa: F401  (shared dequant prologue)
+    STREAM_DTYPES,
+    dequant,
+    pair_diff_block,
+)
+
+__all__ = [
+    "ALGORITHMS",
+    "BACKENDS",
+    "SPATIAL_MODES",
+    "STREAM_DTYPES",
+    "TILE_PLANS",
+    "resolve_device",
+    "subtract_average",
+    "stream_init",
+    "stream_step",
+    "stream_finalize",
+    "multibank_subtract_average",
+    "multibank_stream_init",
+    "multibank_stream_step",
+    "pair_diff",
+    "dequant",
+    "pair_diff_block",
+]
+
+ALGORITHMS = ("alg1", "alg2", "alg3", "alg3_v2")
+BACKENDS = ("auto", "pallas", "xla")
+SPATIAL_MODES = ("box", "bilateral")
+TILE_PLANS = ("heuristic", "auto")
+
+#: what an Alg 1/2 request on a CUDA tensor raises (paper baselines, B10)
+NOT_PORTED_TMPFRAME = (
+    "the {algorithm} tmpFrame baseline has no Hopper kernel yet (ROADMAP.md "
+    "queue B, B10 denoise_tmpframe); run it on CPU tensors or with "
+    "backend='xla'"
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``"cuda"`` unless the caller
+    names another. Raises ``RuntimeError`` when CUDA is asked for and
+    absent, rather than carrying on on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend}")
+
+
+def _check_algorithm(algorithm: str) -> None:
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm}")
+
+
+def pair_diff(
+    group_frames: torch.Tensor, *, offset: float, accum_dtype, stream_dtype: str = "u16"
+) -> torch.Tensor:
+    """(..., N, H, wire_W) -> (..., N/2, H, W): exc - ctl + offset (plain torch)."""
+    return ref.pair_diff(
+        group_frames, offset=offset, accum_dtype=accum_dtype, stream_dtype=stream_dtype
+    )
+
+
+def _materialized(frames, *, offset, accum_dtype, stream_dtype, group_axis):
+    """Alg 1/2 dataflow: every diff first (tmpFrame), then the reduction."""
+    acc = ref.as_torch_dtype(accum_dtype)
+    tmp = pair_diff(frames, offset=offset, accum_dtype=acc, stream_dtype=stream_dtype)
+    total = tmp.select(group_axis, 0)
+    for k in range(1, tmp.shape[group_axis]):
+        total = ref.fold(total, tmp.select(group_axis, k), divide_first=False, num_groups=1)
+    return ref.scale_reciprocal(total, tmp.shape[group_axis])
+
+
+def subtract_average(
+    frames: torch.Tensor,
+    *,
+    offset: float = 0.0,
+    algorithm: str = "alg3",
+    backend: str = "auto",
+    accum_dtype=torch.float32,
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    stream_dtype: str = "u16",
+    placement: str | None = None,
+) -> torch.Tensor:
+    """PRISM denoise: (G, N, H, wire_W) frames -> (N/2, H, W) averaged diffs."""
+    _check_algorithm(algorithm)
+    _check_backend(backend)
+    if algorithm in ("alg1", "alg2"):
+        if backend != "xla" and denoise_stream.on_cuda(frames):
+            raise NotImplementedError(NOT_PORTED_TMPFRAME.format(algorithm=algorithm))
+        if backend == "pallas" and stream_dtype != "u16":
+            raise ValueError(
+                f"no {stream_dtype!r} ingest for the {algorithm} pallas "
+                "baseline; use backend='xla' or stream_dtype='u16'"
+            )
+        return _materialized(
+            frames, offset=offset, accum_dtype=accum_dtype,
+            stream_dtype=stream_dtype, group_axis=0,
+        )
+    fn = (
+        denoise_stream.alg3_subtract_average
+        if backend != "xla"
+        else denoise_stream.alg3_subtract_average_plain
+    )
+    return fn(
+        frames, offset=offset, divide_first=(algorithm == "alg3_v2"),
+        accum_dtype=accum_dtype, stream_dtype=stream_dtype,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Streaming API (one group per call — the production/camera entry point).
+# ---------------------------------------------------------------------------
+
+
+def stream_init(n: int, h: int, w: int, accum_dtype=torch.float32, *, device=None):
+    """Running-sum state: (N/2, H, W) zeros on ``device`` (CUDA unless the
+    caller names another; ``RuntimeError`` when CUDA is absent)."""
+    return ref.ref_stream_init(n, h, w, accum_dtype, device=resolve_device(device))
+
+
+def stream_step(
+    sum_frame: torch.Tensor,
+    group_frames: torch.Tensor,
+    *,
+    num_groups: int,
+    offset: float = 0.0,
+    variant: str = "divide_last",
+    backend: str = "auto",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    stream_dtype: str = "u16",
+    placement: str | None = None,
+) -> torch.Tensor:
+    """Fold one group into ``sum_frame`` in place; returns ``sum_frame``."""
+    _check_backend(backend)
+    if backend != "xla":
+        return denoise_stream.alg3_stream_step(
+            group_frames, sum_frame, num_groups=num_groups, offset=offset,
+            divide_first=(variant == "divide_first"), stream_dtype=stream_dtype,
+        )
+    return sum_frame.copy_(ref.ref_stream_step(
+        sum_frame, group_frames, offset=offset, variant=variant,
+        num_groups=num_groups, stream_dtype=stream_dtype,
+    ))
+
+
+def stream_finalize(sum_frame, num_groups, *, variant="divide_last"):
+    """Final average, dividing truly on every device; a fresh tensor."""
+    return ref.ref_stream_finalize(sum_frame, num_groups, variant=variant)
+
+
+# ---------------------------------------------------------------------------
+# Multi-bank API: leading bank axis.
+# ---------------------------------------------------------------------------
+
+
+def multibank_subtract_average(
+    frames: torch.Tensor,
+    *,
+    offset: float = 0.0,
+    algorithm: str = "alg3",
+    backend: str = "auto",
+    accum_dtype=torch.float32,
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    stream_dtype: str = "u16",
+    placement: str | None = None,
+) -> torch.Tensor:
+    """(B, G, N, H, wire_W) -> (B, N/2, H, W), banks independent.
+
+    Only the Alg 3 variants have a multi-bank kernel; ``backend='pallas'``
+    with Alg 1/2 is an error, as in the reference.
+    """
+    _check_algorithm(algorithm)
+    if backend == "pallas" and algorithm in ("alg1", "alg2"):
+        raise ValueError(
+            f"no multibank pallas kernel for {algorithm}; use backend='auto'/"
+            "'xla' (vmapped materialized baseline) or the single-bank "
+            "subtract_average"
+        )
+    _check_backend(backend)
+    divide_first = algorithm == "alg3_v2"
+    if algorithm in ("alg1", "alg2"):
+        if backend != "xla" and denoise_stream.on_cuda(frames):
+            raise NotImplementedError(NOT_PORTED_TMPFRAME.format(algorithm=algorithm))
+        return _materialized(
+            frames, offset=offset, accum_dtype=accum_dtype,
+            stream_dtype=stream_dtype, group_axis=1,
+        )
+    fn = (
+        denoise_multibank.multibank_subtract_average
+        if backend != "xla"
+        else denoise_multibank.multibank_subtract_average_plain
+    )
+    return fn(
+        frames, offset=offset, divide_first=divide_first,
+        accum_dtype=accum_dtype, stream_dtype=stream_dtype,
+    )
+
+
+def multibank_stream_init(
+    banks: int, n: int, h: int, w: int, accum_dtype=torch.float32, *, device=None
+) -> torch.Tensor:
+    """Running-sum state with a leading bank axis: (B, N/2, H, W) zeros,
+    on ``device`` as for :func:`stream_init`."""
+    return torch.zeros(
+        (banks, n // 2, h, w), dtype=ref.as_torch_dtype(accum_dtype),
+        device=resolve_device(device),
+    )
+
+
+def multibank_stream_step(
+    sum_frames: torch.Tensor,
+    group_frames: torch.Tensor,
+    *,
+    num_groups: int,
+    offset: float = 0.0,
+    variant: str = "divide_last",
+    backend: str = "auto",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    stream_dtype: str = "u16",
+    placement: str | None = None,
+) -> torch.Tensor:
+    """Fold one group per bank (B, N, H, wire_W) into ``sum_frames`` in place."""
+    _check_backend(backend)
+    if backend != "xla":
+        return denoise_multibank.multibank_stream_step(
+            group_frames, sum_frames, num_groups=num_groups, offset=offset,
+            divide_first=(variant == "divide_first"), stream_dtype=stream_dtype,
+        )
+    return sum_frames.copy_(ref.ref_stream_step(
+        sum_frames, group_frames, offset=offset, variant=variant,
+        num_groups=num_groups, stream_dtype=stream_dtype,
+    ))
+

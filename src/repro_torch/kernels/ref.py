@@ -1,0 +1,223 @@
+"""Plain PyTorch oracles for the PRISM subtract-and-average kernels
+(counterpart of ``repro.kernels.ref``).
+
+Paper semantics (§4.1, Fig. 2): ``G`` groups of ``N`` frames (``N`` even)
+alternate control and excitation::
+
+    diff[g, k] = frame[g, 2k+1] - frame[g, 2k] + offset      (0-based)
+    out[k]     = (1/G) * sum_g diff[g, k]                    k in [0, N/2)
+
+``divide_last`` (Alg 1/2/3) divides the sum once; ``divide_first``
+(Alg 3 v2) divides every diff before it is added.
+
+**Rounding contract.** The streaming oracle (``ref_stream_step``,
+:func:`fold`, :func:`scale_reciprocal`) reproduces the reference's
+*jitted* entry points bit for bit, because those are what the kernels
+replace. Inside ``jit`` XLA turns ``x / G`` into ``x * f32(1/G)`` and
+contracts ``s + d * f32(1/G)`` into one FMA, so ``divide_first`` folds
+``fma(d, 1/G, s)`` (see :func:`fma_f32`) and the one-shot ``divide_last``
+scales by the reciprocal. Outside ``jit`` the reference divides truly:
+``ref_stream_finalize`` and ``ref_subtract_average`` here do the same,
+through :func:`true_divide`, which never lets PyTorch's CUDA scalar
+division swap in a reciprocal.
+
+Integer containers (``torch.uint16``, ``torch.int32``) compute in int32
+and wrap back (``quant.widen``/``quant.narrow``): PyTorch has no
+arithmetic on ``uint16``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import quant
+
+__all__ = [
+    "as_torch_dtype",
+    "true_divide",
+    "reciprocal",
+    "fma_f32",
+    "fold",
+    "scale_reciprocal",
+    "ref_subtract_average",
+    "ref_stream_init",
+    "ref_stream_step",
+    "ref_stream_finalize",
+    "ref_numpy",
+]
+
+
+def as_torch_dtype(dtype) -> torch.dtype:
+    """``"float32"``, ``np.float32``, ``torch.float32``... -> ``torch.float32``."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"not a dtype: {dtype!r}")
+    return out
+
+
+def _is_int(dtype: torch.dtype) -> bool:
+    return not dtype.is_floating_point and not dtype.is_complex
+
+
+def true_divide(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``x / k`` as a true division on every device (floor for integers).
+
+    The divisor is a 0-dim tensor on ``x``'s device: PyTorch's CUDA
+    division by a *host* scalar multiplies by its reciprocal instead.
+    """
+    if _is_int(x.dtype):
+        return quant.narrow(quant.widen(x) // k, x.dtype)
+    return x / torch.tensor(k, dtype=x.dtype, device=x.device)
+
+
+def reciprocal(num_groups: int) -> float:
+    """``f32(1) / f32(G)``: the constant XLA multiplies by for ``/ G``."""
+    return float(np.float32(1) / np.float32(num_groups))
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``round_f32(a * b + c)`` with a single rounding, like ``fmaf``.
+
+    ``a * b`` is exact in float64 (24 + 24 significant bits). The sum is
+    rounded to odd in float64 (TwoSum for the exact error, then a nudge
+    off an even last bit), and the final cast to float32 rounds to
+    nearest: with 53 >= 24 + 2 bits that double rounding is exact.
+    """
+    x = a.to(torch.float64) * torch.as_tensor(b, dtype=torch.float64)
+    y = c.to(torch.float64)
+    s = x + y
+    bb = s - x
+    err = (x - (s - bb)) + (y - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def fold(
+    sum_frame: torch.Tensor, diff: torch.Tensor, *, divide_first: bool, num_groups: int
+) -> torch.Tensor:
+    """One running-sum update, rounded as the reference's jitted step."""
+    acc = sum_frame.dtype
+    if _is_int(acc):
+        d = quant.widen(diff)
+        if divide_first:
+            d = d // num_groups
+        return quant.narrow(quant.widen(sum_frame) + d, acc)
+    if not divide_first:
+        return sum_frame + diff
+    if acc == torch.float32:
+        return fma_f32(diff, reciprocal(num_groups), sum_frame)
+    return sum_frame + diff * torch.tensor(reciprocal(num_groups), dtype=acc)
+
+
+def scale_reciprocal(total: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """The jitted ``total / G``: a reciprocal multiply (floor for integers)."""
+    if _is_int(total.dtype):
+        return true_divide(total, num_groups)
+    return total * torch.tensor(reciprocal(num_groups), dtype=total.dtype)
+
+
+def _split_pairs(frames: torch.Tensor) -> torch.Tensor:
+    """(..., N, H, W) -> (..., N/2, 2, H, W) pairs view."""
+    n = frames.shape[-3]
+    if n % 2 != 0:
+        raise ValueError(f"N must be even, got {n}")
+    return frames.reshape(frames.shape[:-3] + (n // 2, 2) + frames.shape[-2:])
+
+
+def pair_diff(frames, *, offset, accum_dtype, stream_dtype="u16") -> torch.Tensor:
+    """(..., N, H, wire_W) -> (..., N/2, H, W): ``exc - ctl + offset``."""
+    return quant.pair_diff_block(
+        _split_pairs(frames), offset=offset,
+        accum_dtype=as_torch_dtype(accum_dtype), stream_dtype=stream_dtype,
+    )
+
+
+def ref_subtract_average(
+    frames: torch.Tensor,
+    *,
+    offset: int | float = 0,
+    variant: str = "divide_last",
+    accum_dtype=None,
+) -> torch.Tensor:
+    """One-shot oracle. frames: (G, N, H, W) -> (N/2, H, W).
+
+    The counterpart of the reference's *eager* oracle: groups summed in
+    order, true division. ``accum_dtype`` defaults to float32 for float
+    inputs and int32 for integer inputs; ``torch.uint16`` reproduces the
+    paper's container overflow for G > 8.
+    """
+    if frames.ndim != 4:
+        raise ValueError(f"expected (G, N, H, W), got shape {tuple(frames.shape)}")
+    if variant not in ("divide_last", "divide_first"):
+        raise ValueError(f"unknown variant {variant!r}")
+    g = frames.shape[0]
+    if accum_dtype is None:
+        accum_dtype = torch.float32 if frames.dtype.is_floating_point else torch.int32
+    acc = as_torch_dtype(accum_dtype)
+    diff = pair_diff(frames, offset=offset, accum_dtype=acc)
+    if variant == "divide_first":
+        diff = true_divide(diff, g)
+    total = diff[0]
+    for k in range(1, g):
+        total = quant.narrow(quant.widen(total) + quant.widen(diff[k]), acc)
+    out = total if variant == "divide_first" else true_divide(total, g)
+    return out if acc == frames.dtype else out.to(acc)
+
+
+# ---------------------------------------------------------------------------
+# Streaming oracle: one group of frames per step (paper Algorithm 3).
+# ---------------------------------------------------------------------------
+
+
+def ref_stream_init(n: int, h: int, w: int, accum_dtype=torch.float32, *, device="cpu"):
+    """Running-sum state: (N/2, H, W) zeros."""
+    return torch.zeros((n // 2, h, w), dtype=as_torch_dtype(accum_dtype), device=device)
+
+
+def ref_stream_step(
+    sum_frame: torch.Tensor,
+    group_frames: torch.Tensor,
+    *,
+    offset: int | float = 0,
+    variant: str = "divide_last",
+    num_groups: int | None = None,
+    stream_dtype: str = "u16",
+) -> torch.Tensor:
+    """Fold one group (N, H, wire_W) into the running sum (N/2, H, W).
+
+    Returns a new tensor (the in-place update is ``ops.stream_step``'s);
+    leading bank axes pass through, as in the reference.
+    """
+    if variant == "divide_first" and num_groups is None:
+        raise ValueError("divide_first needs num_groups")
+    diff = pair_diff(
+        group_frames, offset=offset, accum_dtype=sum_frame.dtype,
+        stream_dtype=stream_dtype,
+    )
+    return fold(
+        sum_frame, diff, divide_first=variant == "divide_first",
+        num_groups=num_groups or 1,
+    )
+
+
+def ref_stream_finalize(
+    sum_frame: torch.Tensor, num_groups: int, *, variant: str = "divide_last"
+) -> torch.Tensor:
+    """Final average; a fresh tensor, never the running sum itself."""
+    if variant == "divide_first":
+        return sum_frame.clone()
+    return true_divide(sum_frame, num_groups)
+
+
+def ref_numpy(frames: np.ndarray, offset: float = 0.0) -> np.ndarray:
+    """Plain-numpy oracle (float64)."""
+    g, n, h, w = frames.shape
+    ctl = frames[:, 0::2].astype(np.float64)
+    exc = frames[:, 1::2].astype(np.float64)
+    return ((exc - ctl + offset).sum(axis=0) / g).astype(np.float64)

@@ -1,0 +1,186 @@
+"""The port stands alone: it imports neither jax nor the reference, runs
+on CUDA unless told otherwise (and refuses to carry on on the CPU when
+CUDA is absent), never falls back from a kernel to its plain version,
+and can take over or hand back a stream mid-acquisition (``convert``).
+"""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.denoise import DenoiseConfig as JConfig
+from repro.core.denoise import StreamingDenoiser as JDenoiser
+from repro.data.prism import PrismSource as JSource
+from repro_torch import convert
+from repro_torch.core import streaming
+from repro_torch.core.denoise import DenoiseConfig, StreamingDenoiser
+from repro_torch.kernels import ops
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+SMALL = dict(num_groups=8, frames_per_group=8, height=8, width=128)
+
+
+def _modules():
+    out = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        out.append(".".join(parts))
+    return out
+
+
+def test_import_loads_neither_jax_nor_reference():
+    mods = _modules()
+    assert "repro_torch.kernels.denoise_stream" in mods and len(mods) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    src = str(PKG.parent)
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": src, "PATH": "/usr/bin:/bin"},
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_no_module_imports_jax_or_reference_statically():
+    for path in PKG.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "repro"), f"{path}: {n}"
+
+
+def test_kernel_modules_have_no_fallback_handlers():
+    # a build or launch failure must surface, never reroute to the plain path
+    for name in ("denoise_stream.py", "denoise_multibank.py", "ops.py", "_build.py"):
+        tree = ast.parse((PKG / "kernels" / name).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [
+        lambda cfg, src: StreamingDenoiser(cfg),
+        lambda cfg, src: streaming.run_pipelined(cfg, src),
+        lambda cfg, src: streaming.run_inline(cfg, src),
+        lambda cfg, src: streaming.run_inline(cfg, src, prefetch=False),
+        lambda cfg, src: streaming.run_buffered(cfg, src),
+    ],
+    ids=["denoiser", "pipelined", "inline", "inline_serial", "buffered"],
+)
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
+    cfg = DenoiseConfig(**SMALL)
+    pulled = []
+
+    def src():
+        pulled.append(1)
+        yield np.zeros((8, 8, 128), np.uint16)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(cfg, src())
+    assert not pulled  # raised before acquiring anything
+
+
+def test_explicit_cuda_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingDenoiser(DenoiseConfig(**SMALL), device="cuda")
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [
+        lambda: ops.stream_init(8, 8, 128),
+        lambda: ops.multibank_stream_init(2, 8, 8, 128),
+        lambda: convert.state_from_reference(np.zeros((4, 8, 128), np.float32)),
+    ],
+    ids=["stream_init", "multibank_stream_init", "state_from_reference"],
+)
+def test_state_constructors_default_to_cuda_and_raise_without_it(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+def test_state_constructors_take_an_explicit_cpu_device(no_cuda):
+    assert ops.stream_init(8, 8, 128, device="cpu").device.type == "cpu"
+    assert ops.multibank_stream_init(2, 8, 8, 128, device="cpu").shape == (2, 4, 8, 128)
+    x = np.ones((4, 8, 128), np.float32)
+    assert torch.equal(convert.state_from_reference(x, device="cpu"), torch.ones(4, 8, 128))
+
+
+def test_config_round_trip_through_convert():
+    for kw in (SMALL, dict(SMALL, stream_dtype="p12", algorithm="alg3_v2", num_banks=2)):
+        jcfg = JConfig(**kw)
+        cfg = convert.config_from_reference(dataclasses.asdict(jcfg))
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    with pytest.raises(ValueError, match="lacks"):
+        convert.config_from_reference({**dataclasses.asdict(JConfig(**SMALL)), "x": 1})
+
+
+@pytest.mark.parametrize("algorithm", ["alg3", "alg3_v2"])
+@pytest.mark.parametrize("fmt", ["u16", "u8"])
+def test_stream_handoff_reference_to_port(fmt, algorithm):
+    kw = dict(SMALL, num_groups=6, stream_dtype=fmt, algorithm=algorithm)
+    jcfg = JConfig(**kw)
+    groups = list(JSource(jcfg, seed=9).groups())
+    jden = JDenoiser(jcfg)
+    full = jden.run(jnp.asarray(g) for g in groups)
+    # the reference folds groups 0..2, the port folds 3..5
+    js = jden.init()
+    for k in range(3):
+        js = jden.ingest(js, jnp.asarray(groups[k]), step=k)
+    cfg = convert.config_from_reference(dataclasses.asdict(jcfg))
+    den = StreamingDenoiser(cfg, device="cpu")
+    st = convert.state_from_reference(np.asarray(js), device="cpu")
+    for k in range(3, 6):
+        st = den.ingest(st, groups[k], step=k)
+    assert np.array_equal(den.finalize(st).numpy(), np.asarray(full))
+
+
+@pytest.mark.parametrize("algorithm", ["alg3", "alg3_v2"])
+def test_stream_handoff_port_to_reference(algorithm):
+    kw = dict(SMALL, num_groups=6, algorithm=algorithm)
+    jcfg, cfg = JConfig(**kw), DenoiseConfig(**kw)
+    groups = list(JSource(jcfg, seed=10).groups())
+    full = JDenoiser(jcfg).run(jnp.asarray(g) for g in groups)
+    den = StreamingDenoiser(cfg, device="cpu")
+    st = den.init()
+    for k in range(3):
+        st = den.ingest(st, groups[k], step=k)
+    jden = JDenoiser(jcfg)
+    js = jnp.asarray(convert.state_to_reference(st))
+    for k in range(3, 6):
+        js = jden.ingest(js, jnp.asarray(groups[k]), step=k)
+    assert np.array_equal(np.asarray(jden.finalize(js)), np.asarray(full))
+
+
+def test_uint16_state_converts_losslessly():
+    x = np.array([[[0, 1, 65535]]], np.uint16)
+    t = convert.state_from_reference(x, device="cpu")
+    assert t.dtype == torch.uint16
+    back = convert.state_to_reference(t)
+    assert back.dtype == np.uint16 and np.array_equal(back, x)
