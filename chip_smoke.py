@@ -6,14 +6,21 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(nvcc, into ``src/repro_torch/kernels/build``), then:
+(nvcc, one process per source, into ``src/repro_torch/kernels/build``),
+then:
 
-1. holds every kernel of the main path against its plain PyTorch version
-   run on the CPU, bitwise, for u16/u8/p12 wire formats, both variants
-   (Alg 3 and Alg 3 v2) and G in {5, 8}; then (1b) runs the executors on
-   the card at G = 5, where 1/G is inexact, so the eager true divisions
-   (``stream_finalize``, a consumer's partials, a ``drop_oldest`` stream
-   cut short) are held bitwise against the same runs on the CPU;
+1. holds every kernel against its plain PyTorch version run on the CPU:
+   B2-B5 bitwise for u16/u8/p12 wire formats, both variants (Alg 3 and
+   Alg 3 v2) and G in {5, 8}; B6 (median insert) and B8 (EMA step)
+   bitwise for u16/u8/p12 and G in {5, 8}, B8 also at N = 1000 with the
+   main path's 100 merge chunks; B7 (median combine) bitwise for K in
+   {1, 4, 5}; B9 (3x3 spatial) bitwise in box mode and within its
+   declared tolerance in bilateral mode. Then (1b) runs the executors on
+   the card at G = 5, where 1/G is inexact, for ``pair_average`` and the
+   three other filters, so the eager true divisions (finalize, a
+   consumer's partials, a ``drop_oldest`` stream made to drop one group
+   whatever the thread timing), the one-shot call and the banked path
+   are held bitwise against the same runs on the CPU;
 2. drives the main path at the paper's size (G = 8, N = 1000, 80 x 256,
    u16): ``PrismSource`` -> ``run_pipelined`` (ring depth 2 and 3),
    ``run_inline(prefetch=False)`` and the one-shot ``StreamingDenoiser``
@@ -21,12 +28,20 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 3. drives the banked path on one card (two banks): ``ingest_many`` and
    the 5-D one-shot call;
 4. times each kernel at the paper's shape with CUDA events against the
-   least time the card needs to move its bytes, times its plain version,
-   and times the pipelined executor per group against the camera's 57 ms
-   inter-group interval.
+   least time the card needs for its bytes or operations, times its
+   plain version and, where one PyTorch call computes the same function,
+   that call; and times the pipelined executor per group against the
+   camera's 57 ms inter-group interval;
+5. drives the other filters at the paper's size (``temporal_median``
+   with its 5-slot window, ``ema_variance``, ``spatial_box`` in box and
+   bilateral mode): ``run_pipelined`` (depth 2),
+   ``run_inline(prefetch=False)`` and the one-shot call, each equal to
+   the CPU plain stream, and prints each filter's SNR against the
+   noise-free signal.
 
-Phases 2 and 3 are the main path: every launch counter is set to 0 just
-before them and read just after; a kernel launched no time there fails
+Phases 2-3 are the ``pair_average`` path (B2-B5) and phase 5 the other
+filters' path (B6-B9): every launch counter is set to 0 just before each
+and read just after; a kernel of the path launched no time there fails
 the run. The script prints the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -36,10 +51,12 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -49,7 +66,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-SOURCE = "src/repro_torch/kernels/csrc/denoise_stream.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
 #: (match in the card's name, HBM bytes/s, float32 non-tensor FLOP/s):
 #: NVIDIA data sheets, dense, at the full power limit
 PEAKS = (
@@ -59,6 +76,20 @@ PEAKS = (
     ("H100", 3.35e12, 67e12),  # SXM5 (named "H100 80GB HBM3" or "H100 SXM")
 )
 CAMERA_GROUP_MS = 57e-3 * 1000  # 57 us per frame x 1000 frames per group
+#: kernel -> (CUDA source, the TPU kernel's pallas_call it replaces)
+KERNELS = {
+    "alg3_stream_step": ("denoise_stream.cu", "src/repro/kernels/denoise_stream.py:252"),
+    "alg3_subtract_average": ("denoise_stream.cu", "src/repro/kernels/denoise_stream.py:160"),
+    "multibank_stream_step": ("denoise_stream.cu", "src/repro/kernels/denoise_multibank.py:201"),
+    "multibank_subtract_average": ("denoise_stream.cu", "src/repro/kernels/denoise_multibank.py:113"),
+    "median_window_insert": ("denoise_median.cu", "src/repro/kernels/denoise_median.py:104"),
+    "median_combine": ("denoise_median.cu", "src/repro/kernels/denoise_median.py:170"),
+    "ema_welford_step": ("denoise_ema.cu", "src/repro/kernels/denoise_ema.py:141"),
+    "spatial_filter_3x3": ("denoise_spatial.cu", "src/repro/kernels/denoise_spatial.py:126"),
+}
+PAIR_AVERAGE_PATH = ("alg3_stream_step", "alg3_subtract_average", "multibank_stream_step",
+                     "multibank_subtract_average")
+FILTER_PATH = ("median_window_insert", "median_combine", "ema_welford_step", "spatial_filter_3x3")
 
 
 def card_peaks(name: str) -> tuple[float, float]:
@@ -100,10 +131,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
         return 2
 
+    import torch.nn.functional as F
+
+    from repro_torch import obs
     from repro_torch.core import streaming
     from repro_torch.core.denoise import DenoiseConfig, StreamingDenoiser
     from repro_torch.data.prism import PrismSource, snr_db
-    from repro_torch.kernels import _build, denoise_multibank, denoise_stream, quant, ref
+    from repro_torch.kernels import (
+        _build,
+        denoise_ema,
+        denoise_median,
+        denoise_multibank,
+        denoise_spatial,
+        denoise_stream,
+        quant,
+        ref,
+    )
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -114,7 +157,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     took = time.perf_counter() - t0
-    print(f"build: {_build.SOURCE.name} built and loaded in {took:.1f} s")
+    print(f"build: {', '.join(s.name for s in _build.SOURCES)} built and loaded in {took:.1f} s")
     record: dict = {"card": smi, "device": name, "torch": torch.__version__, "build_s": took}
 
     wrappers = {
@@ -122,21 +165,37 @@ def main() -> int:
         "alg3_subtract_average": denoise_stream.alg3_subtract_average,
         "multibank_stream_step": denoise_multibank.multibank_stream_step,
         "multibank_subtract_average": denoise_multibank.multibank_subtract_average,
+        "median_window_insert": denoise_median.median_window_insert,
+        "median_combine": denoise_median.median_combine,
+        "ema_welford_step": denoise_ema.ema_welford_step,
+        "spatial_filter_3x3": denoise_spatial.spatial_filter_3x3,
     }
-    replaces = {
-        "alg3_stream_step": "src/repro/kernels/denoise_stream.py:252",
-        "alg3_subtract_average": "src/repro/kernels/denoise_stream.py:160",
-        "multibank_stream_step": "src/repro/kernels/denoise_multibank.py:201",
-        "multibank_subtract_average": "src/repro/kernels/denoise_multibank.py:113",
-    }
+    assert set(wrappers) == set(KERNELS)
     max_err = {k: 0.0 for k in wrappers}
+
+    def diff_max(got: torch.Tensor, want: torch.Tensor) -> float:
+        return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
 
     def same(kernel: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         got = got.cpu()
-        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        err = diff_max(got, want)
         max_err[kernel] = max(max_err[kernel], err)
         if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
             raise AssertionError(f"{kernel} {what}: not bitwise equal to its plain version (max |diff| {err})")
+
+    def rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+        return float(((got.double() - want.double()).abs() / want.double().abs()).max())
+
+    def close(kernel: str, got: torch.Tensor, want: torch.Tensor, rtol: float, what: str) -> float:
+        """Hold a result to its plain version within ``rtol`` (relative, no
+        absolute slack); returns the largest relative difference."""
+        got = got.cpu()
+        err = diff_max(got, want)
+        max_err[kernel] = max(max_err[kernel], err)
+        rel = rel_diff(got, want)
+        if got.shape != want.shape or not rel <= rtol:
+            raise AssertionError(f"{kernel} {what}: max relative diff {rel:.3g} > {rtol:.3g}")
+        return rel
 
     rng = np.random.default_rng(0)
     offset = 4096.0
@@ -180,10 +239,145 @@ def main() -> int:
              denoise_multibank.multibank_subtract_average(banked.to(dev), **kw),
              denoise_multibank.multibank_subtract_average_plain(banked, **kw), what)
     torch.cuda.synchronize()
-    print(f"phase 1: {len(cases)} cases x 4 kernels bitwise equal to the CPU plain versions "
-          f"({time.perf_counter() - t1:.1f} s)")
+    print(f"phase 1: {len(cases)} cases x 4 kernels (B2-B5) bitwise equal to the CPU plain "
+          f"versions ({time.perf_counter() - t1:.1f} s)")
+
+    # B6-B9 against their plain versions on the CPU
+    t1 = time.perf_counter()
+
+    def ema_case(frames: torch.Tensor, fmt: str, pair_tile: int, what: str) -> None:
+        g, n = frames.shape[:2]
+        gpu = [torch.zeros(n // 2, H, W, device=dev), torch.zeros(H, W, device=dev),
+               torch.zeros(H, W, device=dev)]
+        cpu = [t.cpu() for t in gpu]
+        for k in range(g):
+            kw = dict(alpha=0.3, offset=offset, prior_count=k * (n // 2), pair_tile=pair_tile,
+                      stream_dtype=fmt)
+            denoise_ema.ema_welford_step(*gpu, frames[k].to(dev), **kw)
+            cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[k], **kw))
+        for a, b in zip(gpu, cpu):
+            same("ema_welford_step", a, b, what)
+
+    new_cases = 0
+    for g in (5, 8):
+        for fmt in quant.STREAM_DTYPES:
+            what = f"G={g} N=64 {fmt}"
+            frames = wire((g, 64, H), fmt)
+            # B6: G groups into a 5-slot ring (it wraps at G = 8)
+            w_gpu, w_cpu = torch.zeros(5, 32, H, W, device=dev), torch.zeros(5, 32, H, W)
+            for k in range(g):
+                kw = dict(slot=k % 5, offset=offset, stream_dtype=fmt)
+                denoise_median.median_window_insert(w_gpu, frames[k].to(dev), **kw)
+                denoise_median.median_window_insert_plain(w_cpu, frames[k], **kw)
+            same("median_window_insert", w_gpu, w_cpu, what)
+            for k in (1, 4, 5):  # B7 over the filled prefix
+                same("median_combine", denoise_median.median_combine(w_gpu[:k]),
+                     denoise_median.median_combine_plain(w_cpu[:k]), f"{what} K={k}")
+            ema_case(frames, fmt, 4, what + " pair_tile=4")  # B8, 8 chunks
+            new_cases += 1
+    ema_case(wire((8, 1000, H), "u16"), "u16", 5, "G=8 N=1000 u16 pair_tile=5")  # 100 chunks
+    bilateral_rel = 0.0
+    for p in (32, 500):  # B9 on the main path's (P, 80, 256) and a short stack
+        x = torch.from_numpy((4096 + 40 * rng.standard_normal((p, H, W))).astype(np.float32))
+        x[:, 7, 11] += 900.0  # a hot pixel
+        same("spatial_filter_3x3", denoise_spatial.spatial_filter_3x3(x.to(dev), mode="box"),
+             denoise_spatial.spatial_filter_3x3_plain(x, mode="box"), f"P={p} box")
+        kw = dict(mode="bilateral", range_sigma=60.0)
+        bilateral_rel = max(bilateral_rel, close(
+            "spatial_filter_3x3", denoise_spatial.spatial_filter_3x3(x.to(dev), **kw),
+            denoise_spatial.spatial_filter_3x3_plain(x, **kw), denoise_spatial.BILATERAL_RTOL,
+            f"P={p} bilateral"))
+    torch.cuda.synchronize()
+    print(f"phase 1: B6/B7/B8 bitwise equal to the CPU plain versions in {new_cases} cases "
+          f"(u16/u8/p12, G=5/8, K=1/4/5) and B8 at N=1000 with 100 chunks; B9 box bitwise, "
+          f"bilateral max relative diff {bilateral_rel:.3g} (declared "
+          f"{denoise_spatial.BILATERAL_RTOL:g}) ({time.perf_counter() - t1:.1f} s)")
+    record["bilateral_max_rel"] = bilateral_rel
 
     # -- phase 1b: the executors at G = 5, card against CPU ----------------
+    def forced_drop(cfg5, groups5, device):
+        """``run_pipelined`` under ``drop_oldest`` with one stage slot, made
+        to drop group 3 of 5 whatever the thread timing. The source hands
+        over each of groups 0-2 only once the compute stage has ingested
+        the one before. A consumer that holds step 0 lets its one-slot ring
+        fill, so the compute stage stops after group 2; groups 3 and 4 then
+        arrive together, and the second sheds the first."""
+        reg = obs.MetricsRegistry()
+        release = threading.Event()
+
+        def ingested(k):
+            deadline = time.monotonic() + 60
+            while reg.value("stream.frames") < k * cfg5.frames_per_group:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the compute stage never ingested group {k - 1}")
+                time.sleep(1e-3)
+
+        def source():
+            for k in range(3):
+                yield groups5[k]
+                ingested(k + 1)
+            yield groups5[3]
+            yield groups5[4]
+            release.set()
+
+        def hold(step, partial):
+            if step == 0 and not release.wait(60):
+                raise TimeoutError("the source never delivered its last group")
+
+        out, rep = streaming.run_pipelined(
+            cfg5, source(), num_slots=1, policy="drop_oldest", consumer=hold,
+            consumer_slots=1, metrics=reg, device=device)
+        if rep.drops != 1:
+            raise AssertionError(f"forced drop: {rep.drops} groups dropped, want 1")
+        return out
+
+    def card_vs_cpu(cfg5, groups5, what, bgroups5=None):
+        """Each executor run on the card and on the CPU, bitwise; returns
+        the CPU ``run_pipelined`` output. With ``bgroups5`` also the banked
+        (B = 2) ``ingest_many`` stream. Returns the number of runs."""
+
+        def both(label, call):
+            got, want = call("cuda"), call("cpu")
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{what} {label}: card and CPU differ")
+            return want
+
+        def piped(device, groups=groups5, **kw):
+            return streaming.run_pipelined(cfg5, iter(groups), device=device, **kw)[0]
+
+        def partials(device):
+            consumer = streaming.DownloadConsumer()
+            piped(device, consumer=consumer)
+            return torch.from_numpy(np.stack(consumer.partials))
+
+        def banked(device):
+            den = StreamingDenoiser(dataclasses.replace(cfg5, num_banks=2), device=device)
+            state = den.init()
+            for k, chunk in enumerate(bgroups5):
+                state = den.ingest_many(state, chunk, step=k)
+            return den.finalize(state)
+
+        def survivors(device):
+            """The 4 groups a forced drop keeps, ingested and finalized by hand."""
+            den = StreamingDenoiser(cfg5, device=device)
+            state = den.init()
+            for k, g in enumerate(groups5[:3] + groups5[4:]):
+                state = den.ingest(state, g, step=k)
+            return den.finalize(state, steps=4)
+
+        want = both("run_pipelined", piped)
+        both("run_inline(prefetch=False)", lambda d: streaming.run_inline(
+            cfg5, iter(groups5), prefetch=False, device=d)[0])
+        both("DownloadConsumer partials", partials)
+        dropped = both("drop_oldest, group 3 of 5 dropped", lambda d: forced_drop(
+            cfg5, groups5, d))
+        if not torch.equal(dropped, survivors("cpu")):
+            raise AssertionError(f"{what} drop_oldest: not the finalize of the 4 surviving groups")
+        both("one-shot", lambda d: StreamingDenoiser(cfg5, device=d)(np.stack(groups5)))
+        if bgroups5 is not None:
+            both("banked ingest_many (B=2)", banked)
+        return want, 5 + (bgroups5 is not None)
+
     t1 = time.perf_counter()
     runs, discriminates = 0, False
     for fmt in quant.STREAM_DTYPES:
@@ -191,30 +385,8 @@ def main() -> int:
             cfg5 = DenoiseConfig(num_groups=5, frames_per_group=64, stream_dtype=fmt,
                                  algorithm=algorithm)
             groups5 = list(PrismSource(cfg5, seed=5).groups())
-            what = f"G=5 {fmt} {algorithm}"
-
-            def both(label, call):
-                got, want = call("cuda"), call("cpu")
-                if not torch.equal(got.cpu(), want):
-                    raise AssertionError(f"{what} {label}: card and CPU differ")
-                return want
-
-            def piped(device, groups=groups5, **kw):
-                return streaming.run_pipelined(cfg5, iter(groups), device=device, **kw)[0]
-
-            def partials(device):
-                consumer = streaming.DownloadConsumer()
-                piped(device, consumer=consumer)
-                return torch.from_numpy(np.stack(consumer.partials))
-
-            want = both("run_pipelined", piped)
-            both("run_inline(prefetch=False)", lambda d: streaming.run_inline(
-                cfg5, iter(groups5), prefetch=False, device=d)[0])
-            both("DownloadConsumer partials", partials)
-            both("drop_oldest, 3 of 5 groups", lambda d: piped(
-                d, groups=groups5[:3], policy="drop_oldest"))
-            both("one-shot", lambda d: StreamingDenoiser(cfg5, device=d)(np.stack(groups5)))
-            runs += 5
+            want, n_runs = card_vs_cpu(cfg5, groups5, f"G=5 {fmt} {algorithm}")
+            runs += n_runs
             if algorithm == "alg3":  # the true division is not the reciprocal multiply here
                 den = StreamingDenoiser(cfg5, device="cpu")
                 state = den.init()
@@ -222,17 +394,28 @@ def main() -> int:
                     state = den.ingest(state, g, step=k)
                 recip = state * torch.tensor(ref.reciprocal(5), dtype=state.dtype)
                 discriminates |= not torch.equal(recip, want)
-    torch.cuda.synchronize()
     if not discriminates:
         raise AssertionError("G=5 finalize: true division never differed from x * f32(1/5)")
-    print(f"phase 1b: G=5 N=64 80x256, u16/u8/p12 x alg3/alg3_v2: {runs} executor runs on the "
-          f"card bitwise equal to the CPU ({time.perf_counter() - t1:.1f} s)")
+    filter_runs = 0
+    for extra in (dict(filter_name="temporal_median", median_window=3),  # the ring wraps
+                  dict(filter_name="ema_variance"),  # pair_tile 8: 4 merge chunks per group
+                  dict(filter_name="spatial_box", spatial_mode="box")):
+        cfg5 = DenoiseConfig(num_groups=5, frames_per_group=64, **extra)
+        groups5 = list(PrismSource(cfg5, seed=6).groups())
+        cfg5b = DenoiseConfig(num_groups=5, frames_per_group=64, num_banks=2, **extra)
+        bgroups5 = list(PrismSource(cfg5b, seed=7).banked_groups())
+        filter_runs += card_vs_cpu(cfg5, groups5, f"G=5 u16 {extra['filter_name']}", bgroups5)[1]
+    torch.cuda.synchronize()
+    print(f"phase 1b: G=5 N=64 80x256: {runs} pair_average executor runs (u16/u8/p12 x "
+          f"alg3/alg3_v2) and {filter_runs} runs of temporal_median/ema_variance/spatial_box "
+          f"on the card bitwise equal to the CPU ({time.perf_counter() - t1:.1f} s)")
 
     # -- phases 2 + 3: the main path at the paper's size -----------------
     cfg = DenoiseConfig()  # G=8, N=1000, 80x256, u16, pair_average, alg3
     assert (cfg.num_groups, cfg.frames_per_group, cfg.height, cfg.width) == (8, 1000, 80, 256)
     src = PrismSource(cfg, seed=0)
     groups = list(src.groups())
+    frames_dev = torch.from_numpy(np.stack(groups)).to(dev)
     cfg_b = DenoiseConfig(num_banks=2)
     bgroups = list(PrismSource(cfg_b, seed=1).banked_groups())
     want = StreamingDenoiser(cfg, device="cpu").run(groups)
@@ -259,7 +442,7 @@ def main() -> int:
         "run_inline(prefetch=False)": counted("inline", lambda: streaming.run_inline(
             cfg, iter(groups), prefetch=False)[0]),
         "StreamingDenoiser(cfg)(frames)": counted("oneshot", lambda: StreamingDenoiser(cfg)(
-            torch.from_numpy(np.stack(groups)).to(dev))),
+            frames_dev)),
     }
     den_b = StreamingDenoiser(cfg_b)
     state = den_b.init()
@@ -270,7 +453,7 @@ def main() -> int:
         "5-D one-shot": den_b(torch.from_numpy(np.stack(bgroups, axis=1)).to(dev)),
     }
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = {k: wrappers[k].launches for k in PAIR_AVERAGE_PATH}
     main_s = time.perf_counter() - t2
     for label, out in outs.items():
         if out.shape != (500, 80, 256) or not torch.equal(out.cpu(), want):
@@ -287,7 +470,8 @@ def main() -> int:
     out_np = outs["run_pipelined(num_slots=2)"].cpu().numpy()
     if not np.isfinite(out_np).all():
         raise AssertionError("non-finite output")
-    snr = snr_db(out_np, src.true_signal())
+    signal = src.true_signal()
+    snr = snr_db(out_np, signal)
     if not snr > 10.0:
         raise AssertionError(f"SNR {snr:.2f} dB against the noise-free signal is too low")
     print(f"phase 2: main path G=8 N=1000 80x256 u16: {len(outs)} runs bitwise equal to each "
@@ -309,6 +493,13 @@ def main() -> int:
         return 3 + (1 if df else 0) + (3 if fmt == "u8" else 0)
 
     rows = []
+
+    def row(kernel, label, ms, plain, nbytes, flops, library=None, main=False, **extra):
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(kernel=kernel, label=label, ms=ms, plain_ms=plain, library_ms=library,
+                         bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by, main=main,
+                         **extra))
+
     for fmt in quant.STREAM_DTYPES:
         for df in (False, True):
             frames = wire((1, N, H), fmt)[0].to(dev)
@@ -317,10 +508,9 @@ def main() -> int:
             kw = dict(num_groups=G, offset=offset, divide_first=df, stream_dtype=fmt)
             ms = time_ms(lambda: denoise_stream.alg3_stream_step(frames, s, **kw))
             plain = time_ms(lambda: denoise_stream.alg3_stream_step_plain(frames, s, **kw), reps=5, inner=2)
-            nbytes = N * H * W * isz + 2 * out_px * 4
-            b_ms, b_by = bound(nbytes, out_px * step_flops(fmt, df))
-            rows.append(dict(kernel="alg3_stream_step", fmt=fmt, divide_first=df, ms=ms,
-                             plain_ms=plain, bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
+            row("alg3_stream_step", f"{fmt} {'v2' if df else 'v1'}", ms, plain,
+                N * H * W * isz + 2 * out_px * 4, out_px * step_flops(fmt, df),
+                main=(fmt == "u16" and not df))
     shapes = {
         "alg3_subtract_average": (None, lambda fr, **kw: denoise_stream.alg3_subtract_average(fr, **kw),
                                   lambda fr, **kw: denoise_stream.alg3_subtract_average_plain(fr, **kw)),
@@ -346,13 +536,62 @@ def main() -> int:
                 plain = time_ms(lambda: plain_fn(frames, **kw), reps=3, inner=1)
                 nbytes = b * (G * N * H * W * 2 + out_px * 4)
                 flops = b * out_px * (G * step_flops("u16", df) + (0 if df else 1))
-            b_ms, b_by = bound(nbytes, flops)
-            rows.append(dict(kernel=kernel, fmt="u16", divide_first=df, banks=b, ms=ms,
-                             plain_ms=plain, bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
+            row(kernel, f"u16 {'v2' if df else 'v1'} B={b}", ms, plain, nbytes, flops, main=not df)
+
+    # B6-B9 at the paper's shape (u16 wire, a 5-slot window, P = 500 frames)
+    group = wire((1, N, H), "u16")[0].to(dev)
+    window = torch.zeros(5, P, H, W, device=dev)
+    kw = dict(slot=2, offset=offset)
+    row("median_window_insert", "u16", time_ms(lambda: denoise_median.median_window_insert(
+        window, group, **kw)), time_ms(lambda: denoise_median.median_window_insert_plain(
+            window, group, **kw), reps=5, inner=2),
+        N * H * W * 2 + out_px * 4, out_px * 2, main=True)
+    for k in range(5):  # fill the window with real diffs
+        denoise_median.median_window_insert(window, wire((1, N, H), "u16")[0].to(dev), slot=k,
+                                            offset=offset)
+    for k in (4, 5):  # K(K-1)/2 compare-exchanges of two operations each
+        win = window[:k]
+        lib = None
+        if k % 2:  # torch.median returns the lower middle value: the same function for odd K
+            lib_out = torch.median(win, dim=0).values
+            if not torch.equal(lib_out, denoise_median.median_combine(win)):
+                raise AssertionError("torch.median and median_combine disagree at odd K")
+            lib = time_ms(lambda: torch.median(win, dim=0), reps=5, inner=2)
+        row("median_combine", f"K={k}", time_ms(lambda: denoise_median.median_combine(win)),
+            time_ms(lambda: denoise_median.median_combine_plain(win), reps=5, inner=2),
+            (k + 1) * out_px * 4, out_px * k * (k - 1), library=lib, main=(k == 5))
+    del window, win
+    ema, wmean, wm2 = (torch.zeros(P, H, W, device=dev), torch.zeros(H, W, device=dev),
+                       torch.zeros(H, W, device=dev))
+    tp = 5  # the pinned pick at this shape: 100 merge chunks
+    kw = dict(alpha=0.25, offset=offset, prior_count=0, pair_tile=tp)
+    # per pair-pixel: diff 2, EMA 3, chunk sum 1, centred square 3; per chunk-pixel: merge ~12
+    row("ema_welford_step", "u16 pair_tile=5", time_ms(lambda: denoise_ema.ema_welford_step(
+        ema, wmean, wm2, group, **kw)), time_ms(lambda: denoise_ema.ema_welford_step_plain(
+            ema, wmean, wm2, group, **kw), reps=3, inner=1),
+        N * H * W * 2 + 2 * out_px * 4 + 4 * H * W * 4, out_px * 9 + (P // tp) * H * W * 12,
+        main=True)
+    del ema
+    x = outs["run_pipelined(num_slots=2)"]  # the averaged frames the stage smooths
+    padded_pool = lambda: F.avg_pool2d(F.pad(x[:, None], (1, 1, 1, 1), mode="replicate"), 3,
+                                       stride=1)[:, 0]
+    lib_rel = rel_diff(padded_pool(), denoise_spatial.spatial_filter_3x3(x, mode="box"))
+    if not lib_rel < 1e-6:
+        raise AssertionError(f"avg_pool2d over replicate padding is not the box mean ({lib_rel})")
+    row("spatial_filter_3x3", "box", time_ms(lambda: denoise_spatial.spatial_filter_3x3(x)),
+        time_ms(lambda: denoise_spatial.spatial_filter_3x3_plain(x), reps=5, inner=2),
+        2 * out_px * 4, out_px * 10, library=time_ms(padded_pool, reps=5, inner=2), main=True)
+    kw = dict(mode="bilateral", range_sigma=cfg.spatial_range_sigma)
+    # per neighbour: 8 operations plus an expf counted as 8; then one division
+    row("spatial_filter_3x3", "bilateral", time_ms(lambda: denoise_spatial.spatial_filter_3x3(
+        x, **kw)), time_ms(lambda: denoise_spatial.spatial_filter_3x3_plain(x, **kw), reps=5,
+                           inner=2),
+        2 * out_px * 4, out_px * (9 * 16 + 1))
     for r in rows:
-        print(f"  {r['kernel']:28s} {r['fmt']:4s} {'v2' if r['divide_first'] else 'v1'} "
-              f"{r['ms'] * 1e3:9.2f} us  bound {r['bound_ms'] * 1e3:8.2f} us ({r['bytes'] / 1e6:.2f} MB)"
-              f"  {r['bound_ms'] / r['ms']:6.1%} of peak  plain {r['plain_ms'] * 1e3:10.1f} us")
+        lib = f"  library {r['library_ms'] * 1e3:9.1f} us" if r["library_ms"] is not None else ""
+        print(f"  {r['kernel']:28s} {r['label']:16s} {r['ms'] * 1e3:9.2f} us  bound "
+              f"{r['bound_ms'] * 1e3:8.2f} us ({r['bytes'] / 1e6:.2f} MB, {r['bound_by']})"
+              f"  {r['bound_ms'] / r['ms']:6.1%} of peak  plain {r['plain_ms'] * 1e3:10.1f} us{lib}")
 
     # executor: ms per group, live synthesis vs pre-generated groups
     executor = {}
@@ -380,16 +619,66 @@ def main() -> int:
     record.update(rows=rows, executor=executor, synth_ms_per_group=synth_ms,
                   camera_group_ms=CAMERA_GROUP_MS)
 
-    main_rows = {r["kernel"]: r for r in rows if r["fmt"] == "u16" and not r["divide_first"]}
+    # -- phase 5: the other filters' path at the paper's size ----------------
+    filters = {
+        "temporal_median": dict(filter_name="temporal_median"),  # K = 5: the ring wraps at G = 8
+        "ema_variance": dict(filter_name="ema_variance"),  # pair_tile 5: 100 chunks per group
+        "spatial_box/box": dict(filter_name="spatial_box", spatial_mode="box"),
+        "spatial_box/bilateral": dict(filter_name="spatial_box", spatial_mode="bilateral"),
+    }
+    t5 = time.perf_counter()
+    cfgs = {label: DenoiseConfig(**extra) for label, extra in filters.items()}
+    wants = {label: StreamingDenoiser(c, device="cpu").run(groups) for label, c in cfgs.items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    outs5 = {
+        label: {
+            "run_pipelined(num_slots=2)": streaming.run_pipelined(c, iter(groups), num_slots=2)[0],
+            "run_inline(prefetch=False)": streaming.run_inline(c, iter(groups), prefetch=False)[0],
+            "one-shot": StreamingDenoiser(c)(frames_dev),
+        }
+        for label, c in cfgs.items()
+    }
+    torch.cuda.synchronize()
+    filter_launches = {k: wrappers[k].launches for k in FILTER_PATH}
+    missing = [k for k, n in filter_launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the filters' path: {missing}")
+    snrs, bilateral_path_rel = {}, 0.0
+    for label, runs5 in outs5.items():
+        for how, out in runs5.items():
+            got = out.cpu()
+            if got.shape != (500, 80, 256) or not torch.isfinite(got).all():
+                raise AssertionError(f"{label} {how}: shape {tuple(got.shape)} or non-finite output")
+            if label.endswith("bilateral"):
+                rel = rel_diff(got, wants[label])
+                bilateral_path_rel = max(bilateral_path_rel, rel)
+                if not rel <= denoise_spatial.BILATERAL_RTOL:
+                    raise AssertionError(f"{label} {how}: max relative diff {rel:.3g} against the "
+                                         f"CPU plain stream")
+            elif not torch.equal(got, wants[label]):
+                raise AssertionError(f"{label} {how}: not bitwise equal to the CPU plain stream")
+        snrs[label] = snr_db(runs5["run_pipelined(num_slots=2)"].cpu().numpy(), signal)
+    print(f"phase 5: temporal_median, ema_variance, spatial_box (box, bilateral) at G=8 N=1000 "
+          f"80x256 u16: run_pipelined, run_inline and the one-shot call equal to the CPU plain "
+          f"stream (bitwise; bilateral max relative diff {bilateral_path_rel:.3g}); launches "
+          f"{json.dumps(filter_launches)} ({time.perf_counter() - t5:.1f} s)")
+    print("  SNR against the noise-free signal: " + ", ".join(
+        f"{label} {v:.3f} dB" for label, v in snrs.items()) + f", pair_average {snr:.3f} dB")
+    record.update(filter_path_launches=filter_launches, filter_snr_db=snrs,
+                  bilateral_path_max_rel=bilateral_path_rel)
+    launches.update(filter_launches)
+
+    main_rows = {r["kernel"]: r for r in rows if r["main"]}
     kernels = [
         {
-            "name": k, "route": "cuda", "source": SOURCE, "replaces": replaces[k],
+            "name": k, "route": "cuda", "source": CSRC + src_file, "replaces": replaces,
             "launches": launches[k], "max_abs_err": max_err[k],
             "ms": main_rows[k]["ms"], "plain_ms": main_rows[k]["plain_ms"],
             "bound_ms": main_rows[k]["bound_ms"], "bound_by": main_rows[k]["bound_by"],
-            "library_ms": None,
+            "library_ms": main_rows[k]["library_ms"],
         }
-        for k in wrappers
+        for k, (src_file, replaces) in KERNELS.items()
     ]
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

@@ -1,15 +1,17 @@
 """Carry a stream between the reference and the port.
 
 This system has no weights: what defines a stream is its config, and
-what a stream carries from one group to the next is its running sum. So
-the counterpart of converting a checkpoint is:
+what a stream carries from one group to the next is its filter state (a
+running sum, a median window, or the EMA dict of ``ema``/``wmean``/
+``wm2``). So the counterpart of converting a checkpoint is:
 
 * :func:`config_from_reference` — a ``dataclasses.asdict`` of the
   reference's ``DenoiseConfig`` -> the port's (the fields are the same);
-* :func:`state_from_reference` — a host copy (``np.asarray``) of the
-  reference's running sum -> a tensor on ``device`` (CUDA by default);
-* :func:`state_to_reference` — a port running sum -> a numpy array the
-  reference takes as its state (``jnp.asarray``).
+* :func:`state_from_reference` — a host copy (``np.asarray``, leaf by
+  leaf for a dict) of the reference's state -> tensors on ``device``
+  (CUDA by default);
+* :func:`state_to_reference` — a port state -> numpy arrays the
+  reference takes as its state (``jnp.asarray``, leaf by leaf).
 
 Because both packages round every step alike, a stream started in one
 package and finished in the other is bit-identical to a stream run in
@@ -38,13 +40,19 @@ def config_from_reference(fields: dict) -> DenoiseConfig:
     return DenoiseConfig(**fields)
 
 
-def state_from_reference(state: np.ndarray, device=None) -> torch.Tensor:
-    """A running sum from the reference (host copy) as a tensor on ``device``
-    (CUDA unless the caller names another; ``RuntimeError`` when CUDA is
-    absent)."""
-    return torch.from_numpy(np.array(state, copy=True)).to(resolve_device(device))
+def state_from_reference(state, device=None):
+    """A filter state from the reference (host copies: an array, or a dict
+    of arrays) as tensors on ``device`` (CUDA unless the caller names
+    another; ``RuntimeError`` when CUDA is absent)."""
+    dev = resolve_device(device)
+    if isinstance(state, dict):
+        return {k: state_from_reference(v, dev) for k, v in state.items()}
+    return torch.from_numpy(np.array(state, copy=True)).to(dev)
 
 
-def state_to_reference(state: torch.Tensor) -> np.ndarray:
-    """A port running sum as the numpy array the reference continues from."""
+def state_to_reference(state):
+    """A port filter state as the numpy array (or dict of arrays) the
+    reference continues from."""
+    if isinstance(state, dict):
+        return {k: state_to_reference(v) for k, v in state.items()}
     return state.detach().cpu().numpy().copy()

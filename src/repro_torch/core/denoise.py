@@ -9,12 +9,13 @@ CUDA unless the caller names another device, and raises when CUDA is
 absent rather than carrying on on the CPU.
 
 The denoiser drives the filter's ``init / step / finalize`` contract
-(``repro_torch.denoise``; this slice has ``pair_average``) with PRISM
+(``repro_torch.denoise``: all four of the reference's filters) with PRISM
 acquisition semantics — G groups × N alternating frames, a fixed
 pre-subtraction ``offset`` removed by ``remove_offset``, divide-last (Alg 3)
-or divide-first (Alg 3 v2) accumulation — plus a one-shot ``__call__`` and
-the u16-container emulation ``reference_u16``. The running sum is updated
-in place by every ``ingest``.
+or divide-first (Alg 3 v2) accumulation — plus a one-shot ``__call__``
+(one kernel for ``pair_average``, a replay of the stream for the other
+filters) and the u16-container emulation ``reference_u16``. The filter
+state is updated in place by every ``ingest``.
 """
 
 from __future__ import annotations
@@ -107,8 +108,7 @@ class DenoiseConfig:
                 f"{self.overflow_policy!r}"
             )
         # raises ValueError listing the registered filters for unknown
-        # names (NotImplementedError for the reference's unported ones),
-        # then lets the filter reject unusable parameter combinations
+        # names, then lets the filter reject unusable parameter combinations
         get_filter(self.filter_name).validate(self)
 
     # scheduling-only knobs: never part of the numeric stream's identity
@@ -171,7 +171,9 @@ class StreamingDenoiser:
     Drives ``get_filter(config.filter_name)`` on ``device`` (CUDA unless
     the caller names another; ``RuntimeError`` when CUDA is absent). The
     state threaded through ``init / ingest / finalize`` is the filter's
-    (a bare running-sum tensor for ``pair_average``), updated in place.
+    (a bare running-sum tensor for ``pair_average``, a window tensor for
+    ``temporal_median``, a dict of tensors for ``ema_variance``), updated
+    in place.
     Executors pass an explicit ``step`` index; direct callers may omit it.
     Chunks may be tensors or numpy arrays; arrays are copied to the device.
     """
@@ -268,12 +270,15 @@ class StreamingDenoiser:
     def __call__(self, frames) -> torch.Tensor:
         """(G, N, H, W) -> (N/2, H, W); (B, G, N, H, W) -> (B, N/2, H, W)."""
         c = self.config
-        if c.filter_name != "pair_average":
-            raise NotImplementedError(
-                "the one-shot call of other filters (a replay of the stream) "
-                "comes with their slice (ROADMAP.md queue A item 6)"
-            )
         frames = as_device_tensor(frames, self.device)
+        if c.filter_name != "pair_average":
+            # other filters replay the stream: same calls, same results
+            banks = frames.shape[0] if frames.ndim == 5 else None
+            state = self.filter.init(banks=banks)
+            for g in range(frames.shape[1] if banks else frames.shape[0]):
+                chunk = frames[:, g].contiguous() if banks else frames[g]
+                state = self.filter.step(state, chunk, step_index=g)
+            return self.filter.finalize(state)
         tiles = self.filter.tile_args("stream")
         fn = ops.multibank_subtract_average if frames.ndim == 5 else ops.subtract_average
         return fn(

@@ -29,7 +29,9 @@ Contract rules the executors rely on:
 * **Tile plans** are resolved once, at construction, and passed to
   ``ops`` as static kwargs (the CUDA kernels ignore them).
 
-The reference's slot surgery (``slot_insert``/``extract``/``gather``/
+``phase_invariant`` declares that ``step`` ignores ``step_index`` (the
+session scheduler may co-batch slots at different group indices). The
+reference's slot surgery (``slot_insert``/``extract``/``gather``/
 ``scatter``) and ``state_pspec`` serve the session service and the
 shard_map executor; they come with those slices (ROADMAP.md queue A
 items 7 and 10).
@@ -50,6 +52,11 @@ class StreamingFilter:
 
     #: registry key, set by ``@register_filter``
     name: ClassVar[str] = ""
+
+    #: True when ``step`` is independent of ``step_index``; filters whose
+    #: update depends on it (window slot rotation, prior sample counts)
+    #: keep False, as in the reference
+    phase_invariant: ClassVar[bool] = False
 
     def __init__(self, config: Any, *, device=None):
         self.config = config

@@ -22,6 +22,10 @@ __all__ = ["PairAverageFilter"]
 class PairAverageFilter(StreamingFilter):
     """Running-sum subtract-and-average (paper Alg 3 / Alg 3 v2)."""
 
+    # the running-sum update is the same at every group index (inherited
+    # by spatial_box, whose step is this step)
+    phase_invariant = True
+
     def init(self, *, banks: int | None = None):
         c = self.config
         acc = ref.as_torch_dtype(c.accum_dtype)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Callable, Type, TypeVar
 
-__all__ = ["FILTERS", "NOT_PORTED", "register_filter", "get_filter"]
+__all__ = ["FILTERS", "register_filter", "get_filter"]
 
 #: name -> StreamingFilter subclass. Populated by ``@register_filter`` at
 #: import of ``repro_torch.denoise``; read-only for everyone else.
@@ -39,26 +39,12 @@ def register_filter(name: str) -> Callable[[_T], _T]:
     return _register
 
 
-#: the reference's other filters, not ported yet: name -> ROADMAP.md item
-NOT_PORTED = {
-    "temporal_median": "queue A item 6 (kernels B6, B7)",
-    "ema_variance": "queue A item 6 (kernel B8)",
-    "spatial_box": "queue A item 6 (kernel B9)",
-}
-
-
 def get_filter(name: str) -> Type:
     """Look up a registered filter class by name.
 
     Raises ``ValueError`` listing the valid names — the same contract as
-    ``ops.ALGORITHMS`` / ``ops.BACKENDS`` dispatch errors — and
-    ``NotImplementedError`` for a filter of the reference the port does
-    not have yet.
+    ``ops.ALGORITHMS`` / ``ops.BACKENDS`` dispatch errors.
     """
-    if name in NOT_PORTED and name not in FILTERS:
-        raise NotImplementedError(
-            f"filter {name!r} is not ported yet (ROADMAP.md {NOT_PORTED[name]})"
-        )
     try:
         return FILTERS[name]
     except KeyError:

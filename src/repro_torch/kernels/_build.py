@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels (``csrc/denoise_stream.cu``).
+"""Build and load the port's CUDA kernels (every ``csrc/*.cu``).
 
-The source compiles with one ``nvcc`` call into a shared library with a
-plain C interface, loaded with ``ctypes``; nothing includes PyTorch's
-headers, so a build takes seconds. The library goes to ``build/`` inside
-this package directory (so an installed package builds beside its own
-sources), named by a hash of the source and the flags: it is rebuilt only
-when either changes, at the first kernel call.
+Each source compiles with its own ``nvcc -c`` call, all started together,
+and one more ``nvcc`` call links the objects into a single shared library
+with a plain C interface, loaded with ``ctypes``; nothing includes
+PyTorch's headers, so a build takes seconds. The library goes to
+``build/`` inside this package directory (so an installed package builds
+beside its own sources), named by a hash over every file in ``csrc/``
+(headers included) and the flags: it is rebuilt only when one of them
+changes, at the first kernel call.
 
 There is deliberately no ``--use_fast_math``: the kernels' division and
 FMA rounding is part of their contract with the reference, and they
@@ -19,16 +21,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCE", "BUILD_DIR", "NVCC_FLAGS", "library"]
+__all__ = ["CSRC", "SOURCES", "BUILD_DIR", "NVCC_FLAGS", "library"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "denoise_stream.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: the kernel sources, one object each, linked into one library
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -47,31 +52,60 @@ ARGTYPES = {
         (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _P),
     "multibank_subtract_average_launch":
         (_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _P),
+    "median_window_insert_launch":
+        (_P, _P, _I64, _I64, _I64, _I64, _I, _F, _F, _P),
+    "median_combine_launch":
+        (_P, _P, _I64, _I64, _P),
+    "ema_welford_step_launch":
+        (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _F, _F, _F, _F, _F, _F, _P),
+    "spatial_filter_3x3_launch":
+        (_P, _P, _I64, _I64, _I64, _I, _F, _P),
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def _build(out: Path) -> None:
+def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError(
             "nvcc not found (PATH or /usr/local/cuda/bin): the repro_torch "
             "CUDA kernels are built from source on the machine with the card"
         )
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if res.returncode != 0:
+    return nvcc
+
+
+def _check(returncode: int, output: str, what: str) -> None:
+    if returncode != 0:
         raise RuntimeError(
-            f"CUDA kernel build failed: {SOURCE.name} (nvcc exit "
-            f"{res.returncode}):\n{res.stdout}"
+            f"CUDA kernel build failed: {what} (nvcc exit {returncode}):\n{output}"
         )
-    os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
+
+
+def _build(out: Path) -> None:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(SOURCES, objs)
+        ]
+        # wait for every compile before reporting one, so none outlives us
+        outputs = [proc.communicate()[0] for proc in procs]
+        for src, proc, output in zip(SOURCES, procs, outputs):
+            _check(proc.returncode, output, src.name)
+        lib = Path(tmp) / out.name
+        res = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        _check(res.returncode, res.stdout, "link")
+        os.replace(lib, out)  # atomic: concurrent builders never see a torn file
 
 
 def library() -> ctypes.CDLL:
@@ -79,9 +113,13 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            h = hashlib.sha256(SOURCE.read_bytes())
+            h = hashlib.sha256()
+            for path in sorted(CSRC.iterdir()):
+                if path.is_file():
+                    h.update(path.name.encode())
+                    h.update(path.read_bytes())
             h.update(" ".join(NVCC_FLAGS).encode())
-            out = BUILD_DIR / f"{SOURCE.stem}.{h.hexdigest()[:16]}.so"
+            out = BUILD_DIR / f"repro_torch_kernels.{h.hexdigest()[:16]}.so"
             if not out.exists():
                 _build(out)
             lib = ctypes.CDLL(str(out))

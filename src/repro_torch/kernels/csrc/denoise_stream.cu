@@ -5,8 +5,8 @@
 //   alg3_subtract_average       <- src/repro/kernels/denoise_stream.py    alg3_subtract_average (_alg3_kernel)
 //   multibank_stream_step       <- src/repro/kernels/denoise_multibank.py multibank_stream_step (_mb_step_kernel)
 //   multibank_subtract_average  <- src/repro/kernels/denoise_multibank.py multibank_subtract_average (_mb_kernel)
-// and fuses the shared dequantization prologue quant.pair_diff_block into each
-// of them as the __device__ function pair_diff below.
+// and fuses the shared dequantization prologue quant.pair_diff_block (B1,
+// the __device__ function pair_diff of quant.cuh) into each of them.
 //
 // Bound: HBM bytes. Per output pixel a step reads two wire pixels (2 x 1, 1.5
 // or 2 bytes) and reads + writes one float32 of running sum, for about five
@@ -25,53 +25,17 @@
 //     never touch each other's data, as on the TPU grid.
 //
 // Rounding is part of the contract: the reference's jitted kernels compute
-// (a) the u8 dequant as fma(e, S, -(c*S)) + offset, (b) x / G as x * f32(1/G),
-// and (c) the divide-first fold s + d / G as fma(d, 1/G, s). Each is written
-// here with _rn intrinsics, which nvcc never contracts or reorders, so the
-// default -fmad=true cannot change a result. The host passes 1/G already
-// rounded to float32.
+// (a) the u8 dequant as fma(e, S, -(c*S)) + offset (quant.cuh), (b) x / G as
+// x * f32(1/G), and (c) the divide-first fold s + d / G as fma(d, 1/G, s).
+// Each is written here with _rn intrinsics, which nvcc never contracts or
+// reorders, so the default -fmad=true cannot change a result. The host passes
+// 1/G already rounded to float32.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "quant.cuh"
 
 namespace {
 
-enum WireFormat : int { kU16 = 0, kU8 = 1, kP12 = 2 };
-
-// Logical pixels produced per thread item.
-template <int FMT>
-struct Item {
-  static constexpr int kPixels = FMT == kP12 ? 2 : 1;
-};
-
-// B1: dequantize one control/excitation pair at item x of a wire row and
-// return exc - ctl + offset for each of the item's pixels.
-template <int FMT>
-__device__ __forceinline__ void pair_diff(const uint8_t* __restrict__ ctl,
-                                          const uint8_t* __restrict__ exc,
-                                          int x, float offset, float u8_scale,
-                                          float d[Item<FMT>::kPixels]) {
-  if constexpr (FMT == kU16) {
-    const float c = static_cast<float>(reinterpret_cast<const uint16_t*>(ctl)[x]);
-    const float e = static_cast<float>(reinterpret_cast<const uint16_t*>(exc)[x]);
-    d[0] = __fadd_rn(__fsub_rn(e, c), offset);
-  } else if constexpr (FMT == kU8) {
-    const float c = static_cast<float>(ctl[x]);
-    const float e = static_cast<float>(exc[x]);
-    d[0] = __fadd_rn(__fmaf_rn(e, u8_scale, -__fmul_rn(c, u8_scale)), offset);
-  } else {
-    const uint8_t* cp = ctl + 3 * x;
-    const uint8_t* ep = exc + 3 * x;
-    const int c0 = cp[0], c1 = cp[1], c2 = cp[2];
-    const int e0 = ep[0], e1 = ep[1], e2 = ep[2];
-    const float clo = static_cast<float>(c0 | ((c1 & 0xF) << 8));
-    const float chi = static_cast<float>((c1 >> 4) | (c2 << 4));
-    const float elo = static_cast<float>(e0 | ((e1 & 0xF) << 8));
-    const float ehi = static_cast<float>((e1 >> 4) | (e2 << 4));
-    d[0] = __fadd_rn(__fsub_rn(elo, clo), offset);
-    d[1] = __fadd_rn(__fsub_rn(ehi, chi), offset);
-  }
-}
+using namespace repro_quant;
 
 template <bool DIVIDE_FIRST>
 __device__ __forceinline__ float fold(float s, float d, float rcp) {
@@ -142,11 +106,6 @@ __global__ void subtract_average_kernel(const uint8_t* __restrict__ frames,
     for (int k = 0; k < P; ++k)
       dst[x * P + k] = DIVIDE_FIRST ? acc[k] : __fmul_rn(acc[k], rcp);
   }
-}
-
-int threads_for(int items) {
-  const int t = ((items + 31) / 32) * 32;
-  return t < 256 ? t : 256;
 }
 
 template <int FMT, bool DF>

@@ -1,0 +1,64 @@
+// B1: the shared dequantization prologue of every ingest kernel.
+//
+// Replaces src/repro/kernels/quant.py pair_diff_block, which the JAX package
+// runs inside each Pallas ingest kernel. Here it is a __device__ function
+// that the ingest kernels (denoise_stream.cu, denoise_median.cu,
+// denoise_ema.cu) inline, so a wire byte is read once, in the kernel that
+// uses it.
+//
+// Rounding is part of the contract: the reference's jitted prologue computes
+// the u8 dequant as fma(e, S, -(c*S)) + offset. It is written here with _rn
+// intrinsics, which nvcc never contracts or reorders, so the default
+// -fmad=true cannot change a result.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro_quant {
+
+enum WireFormat : int { kU16 = 0, kU8 = 1, kP12 = 2 };
+
+// Logical pixels produced per thread item (a p12 item is 3 bytes, 2 pixels).
+template <int FMT>
+struct Item {
+  static constexpr int kPixels = FMT == kP12 ? 2 : 1;
+};
+
+// Dequantize one control/excitation pair at item x of a wire row and
+// return exc - ctl + offset for each of the item's pixels.
+template <int FMT>
+__device__ __forceinline__ void pair_diff(const uint8_t* __restrict__ ctl,
+                                          const uint8_t* __restrict__ exc,
+                                          int x, float offset, float u8_scale,
+                                          float d[Item<FMT>::kPixels]) {
+  if constexpr (FMT == kU16) {
+    const float c = static_cast<float>(reinterpret_cast<const uint16_t*>(ctl)[x]);
+    const float e = static_cast<float>(reinterpret_cast<const uint16_t*>(exc)[x]);
+    d[0] = __fadd_rn(__fsub_rn(e, c), offset);
+  } else if constexpr (FMT == kU8) {
+    const float c = static_cast<float>(ctl[x]);
+    const float e = static_cast<float>(exc[x]);
+    d[0] = __fadd_rn(__fmaf_rn(e, u8_scale, -__fmul_rn(c, u8_scale)), offset);
+  } else {
+    const uint8_t* cp = ctl + 3 * x;
+    const uint8_t* ep = exc + 3 * x;
+    const int c0 = cp[0], c1 = cp[1], c2 = cp[2];
+    const int e0 = ep[0], e1 = ep[1], e2 = ep[2];
+    const float clo = static_cast<float>(c0 | ((c1 & 0xF) << 8));
+    const float chi = static_cast<float>((c1 >> 4) | (c2 << 4));
+    const float elo = static_cast<float>(e0 | ((e1 & 0xF) << 8));
+    const float ehi = static_cast<float>((e1 >> 4) | (e2 << 4));
+    d[0] = __fadd_rn(__fsub_rn(elo, clo), offset);
+    d[1] = __fadd_rn(__fsub_rn(ehi, chi), offset);
+  }
+}
+
+// Threads per block for a row of `items` thread items: whole warps, <= 256.
+inline int threads_for(int items) {
+  const int t = ((items + 31) / 32) * 32;
+  return t < 256 ? t : 256;
+}
+
+}  // namespace repro_quant

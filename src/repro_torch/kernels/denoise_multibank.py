@@ -12,7 +12,7 @@ share one launch and never touch each other's data.
 
 Both run kernels of ``csrc/denoise_stream.cu`` (the bank axis is a stride
 of the same templated bodies) through launchers and launch counters of
-their own. Dispatch, checks and the ignored tile arguments are as in
+their own. Dispatch and checks are as in
 :mod:`repro_torch.kernels.denoise_stream`.
 """
 
@@ -51,10 +51,7 @@ def multibank_stream_step(
     offset: float = 0.0,
     divide_first: bool = False,
     final: bool = False,
-    row_tile: int | None = None,
-    pair_tile: int | None = None,
     stream_dtype: str = "u16",
-    placement: str | None = None,
 ) -> torch.Tensor:
     """Fold one group per bank (B, N, H, wire_W) into sums (B, N/2, H, W), in place."""
     check_step_shapes(group_frames, sum_frames, stream_dtype, banked=True)
@@ -87,10 +84,7 @@ def multibank_subtract_average(
     offset: float = 0.0,
     divide_first: bool = False,
     accum_dtype=torch.float32,
-    row_tile: int | None = None,
-    pair_tile: int | None = None,
     stream_dtype: str = "u16",
-    placement: str | None = None,
 ) -> torch.Tensor:
     """frames (B, G, N, H, wire_W) -> (B, N/2, H, W), one launch."""
     if frames.ndim != 5 or frames.shape[2] % 2:

@@ -16,9 +16,10 @@ device, dtype, shape and contiguity, launches its kernel on the current
 stream and counts the launch in ``<wrapper>.launches``; on a CPU tensor it
 runs the plain PyTorch version beside it (``*_plain``), the counterpart
 of the reference's interpret mode. It never falls back from one to the
-other. ``row_tile``, ``pair_tile`` and ``placement`` are accepted for
-signature parity and ignored: the CUDA kernels choose their own launch
-geometry, and the numerics of this family do not depend on tiles.
+other. The wrappers take no tile arguments: the CUDA kernels choose their
+own launch geometry, and the numerics of this family do not depend on
+tiles (only :mod:`repro_torch.kernels.ops` keeps the reference's
+``row_tile`` / ``pair_tile`` / ``placement``, and ignores them).
 """
 
 from __future__ import annotations
@@ -135,10 +136,7 @@ def alg3_stream_step(
     offset: float = 0.0,
     divide_first: bool = False,
     final: bool = False,
-    row_tile: int | None = None,
-    pair_tile: int | None = None,
     stream_dtype: str = "u16",
-    placement: str | None = None,
 ) -> torch.Tensor:
     """Fold one group (N, H, wire_W) into the running sum (N/2, H, W), in place."""
     check_step_shapes(group_frames, sum_frame, stream_dtype, banked=False)
@@ -196,10 +194,7 @@ def alg3_subtract_average(
     offset: float = 0.0,
     divide_first: bool = False,
     accum_dtype=torch.float32,
-    row_tile: int | None = None,
-    pair_tile: int | None = None,
     stream_dtype: str = "u16",
-    placement: str | None = None,
 ) -> torch.Tensor:
     """frames (G, N, H, wire_W) -> averaged difference frames (N/2, H, W)."""
     if frames.ndim != 4 or frames.shape[1] % 2:

@@ -4,20 +4,25 @@
 Dispatch follows the tensors' device, never a guess about the machine:
 
 * ``backend='auto'`` and ``'pallas'`` — on a CUDA tensor, the Hopper
-  kernel (``denoise_stream`` / ``denoise_multibank``); on a CPU tensor, the
-  kernel's plain PyTorch version (the counterpart of the reference's
-  interpret mode).
+  kernel (``denoise_stream``, ``denoise_multibank``, ``denoise_median``,
+  ``denoise_ema``, ``denoise_spatial``); on a CPU tensor, the kernel's
+  plain PyTorch version (the counterpart of the reference's interpret
+  mode).
 * ``backend='xla'`` — the plain PyTorch composite, on whatever device the
   tensors are on.
 
 Nothing catches a build or launch failure to run something else, and
 what this slice has not ported raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item (the Alg 1/2 baselines on CUDA). The running sums of
-``stream_step`` / ``multibank_stream_step`` are updated **in place**, where
-the reference donates them; both return the updated tensor.
+``stream_step`` / ``multibank_stream_step``, the median window of
+``median_window_insert`` and the three EMA states of ``ema_welford_step``
+are updated **in place**, where the reference donates them; each returns
+the updated tensors.
 
-``row_tile`` / ``pair_tile`` / ``placement`` are accepted everywhere for
-parity and ignored (see :mod:`repro_torch.kernels.denoise_stream`).
+``row_tile`` / ``pair_tile`` / ``placement`` are accepted here, and only
+here, for parity with the reference, and ignored (see
+:mod:`repro_torch.kernels.denoise_stream`), except ``ema_welford_step``'s
+tiles, which set its merge chunks (see :mod:`repro_torch.kernels.denoise_ema`).
 Rounding follows the reference's jitted functions, except
 ``stream_finalize``, which like the reference (not jitted) divides truly
 on every device (:mod:`repro_torch.kernels.ref`).
@@ -27,7 +32,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import denoise_multibank, denoise_stream, ref
+from repro_torch.kernels import (
+    denoise_ema,
+    denoise_median,
+    denoise_multibank,
+    denoise_spatial,
+    denoise_stream,
+    ref,
+)
 from repro_torch.kernels.quant import (  # noqa: F401  (shared dequant prologue)
     STREAM_DTYPES,
     dequant,
@@ -51,6 +63,10 @@ __all__ = [
     "pair_diff",
     "dequant",
     "pair_diff_block",
+    "median_window_insert",
+    "median_combine",
+    "ema_welford_step",
+    "spatial_filter",
 ]
 
 ALGORITHMS = ("alg1", "alg2", "alg3", "alg3_v2")
@@ -273,3 +289,104 @@ def multibank_stream_step(
         num_groups=num_groups, stream_dtype=stream_dtype,
     ))
 
+
+
+# ---------------------------------------------------------------------------
+# The other filters' kernels (temporal_median, ema_variance, spatial_box).
+# ---------------------------------------------------------------------------
+
+
+def median_window_insert(
+    window: torch.Tensor,
+    group_frames: torch.Tensor,
+    *,
+    slot: int,
+    offset: float = 0.0,
+    backend: str = "auto",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    stream_dtype: str = "u16",
+    placement: str | None = None,
+) -> torch.Tensor:
+    """Fold one group's diffs into slot ``slot`` of the (K, N/2, H, W)
+    window, in place; returns the window."""
+    _check_backend(backend)
+    fn = (
+        denoise_median.median_window_insert
+        if backend != "xla"
+        else denoise_median.median_window_insert_plain
+    )
+    return fn(window, group_frames, slot=slot, offset=offset, stream_dtype=stream_dtype)
+
+
+def median_combine(
+    window: torch.Tensor,
+    *,
+    backend: str = "auto",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    placement: str | None = None,
+) -> torch.Tensor:
+    """(K, N/2, H, W) -> (N/2, H, W): per-pixel median over the window
+    axis, a fresh tensor. Callers slice the window to its filled prefix.
+
+    ``xla`` is the reference's sort-based composite; a min/max network
+    picks the same order statistics exactly, so it runs the plain network.
+    """
+    _check_backend(backend)
+    if backend != "xla":
+        return denoise_median.median_combine(window)
+    return denoise_median.median_combine_plain(window)
+
+
+def ema_welford_step(
+    ema: torch.Tensor,
+    wmean: torch.Tensor,
+    wm2: torch.Tensor,
+    group_frames: torch.Tensor,
+    *,
+    alpha: float,
+    offset: float = 0.0,
+    prior_count=0,
+    backend: str = "auto",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    stream_dtype: str = "u16",
+    placement: str | None = None,
+):
+    """One fused EMA + Welford/Chan update of ``(ema, wmean, wm2)``, in
+    place; returns the three. ``xla`` merges the group's N/2 samples at
+    once, as the reference's XLA composite does."""
+    _check_backend(backend)
+    if backend != "xla":
+        return denoise_ema.ema_welford_step(
+            ema, wmean, wm2, group_frames, alpha=alpha, offset=offset,
+            prior_count=prior_count, row_tile=row_tile, pair_tile=pair_tile,
+            stream_dtype=stream_dtype,
+        )
+    new = denoise_ema.ema_welford_step_xla(
+        ema, wmean, wm2, group_frames, alpha=alpha, offset=offset,
+        prior_count=prior_count, stream_dtype=stream_dtype,
+    )
+    for dst, src in zip((ema, wmean, wm2), new):
+        dst.copy_(src)
+    return ema, wmean, wm2
+
+
+def spatial_filter(
+    frames: torch.Tensor,
+    *,
+    mode: str = "box",
+    range_sigma: float = 50.0,
+    backend: str = "auto",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
+    placement: str | None = None,
+) -> torch.Tensor:
+    """(P, H, W) -> (P, H, W): 3×3 box or bilateral-lite smoothing."""
+    if mode not in SPATIAL_MODES:
+        raise ValueError(f"mode must be one of {SPATIAL_MODES}, got {mode}")
+    _check_backend(backend)
+    if backend != "xla":
+        return denoise_spatial.spatial_filter_3x3(frames, mode=mode, range_sigma=range_sigma)
+    return denoise_spatial.spatial_filter_3x3_plain(frames, mode=mode, range_sigma=range_sigma)

@@ -6,7 +6,9 @@ imports the JAX package, which that machine need not have)::
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: bitwise (the kernels round as the plain versions do).
+Tolerance: bitwise (the kernels round as the plain versions do), except
+the bilateral mode of the spatial kernel, whose ``expf`` is held to the
+plain version's ``torch.exp`` within ``denoise_spatial.BILATERAL_RTOL``.
 """
 
 import numpy as np
@@ -16,7 +18,14 @@ import torch
 from repro_torch.core import streaming
 from repro_torch.core.denoise import DenoiseConfig, StreamingDenoiser
 from repro_torch.data.prism import PrismSource
-from repro_torch.kernels import denoise_multibank, denoise_stream, quant
+from repro_torch.kernels import (
+    denoise_ema,
+    denoise_median,
+    denoise_multibank,
+    denoise_spatial,
+    denoise_stream,
+    quant,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +85,62 @@ def test_executors_on_the_card_match_cpu(cuda):
         out, _ = streaming.run_pipelined(cfg, PrismSource(cfg, seed=1).groups(), num_slots=depth)
         assert torch.equal(out.cpu(), want)
     assert denoise_stream.alg3_stream_step.launches - before == 3 * cfg.num_groups
+
+
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+def test_median_kernels_bitwise_equal_plain(cuda, fmt):
+    frames = _wire((5, 16, 80), fmt, seed=11)
+    w_gpu, w_cpu = torch.zeros(4, 8, 80, 256, device=cuda), torch.zeros(4, 8, 80, 256)
+    for g in range(5):
+        kw = dict(slot=g % 4, offset=4096.0, stream_dtype=fmt)
+        denoise_median.median_window_insert(w_gpu, frames[g].to(cuda), **kw)
+        denoise_median.median_window_insert_plain(w_cpu, frames[g], **kw)
+        assert torch.equal(w_gpu.cpu(), w_cpu)
+    for k in (1, 2, 3, 4):
+        got = denoise_median.median_combine(w_gpu[:k])
+        assert torch.equal(got.cpu(), denoise_median.median_combine_plain(w_cpu[:k]))
+    wide = torch.randn(13, 8, 80, 256)  # a window longer than the unrolled kernels
+    got = denoise_median.median_combine(wide.to(cuda))
+    assert torch.equal(got.cpu(), denoise_median.median_combine_plain(wide))
+
+
+@pytest.mark.parametrize("pair_tile", [1, 5, 8])
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+def test_ema_kernel_bitwise_equal_plain(cuda, fmt, pair_tile):
+    frames = _wire((3, 80, 80), fmt, seed=12)
+    gpu = [torch.zeros(40, 80, 256, device=cuda), torch.zeros(80, 256, device=cuda),
+           torch.zeros(80, 256, device=cuda)]
+    cpu = [t.cpu() for t in gpu]
+    for g in range(3):
+        kw = dict(alpha=0.3, offset=4096.0, prior_count=40 * g, pair_tile=pair_tile,
+                  stream_dtype=fmt)
+        denoise_ema.ema_welford_step(*gpu, frames[g].to(cuda), **kw)
+        cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[g], **kw))
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_spatial_kernel_matches_plain(cuda):
+    x = 4096 + 40 * torch.randn(6, 80, 256)
+    got = denoise_spatial.spatial_filter_3x3(x.to(cuda), mode="box")
+    assert torch.equal(got.cpu(), denoise_spatial.spatial_filter_3x3_plain(x, mode="box"))
+    got = denoise_spatial.spatial_filter_3x3(x.to(cuda), mode="bilateral", range_sigma=60.0)
+    want = denoise_spatial.spatial_filter_3x3_plain(x, mode="bilateral", range_sigma=60.0)
+    torch.testing.assert_close(got.cpu(), want, rtol=denoise_spatial.BILATERAL_RTOL, atol=0)
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [dict(filter_name="temporal_median", median_window=2),
+     dict(filter_name="ema_variance", ema_mask_sigma=1.5),
+     dict(filter_name="spatial_box", spatial_mode="box")],
+    ids=["temporal_median", "ema_variance", "spatial_box"],
+)
+def test_filter_executors_on_the_card_match_cpu(cuda, extra):
+    cfg = DenoiseConfig(num_groups=3, frames_per_group=16, height=80, width=256, **extra)
+    want = StreamingDenoiser(cfg, device="cpu").run(PrismSource(cfg, seed=1).groups())
+    for depth in (1, 2, 3):
+        out, _ = streaming.run_pipelined(cfg, PrismSource(cfg, seed=1).groups(), num_slots=depth)
+        assert torch.equal(out.cpu(), want)
+    frames = torch.from_numpy(PrismSource(cfg, seed=1).all_frames()).to(cuda)
+    assert torch.equal(StreamingDenoiser(cfg)(frames).cpu(), want)

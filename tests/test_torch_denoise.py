@@ -1,5 +1,7 @@
-"""Port parity of ``DenoiseConfig`` / ``StreamingDenoiser`` and the
-``pair_average`` filter against ``repro.core.denoise`` (``device="cpu"``).
+"""Port parity of ``DenoiseConfig`` / ``StreamingDenoiser``, the filter
+registry and the ``pair_average`` filter against ``repro.core.denoise``
+(``device="cpu"``; the other filters' streams are in
+``test_torch_filters.py``).
 
 Tolerance: bitwise for every comparison (same reason as
 ``test_torch_kernels.py``).
@@ -16,7 +18,8 @@ from repro.core.denoise import DenoiseConfig as JConfig
 from repro.core.denoise import StreamingDenoiser as JDenoiser
 from repro.kernels import quant as jquant
 from repro_torch.core.denoise import DEFAULT_OFFSET, DenoiseConfig, StreamingDenoiser
-from repro_torch.denoise import FILTERS, NOT_PORTED, get_filter
+from repro.denoise import FILTERS as JFILTERS
+from repro_torch.denoise import FILTERS
 
 BASE = dict(num_groups=3, frames_per_group=8, height=8, width=128)
 
@@ -93,12 +96,41 @@ def test_unknown_filter_lists_registered_filters():
         assert name in str(exc.value)
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_unported_filters_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DenoiseConfig(**BASE, filter_name=name)
-    with pytest.raises(NotImplementedError):
-        get_filter(name)
+@pytest.mark.parametrize("name", sorted(JFILTERS))
+def test_every_reference_filter_builds_the_same_config(name):
+    assert sorted(FILTERS) == sorted(JFILTERS)
+    kw = {**BASE, "filter_name": name}
+    a, b = DenoiseConfig(**kw), JConfig(**kw)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert a.stream_key() == b.stream_key()
+
+
+BAD_FILTER_PARAMS = [
+    dict(filter_name="temporal_median", median_window=0),
+    dict(filter_name="temporal_median", accum_dtype="int32"),
+    dict(filter_name="ema_variance", ema_alpha=0.0),
+    dict(filter_name="ema_variance", ema_alpha=1.5),
+    dict(filter_name="ema_variance", ema_mask_sigma=0.0),
+    dict(filter_name="ema_variance", accum_dtype="int32"),
+    dict(filter_name="spatial_box", spatial_mode="x"),
+    dict(filter_name="spatial_box", spatial_range_sigma=0.0),
+    dict(filter_name="spatial_box", accum_dtype="int32"),
+]
+
+
+@pytest.mark.parametrize("bad", BAD_FILTER_PARAMS, ids=str)
+def test_filter_validate_errors_match_reference(bad):
+    kw = {**BASE, **bad}
+    with pytest.raises(ValueError) as want:
+        JConfig(**kw)
+    with pytest.raises(ValueError) as got:
+        DenoiseConfig(**kw)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("name", sorted(JFILTERS))
+def test_phase_invariant_matches_reference(name):
+    assert FILTERS[name].phase_invariant is JFILTERS[name].phase_invariant
 
 
 @pytest.mark.parametrize("plan", ["auto", "plans/denoise.json"])

@@ -38,7 +38,11 @@ def _modules():
 
 def test_import_loads_neither_jax_nor_reference():
     mods = _modules()
-    assert "repro_torch.kernels.denoise_stream" in mods and len(mods) > 20
+    for new in ("denoise_median", "denoise_ema", "denoise_spatial"):
+        assert f"repro_torch.kernels.{new}" in mods
+    for new in ("temporal_median", "ema_variance", "spatial_box"):
+        assert f"repro_torch.denoise.{new}" in mods
+    assert "repro_torch.tune.budget" in mods and len(mods) > 25
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,9 +76,30 @@ def test_no_module_imports_jax_or_reference_statically():
 
 def test_kernel_modules_have_no_fallback_handlers():
     # a build or launch failure must surface, never reroute to the plain path
-    for name in ("denoise_stream.py", "denoise_multibank.py", "ops.py", "_build.py"):
+    for name in ("denoise_stream.py", "denoise_multibank.py", "denoise_median.py",
+                 "denoise_ema.py", "denoise_spatial.py", "ops.py", "_build.py"):
         tree = ast.parse((PKG / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+
+
+def test_build_compiles_every_source_and_raises_on_a_failed_one(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    assert {s.name for s in _build.SOURCES} == {
+        "denoise_stream.cu", "denoise_median.cu", "denoise_ema.cu", "denoise_spatial.cu"}
+    log = tmp_path / "calls.log"
+    fake = tmp_path / "nvcc"  # fails on the EMA source, succeeds on the others
+    fake.write_text(f'#!/bin/sh\necho "$@" >> {log}\n'
+                    'case "$*" in *denoise_ema.cu*) echo "ema: error"; exit 2;; esac\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match=r"denoise_ema\.cu \(nvcc exit 2\):\nema: error"):
+        _build._build(tmp_path / "build" / "lib.so")
+    calls = log.read_text().splitlines()
+    assert len(calls) == len(_build.SOURCES)  # every compile ran to its end; no link
+    assert all("-c" in c.split() and "sm_90a" in c for c in calls)
+    assert not (tmp_path / "build" / "lib.so").exists()
 
 
 @pytest.fixture
@@ -106,6 +131,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     assert not pulled  # raised before acquiring anything
 
 
+@pytest.mark.parametrize("name", ["temporal_median", "ema_variance", "spatial_box"])
+def test_every_filter_defaults_to_cuda_and_raises_without_it(no_cuda, name):
+    cfg = DenoiseConfig(**SMALL, filter_name=name)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingDenoiser(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        streaming.run_pipelined(cfg, iter([np.zeros((8, 8, 128), np.uint16)]))
+    den = StreamingDenoiser(cfg, device="cpu")
+    state = den.init()
+    leaves = state.values() if isinstance(state, dict) else [state]
+    assert all(t.device.type == "cpu" for t in leaves)
+
+
 def test_explicit_cuda_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamingDenoiser(DenoiseConfig(**SMALL), device="cuda")
@@ -117,8 +155,9 @@ def test_explicit_cuda_device_raises_without_cuda(no_cuda):
         lambda: ops.stream_init(8, 8, 128),
         lambda: ops.multibank_stream_init(2, 8, 8, 128),
         lambda: convert.state_from_reference(np.zeros((4, 8, 128), np.float32)),
+        lambda: convert.state_from_reference({"ema": np.zeros((4, 8, 128), np.float32)}),
     ],
-    ids=["stream_init", "multibank_stream_init", "state_from_reference"],
+    ids=["stream_init", "multibank_stream_init", "state_from_reference", "state_dict"],
 )
 def test_state_constructors_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
