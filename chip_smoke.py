@@ -37,12 +37,24 @@ then:
    bilateral mode): ``run_pipelined`` (depth 2),
    ``run_inline(prefetch=False)`` and the one-shot call, each equal to
    the CPU plain stream, and prints each filter's SNR against the
-   noise-free signal.
+   noise-free signal;
+6. runs the paper's Alg 1 and Alg 2 baselines at the paper's size
+   through the one-shot ``StreamingDenoiser`` call (B10: the tmpFrame
+   written to HBM and read back), each bitwise equal to the CPU plain
+   result and to the Alg 3 one-shot of the same frames;
+7. drives the bank executor on one card: ``run_pipelined_banked`` over
+   ``BankMesh(("cuda:0", "cuda:0"))`` for every filter and
+   ``banked_subtract_average``, from two pre-generated bank sources at
+   the paper's size, each equal to the same run on the CPU (on a machine
+   with two cards, again over ``make_bank_mesh(2)``), and times the
+   executor per group at 1 and at 2 banks.
 
-Phases 2-3 are the ``pair_average`` path (B2-B5) and phase 5 the other
-filters' path (B6-B9): every launch counter is set to 0 just before each
+Phases 2-3 are the ``pair_average`` path (B2-B5), phase 5 the other
+filters' path (B6-B9), phase 6 the baselines' path (B10) and phase 7 the
+banked path (B4-B9): every launch counter is set to 0 just before each
 and read just after; a kernel of the path launched no time there fails
-the run. The script prints the card's ``nvidia-smi`` name and power
+the run. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
+its sum over those phases. The script prints the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 It exits with code 2, printing no result, when no CUDA device is present.
@@ -86,10 +98,14 @@ KERNELS = {
     "median_combine": ("denoise_median.cu", "src/repro/kernels/denoise_median.py:170"),
     "ema_welford_step": ("denoise_ema.cu", "src/repro/kernels/denoise_ema.py:141"),
     "spatial_filter_3x3": ("denoise_spatial.cu", "src/repro/kernels/denoise_spatial.py:126"),
+    "alg1_subtract_average": ("denoise_tmpframe.cu", "src/repro/kernels/denoise_tmpframe.py:75,93"),
+    "alg2_subtract_average": ("denoise_tmpframe.cu", "src/repro/kernels/denoise_tmpframe.py:75,93"),
 }
 PAIR_AVERAGE_PATH = ("alg3_stream_step", "alg3_subtract_average", "multibank_stream_step",
                      "multibank_subtract_average")
 FILTER_PATH = ("median_window_insert", "median_combine", "ema_welford_step", "spatial_filter_3x3")
+BASELINE_PATH = ("alg1_subtract_average", "alg2_subtract_average")
+BANKED_PATH = ("multibank_stream_step", "multibank_subtract_average") + FILTER_PATH
 
 
 def card_peaks(name: str) -> tuple[float, float]:
@@ -135,6 +151,12 @@ def main() -> int:
 
     from repro_torch import obs
     from repro_torch.core import streaming
+    from repro_torch.core.banks import (
+        BankMesh,
+        banked_subtract_average,
+        make_bank_mesh,
+        run_pipelined_banked,
+    )
     from repro_torch.core.denoise import DenoiseConfig, StreamingDenoiser
     from repro_torch.data.prism import PrismSource, snr_db
     from repro_torch.kernels import (
@@ -144,6 +166,7 @@ def main() -> int:
         denoise_multibank,
         denoise_spatial,
         denoise_stream,
+        denoise_tmpframe,
         quant,
         ref,
     )
@@ -169,6 +192,8 @@ def main() -> int:
         "median_combine": denoise_median.median_combine,
         "ema_welford_step": denoise_ema.ema_welford_step,
         "spatial_filter_3x3": denoise_spatial.spatial_filter_3x3,
+        "alg1_subtract_average": denoise_tmpframe.alg1_subtract_average,
+        "alg2_subtract_average": denoise_tmpframe.alg2_subtract_average,
     }
     assert set(wrappers) == set(KERNELS)
     max_err = {k: 0.0 for k in wrappers}
@@ -287,11 +312,20 @@ def main() -> int:
             "spatial_filter_3x3", denoise_spatial.spatial_filter_3x3(x.to(dev), **kw),
             denoise_spatial.spatial_filter_3x3_plain(x, **kw), denoise_spatial.BILATERAL_RTOL,
             f"P={p} bilateral"))
+    for g in (5, 8):  # B10: a division by G would differ at G = 5
+        frames = wire((g, 64, H), "u16")
+        want = denoise_tmpframe.alg1_subtract_average_plain(frames, offset=offset)
+        got = {k: wrappers[k](frames.to(dev), offset=offset) for k in BASELINE_PATH}
+        for k, out in got.items():
+            same(k, out, want, f"G={g} N=64 u16")
+        if not torch.equal(got["alg1_subtract_average"], got["alg2_subtract_average"]):
+            raise AssertionError(f"G={g}: Alg 1 and Alg 2 differ on the card")
     torch.cuda.synchronize()
     print(f"phase 1: B6/B7/B8 bitwise equal to the CPU plain versions in {new_cases} cases "
           f"(u16/u8/p12, G=5/8, K=1/4/5) and B8 at N=1000 with 100 chunks; B9 box bitwise, "
           f"bilateral max relative diff {bilateral_rel:.3g} (declared "
-          f"{denoise_spatial.BILATERAL_RTOL:g}) ({time.perf_counter() - t1:.1f} s)")
+          f"{denoise_spatial.BILATERAL_RTOL:g}); B10 Alg 1 and Alg 2 (u16, G=5/8) bitwise "
+          f"equal to the CPU plain version and to each other ({time.perf_counter() - t1:.1f} s)")
     record["bilateral_max_rel"] = bilateral_rel
 
     # -- phase 1b: the executors at G = 5, card against CPU ----------------
@@ -396,6 +430,10 @@ def main() -> int:
                 discriminates |= not torch.equal(recip, want)
     if not discriminates:
         raise AssertionError("G=5 finalize: true division never differed from x * f32(1/5)")
+    for algorithm in ("alg1", "alg2"):  # streams run B2, the one-shot call B10
+        cfg5 = DenoiseConfig(num_groups=5, frames_per_group=64, algorithm=algorithm)
+        runs += card_vs_cpu(cfg5, list(PrismSource(cfg5, seed=5).groups()),
+                            f"G=5 u16 {algorithm}")[1]
     filter_runs = 0
     for extra in (dict(filter_name="temporal_median", median_window=3),  # the ring wraps
                   dict(filter_name="ema_variance"),  # pair_tile 8: 4 merge chunks per group
@@ -407,7 +445,7 @@ def main() -> int:
         filter_runs += card_vs_cpu(cfg5, groups5, f"G=5 u16 {extra['filter_name']}", bgroups5)[1]
     torch.cuda.synchronize()
     print(f"phase 1b: G=5 N=64 80x256: {runs} pair_average executor runs (u16/u8/p12 x "
-          f"alg3/alg3_v2) and {filter_runs} runs of temporal_median/ema_variance/spatial_box "
+          f"alg3/alg3_v2, u16 x alg1/alg2) and {filter_runs} runs of temporal_median/ema_variance/spatial_box "
           f"on the card bitwise equal to the CPU ({time.perf_counter() - t1:.1f} s)")
 
     # -- phases 2 + 3: the main path at the paper's size -----------------
@@ -587,6 +625,29 @@ def main() -> int:
         x, **kw)), time_ms(lambda: denoise_spatial.spatial_filter_3x3_plain(x, **kw), reps=5,
                            inner=2),
         2 * out_px * 4, out_px * (9 * 16 + 1))
+    # B10 at the paper's shape: each algorithm in total and each pass alone
+    frames8 = wire((G, N, H), "u16").to(dev)
+    tmp_px = G * P * H * W
+    bytes_a, flops_a = G * N * H * W * 2 + tmp_px * 4, tmp_px * 2
+    bytes_b, flops_b = tmp_px * 4 + out_px * 4, out_px * (G + 1)
+    for kernel in BASELINE_PATH:
+        burst = kernel.startswith("alg2")
+        row(kernel, "u16 total", time_ms(lambda: wrappers[kernel](frames8, offset=offset)),
+            time_ms(lambda: denoise_tmpframe.alg1_subtract_average_plain(frames8, offset=offset),
+                    reps=3, inner=1),
+            bytes_a + bytes_b, flops_a + flops_b, main=True)
+        row(kernel, "pass A", time_ms(lambda: denoise_tmpframe.subtract_pass(
+            frames8, offset=offset, burst=burst)), time_ms(
+                lambda: denoise_tmpframe.subtract_pass_plain(frames8, offset=offset), reps=3,
+                inner=1), bytes_a, flops_a)
+    tmp = denoise_tmpframe.subtract_pass(frames8, offset=offset, burst=True)
+    lib_sum = torch.sum(tmp, dim=0)  # the nearest single call to pass B (no 1/G scale)
+    sum_err = diff_max(lib_sum * ref.reciprocal(G), denoise_tmpframe.reduce_pass(tmp))
+    row("alg1_subtract_average", "pass B (both)", time_ms(lambda: denoise_tmpframe.reduce_pass(tmp)),
+        time_ms(lambda: denoise_tmpframe.reduce_pass_plain(tmp), reps=5, inner=2), bytes_b,
+        flops_b, library=time_ms(lambda: torch.sum(tmp, dim=0)), library_call="torch.sum(tmp, 0)",
+        library_max_abs_diff=sum_err)
+    del frames8, tmp, lib_sum
     for r in rows:
         lib = f"  library {r['library_ms'] * 1e3:9.1f} us" if r["library_ms"] is not None else ""
         print(f"  {r['kernel']:28s} {r['label']:16s} {r['ms'] * 1e3:9.2f} us  bound "
@@ -668,6 +729,117 @@ def main() -> int:
     record.update(filter_path_launches=filter_launches, filter_snr_db=snrs,
                   bilateral_path_max_rel=bilateral_path_rel)
     launches.update(filter_launches)
+
+    def reset_counters():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counters(path, what):
+        torch.cuda.synchronize()
+        counts = {k: wrappers[k].launches for k in path}
+        missing = [k for k, n in counts.items() if n == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {what}: {missing}")
+        return counts
+
+    # -- phase 6: the paper's Alg 1/2 baselines at the paper's size ----------
+    t6 = time.perf_counter()
+    want6 = StreamingDenoiser(DenoiseConfig(algorithm="alg1"), device="cpu")(np.stack(groups))
+    alg3_oneshot = outs["StreamingDenoiser(cfg)(frames)"].cpu()
+    reset_counters()
+    outs6 = {a: StreamingDenoiser(DenoiseConfig(algorithm=a))(frames_dev) for a in ("alg1", "alg2")}
+    baseline_launches = read_counters(BASELINE_PATH, "baselines' path")
+    for a, out in outs6.items():
+        got = out.cpu()
+        if got.shape != (500, 80, 256) or not torch.equal(got, want6):
+            raise AssertionError(f"{a} one-shot: not bitwise equal to the CPU plain result")
+        if not torch.equal(got, alg3_oneshot):
+            raise AssertionError(f"{a} one-shot: not bitwise equal to the Alg 3 one-shot")
+    print(f"phase 6: Alg 1 and Alg 2 one-shot at G=8 N=1000 80x256 u16 bitwise equal to the CPU "
+          f"plain result and to the Alg 3 one-shot; launches {json.dumps(baseline_launches)} "
+          f"({time.perf_counter() - t6:.1f} s)")
+    record["baseline_path_launches"] = baseline_launches
+    for k, n in baseline_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    del outs6, frames_dev
+
+    # -- phase 7: the bank executor on one card ------------------------------
+    cfg2 = DenoiseConfig(num_banks=2)
+    per_bank = [list(src) for src in PrismSource(cfg2, seed=4).bank_sources(2)]  # not live
+    bframes = np.stack([np.stack(g) for g in per_bank])  # (B, G, N, H, W)
+    banked = {label: dataclasses.replace(cfgs[label], num_banks=2) for label in cfgs}
+    banked = {"pair_average": cfg2, **banked}
+    t7 = time.perf_counter()
+    cpu2 = BankMesh(("cpu", "cpu"))
+    wants7 = {label: run_pipelined_banked(c, [iter(g) for g in per_bank], cpu2)[0]
+              for label, c in banked.items()}
+    want_bsa = banked_subtract_average(bframes, cpu2, config=cfg2)
+    cpu_s = time.perf_counter() - t7
+
+    def banked_runs(mesh):
+        outs7 = {label: run_pipelined_banked(c, [iter(g) for g in per_bank], mesh)[0]
+                 for label, c in banked.items()}
+        outs7["banked_subtract_average"] = banked_subtract_average(bframes, mesh,
+                                                                         config=cfg2)
+        return outs7
+
+    def check_banked(outs7, what):
+        rel = 0.0
+        for label, out in outs7.items():
+            want = want_bsa if label == "banked_subtract_average" else wants7[label]
+            got = out.cpu()
+            if got.shape != (2, 500, 80, 256) or not torch.isfinite(got).all():
+                raise AssertionError(f"{what} {label}: shape {tuple(got.shape)} or non-finite")
+            if label.endswith("bilateral"):
+                rel = max(rel, rel_diff(got, want))
+                if not rel <= denoise_spatial.BILATERAL_RTOL:
+                    raise AssertionError(f"{what} {label}: max relative diff {rel:.3g}")
+            elif not torch.equal(got, want):
+                raise AssertionError(f"{what} {label}: not bitwise equal to the CPU run")
+        return rel
+
+    one_card = BankMesh(("cuda:0", "cuda:0"))
+    t7 = time.perf_counter()
+    reset_counters()
+    outs7 = banked_runs(one_card)
+    bank_launches = read_counters(BANKED_PATH, "banked path")
+    bank_rel = check_banked(outs7, "BankMesh(cuda:0, cuda:0)")
+    if not torch.equal(outs7["pair_average"].cpu(), want_bsa):
+        raise AssertionError("banked pair_average stream and one-shot differ")
+    print(f"phase 7: run_pipelined_banked over BankMesh(cuda:0, cuda:0) at G=8 N=1000 80x256 u16 "
+          f"for {', '.join(banked)} and banked_subtract_average equal to the CPU run (bitwise; "
+          f"bilateral max relative diff {bank_rel:.3g}); launches {json.dumps(bank_launches)} "
+          f"({time.perf_counter() - t7:.1f} s on the card, {cpu_s:.1f} s for the CPU runs)")
+    del outs7
+    if torch.cuda.device_count() >= 2:
+        check_banked(banked_runs(make_bank_mesh(2)), "make_bank_mesh(2)")
+        print("phase 7: make_bank_mesh(2), one bank per card: every output equal to the CPU run")
+        record["two_card_mesh"] = "passed"
+    else:
+        print("phase 7: make_bank_mesh(2) not run: only one CUDA device is present")
+        record["two_card_mesh"] = "not run: one CUDA device"
+    record.update(banked_path_launches=bank_launches, banked_bilateral_max_rel=bank_rel)
+    for k, n in bank_launches.items():
+        launches[k] = launches.get(k, 0) + n
+
+    # the executor per group at 1 and at 2 banks (pair_average, pre-generated)
+    bank_exec = {1: [], 2: []}
+    one_bank = BankMesh(("cuda:0",))
+    for b in (1, 2, 2, 1):
+        mesh = one_bank if b == 1 else one_card
+        _, rep = run_pipelined_banked(DenoiseConfig(num_banks=b),
+                                            [iter(g) for g in per_bank[:b]], mesh)
+        bank_exec[b].append(dict(
+            ms_per_group=rep.elapsed_s / cfg2.num_groups * 1e3,
+            stall_ms_per_group=rep.stall_s / cfg2.num_groups * 1e3,
+            transfer_ms_per_group=rep.transfer_s / cfg2.num_groups * 1e3,
+            overlap_frac=rep.overlap_frac))
+    for b, reps in bank_exec.items():
+        print(f"  run_pipelined_banked {b} bank(s) on one card: ms/group "
+              f"{[round(r['ms_per_group'], 2) for r in reps]} (camera {CAMERA_GROUP_MS:.0f}), "
+              f"stall {[round(r['stall_ms_per_group'], 2) for r in reps]}, transfer (summed over "
+              f"banks) {[round(r['transfer_ms_per_group'], 2) for r in reps]} ms/group")
+    record["banked_executor"] = {f"{b}_banks": reps for b, reps in bank_exec.items()}
 
     main_rows = {r["kernel"]: r for r in rows if r["main"]}
     kernels = [

@@ -4,11 +4,19 @@
   run_pipelined                      — ring-pipelined 3-stage executor (§5)
   run_inline / run_buffered          — inline vs buffer-then-process drivers
   RingBuffer                         — bounded ring with backpressure
-
-The reference's ``banks``, ``egress`` and ``latency_model`` modules are
-later slices (ROADMAP.md queue A items 7 and 8).
+  BankMesh / run_pipelined_banked    — one pipeline per bank (Table 5)
 """
 
+from repro_torch.core.banks import (  # noqa: F401
+    BankMesh,
+    banked_filter_finalize,
+    banked_filter_init,
+    banked_filter_step,
+    banked_stream_step,
+    banked_subtract_average,
+    make_bank_mesh,
+    run_pipelined_banked,
+)
 from repro_torch.core.denoise import (  # noqa: F401
     DEFAULT_OFFSET,
     MONO12_MAX,

@@ -29,22 +29,57 @@ Contract rules the executors rely on:
 * **Tile plans** are resolved once, at construction, and passed to
   ``ops`` as static kwargs (the CUDA kernels ignore them).
 
+* **Bank layout.** ``state_pspec`` names each banked tensor's bank axis
+  with a tuple spec such as ``("bank", None, None, None)``, in the
+  state's own structure (a tensor, or a dict of tensors): the
+  counterpart of the reference's ``PartitionSpec`` tree.
+  :mod:`repro_torch.core.banks` splits banked states along it.
+* **Slot surgery.** A banked state is a slot array: the session service
+  hosts one independent stream per bank slot and joins or leaves streams
+  mid-run. ``slot_extract`` / ``slot_gather`` copy single slots out,
+  ``slot_insert`` / ``slot_scatter`` write them back, locating each
+  tensor's bank axis through ``state_pspec``, and none changes the banked
+  state's shapes. ``slot_to_host`` / ``slot_from_host`` move one slot's
+  state to numpy and back bit-exactly (checkpoint and migration).
+
 ``phase_invariant`` declares that ``step`` ignores ``step_index`` (the
-session scheduler may co-batch slots at different group indices). The
-reference's slot surgery (``slot_insert``/``extract``/``gather``/
-``scatter``) and ``state_pspec`` serve the session service and the
-shard_map executor; they come with those slices (ROADMAP.md queue A
-items 7 and 10).
+session scheduler may co-batch slots at different group indices).
 """
 
 from __future__ import annotations
 
-from typing import Any, ClassVar
+from typing import Any, Callable, ClassVar, Iterable
+
+import numpy as np
+import torch
 
 from repro_torch import tune
 from repro_torch.kernels import ops
 
-__all__ = ["StreamingFilter"]
+__all__ = ["StreamingFilter", "tree_leaves", "tree_map"]
+
+
+def tree_leaves(state) -> tuple[list, Callable[[list], Any]]:
+    """A state's tensors, and a function that rebuilds the same structure
+    from new leaves: a state is a tensor or a dict of them. A dict's
+    leaves come in sorted key order, as JAX flattens them, so two states
+    with the same keys pair leaf for leaf whatever their insertion order."""
+    if isinstance(state, dict):
+        keys = sorted(state)
+        return [state[k] for k in keys], lambda leaves: dict(zip(keys, leaves))
+    return [state], lambda leaves: leaves[0]
+
+
+def _index(indices: Iterable[int], device) -> torch.Tensor:
+    return torch.as_tensor(list(indices), dtype=torch.long, device=device)
+
+
+def tree_map(fn: Callable, state, *rest):
+    """``fn`` over the leaves of ``state`` (and of ``rest``, leaf by leaf),
+    in the state's structure."""
+    leaves, rebuild = tree_leaves(state)
+    others = [tree_leaves(r)[0] for r in rest]
+    return rebuild([fn(*args) for args in zip(leaves, *others)])
 
 
 class StreamingFilter:
@@ -93,3 +128,80 @@ class StreamingFilter:
     def is_banked(self, state) -> bool:
         """Whether ``state`` came from ``init(banks=...)``."""
         raise NotImplementedError
+
+    def state_pspec(self, state):
+        """Per-tensor bank-axis spec of a *banked* state, as tuples.
+
+        Default: every tensor carries the bank axis first. Filters with
+        another layout (``temporal_median``'s window keeps its slot axis
+        first) override this.
+        """
+        return tree_map(lambda t: ("bank",) + (None,) * (t.ndim - 1), state)
+
+    # -- slot surgery (session hosting) -------------------------------------
+    # Each hook locates a tensor's bank axis from ``state_pspec``, so every
+    # filter gets join/leave support from its declared layout.
+
+    def _flat_with_bank_axes(self, state):
+        """A banked state's tensors, its rebuild function, and each
+        tensor's bank-axis index."""
+        leaves, rebuild = tree_leaves(state)
+        specs = tree_leaves(self.state_pspec(state))[0]
+        return leaves, rebuild, [spec.index("bank") for spec in specs]
+
+    def slot_extract(self, state, index: int):
+        """Bank slot ``index`` as a single-bank state.
+
+        A contiguous copy that shares no storage with the banked state:
+        stepping it in place leaves the banked state, and so every other
+        slot, untouched. It steps and finalizes as an ``init()`` state.
+        """
+        leaves, rebuild, axes = self._flat_with_bank_axes(state)
+        return rebuild([
+            t.select(ax, index).clone(memory_format=torch.contiguous_format)
+            for t, ax in zip(leaves, axes)
+        ])
+
+    def slot_insert(self, state, slot_state, index: int):
+        """Write a single-bank ``slot_state`` into bank slot ``index``.
+
+        Unlike the reference's functional ``.at[].set``, this writes **in
+        place** and returns the banked state: the reference's session
+        scheduler inserts through a donating variant, whose old buffer is
+        dead after the call, so updating it in place is the same for that
+        caller without a copy of every slot. Shapes never change. The
+        mid-stream join hook: inserting a fresh ``init()`` state starts a
+        new stream in that slot.
+        """
+        leaves, _, axes = self._flat_with_bank_axes(state)
+        for t, s, ax in zip(leaves, tree_leaves(slot_state)[0], axes):
+            t.select(ax, index).copy_(s)
+        return state
+
+    def slot_gather(self, state, indices: Iterable[int]):
+        """Banked sub-state of slots ``indices`` (in that order): a copy
+        that shares no storage with ``state``."""
+        leaves, rebuild, axes = self._flat_with_bank_axes(state)
+        return rebuild([
+            t.index_select(ax, _index(indices, t.device))
+            for t, ax in zip(leaves, axes)
+        ])
+
+    def slot_scatter(self, state, sub_state, indices: Iterable[int]):
+        """Write a ``slot_gather``-shaped sub-state back into ``indices``,
+        in place (as :meth:`slot_insert`); returns the banked state."""
+        leaves, _, axes = self._flat_with_bank_axes(state)
+        for t, s, ax in zip(leaves, tree_leaves(sub_state)[0], axes):
+            t.index_copy_(ax, _index(indices, t.device), s.to(t.device))
+        return state
+
+    def slot_to_host(self, slot_state):
+        """Numpy copies of a single-bank state's tensors, dtype kept: the
+        checkpoint and migration format."""
+        return tree_map(lambda t: t.detach().cpu().numpy().copy(), slot_state)
+
+    def slot_from_host(self, slot_state, device=None):
+        """Revive a :meth:`slot_to_host` snapshot as tensors on ``device``
+        (the filter's own device unless the caller names another)."""
+        dev = self.device if device is None else ops.resolve_device(device)
+        return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), slot_state)

@@ -86,3 +86,6 @@ class TemporalMedianFilter(StreamingFilter):
 
     def is_banked(self, state) -> bool:
         return state.ndim == 5
+
+    def state_pspec(self, state):
+        return (None, "bank", None, None, None)

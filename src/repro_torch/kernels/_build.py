@@ -60,6 +60,10 @@ ARGTYPES = {
         (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _F, _F, _F, _F, _F, _F, _P),
     "spatial_filter_3x3_launch":
         (_P, _P, _I64, _I64, _I64, _I, _F, _P),
+    "tmpframe_subtract_launch":
+        (_P, _P, _I64, _I64, _I64, _I, _F, _P),
+    "tmpframe_reduce_launch":
+        (_P, _P, _I64, _I64, _I64, _F, _P),
 }
 
 _lock = threading.Lock()

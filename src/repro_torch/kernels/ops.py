@@ -4,16 +4,18 @@
 Dispatch follows the tensors' device, never a guess about the machine:
 
 * ``backend='auto'`` and ``'pallas'`` — on a CUDA tensor, the Hopper
-  kernel (``denoise_stream``, ``denoise_multibank``, ``denoise_median``,
-  ``denoise_ema``, ``denoise_spatial``); on a CPU tensor, the kernel's
-  plain PyTorch version (the counterpart of the reference's interpret
-  mode).
+  kernel (``denoise_stream``, ``denoise_multibank``, ``denoise_tmpframe``,
+  ``denoise_median``, ``denoise_ema``, ``denoise_spatial``); on a CPU
+  tensor, the kernel's plain PyTorch version (the counterpart of the
+  reference's interpret mode).
 * ``backend='xla'`` — the plain PyTorch composite, on whatever device the
   tensors are on.
 
-Nothing catches a build or launch failure to run something else, and
-what this slice has not ported raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item (the Alg 1/2 baselines on CUDA). The running sums of
+The one exception is the banked Alg 1/2 baseline: the reference has no
+multi-bank Pallas kernel for it and runs its XLA composite on every
+backend but ``'pallas'`` (an error), so the port runs the plain
+materialized composite on every device. Nothing catches a build or launch
+failure to run something else. The running sums of
 ``stream_step`` / ``multibank_stream_step``, the median window of
 ``median_window_insert`` and the three EMA states of ``ema_welford_step``
 are updated **in place**, where the reference donates them; each returns
@@ -38,6 +40,7 @@ from repro_torch.kernels import (
     denoise_multibank,
     denoise_spatial,
     denoise_stream,
+    denoise_tmpframe,
     ref,
 )
 from repro_torch.kernels.quant import (  # noqa: F401  (shared dequant prologue)
@@ -73,13 +76,6 @@ ALGORITHMS = ("alg1", "alg2", "alg3", "alg3_v2")
 BACKENDS = ("auto", "pallas", "xla")
 SPATIAL_MODES = ("box", "bilateral")
 TILE_PLANS = ("heuristic", "auto")
-
-#: what an Alg 1/2 request on a CUDA tensor raises (paper baselines, B10)
-NOT_PORTED_TMPFRAME = (
-    "the {algorithm} tmpFrame baseline has no Hopper kernel yet (ROADMAP.md "
-    "queue B, B10 denoise_tmpframe); run it on CPU tensors or with "
-    "backend='xla'"
-)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -136,21 +132,32 @@ def subtract_average(
     stream_dtype: str = "u16",
     placement: str | None = None,
 ) -> torch.Tensor:
-    """PRISM denoise: (G, N, H, wire_W) frames -> (N/2, H, W) averaged diffs."""
+    """PRISM denoise: (G, N, H, wire_W) frames -> (N/2, H, W) averaged diffs.
+
+    Alg 1/2 with ``auto``/``pallas`` run the two-pass tmpFrame kernels
+    (B10, :mod:`repro_torch.kernels.denoise_tmpframe`), which ingest u16
+    only, as the reference's Pallas baselines; ``xla`` decodes every wire
+    format through the plain materialized composite.
+    """
     _check_algorithm(algorithm)
     _check_backend(backend)
     if algorithm in ("alg1", "alg2"):
-        if backend != "xla" and denoise_stream.on_cuda(frames):
-            raise NotImplementedError(NOT_PORTED_TMPFRAME.format(algorithm=algorithm))
-        if backend == "pallas" and stream_dtype != "u16":
+        if backend == "xla":
+            return _materialized(
+                frames, offset=offset, accum_dtype=accum_dtype,
+                stream_dtype=stream_dtype, group_axis=0,
+            )
+        if stream_dtype != "u16":
             raise ValueError(
                 f"no {stream_dtype!r} ingest for the {algorithm} pallas "
                 "baseline; use backend='xla' or stream_dtype='u16'"
             )
-        return _materialized(
-            frames, offset=offset, accum_dtype=accum_dtype,
-            stream_dtype=stream_dtype, group_axis=0,
+        fn = (
+            denoise_tmpframe.alg1_subtract_average
+            if algorithm == "alg1"
+            else denoise_tmpframe.alg2_subtract_average
         )
+        return fn(frames, offset=offset, accum_dtype=accum_dtype)
     fn = (
         denoise_stream.alg3_subtract_average
         if backend != "xla"
@@ -224,7 +231,9 @@ def multibank_subtract_average(
     """(B, G, N, H, wire_W) -> (B, N/2, H, W), banks independent.
 
     Only the Alg 3 variants have a multi-bank kernel; ``backend='pallas'``
-    with Alg 1/2 is an error, as in the reference.
+    with Alg 1/2 is an error, as in the reference, and ``auto``/``xla``
+    run the plain materialized composite on every device (the reference's
+    XLA composite).
     """
     _check_algorithm(algorithm)
     if backend == "pallas" and algorithm in ("alg1", "alg2"):
@@ -236,8 +245,6 @@ def multibank_subtract_average(
     _check_backend(backend)
     divide_first = algorithm == "alg3_v2"
     if algorithm in ("alg1", "alg2"):
-        if backend != "xla" and denoise_stream.on_cuda(frames):
-            raise NotImplementedError(NOT_PORTED_TMPFRAME.format(algorithm=algorithm))
         return _materialized(
             frames, offset=offset, accum_dtype=accum_dtype,
             stream_dtype=stream_dtype, group_axis=1,

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import streaming
+from repro_torch.core import banks, streaming
 from repro_torch.core.denoise import DenoiseConfig, StreamingDenoiser
 from repro_torch.data.prism import PrismSource
 from repro_torch.kernels import (
@@ -24,6 +24,8 @@ from repro_torch.kernels import (
     denoise_multibank,
     denoise_spatial,
     denoise_stream,
+    denoise_tmpframe,
+    ops,
     quant,
 )
 
@@ -70,11 +72,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
             s.to(torch.int32), num_groups=2)
     with pytest.raises(TypeError):
         denoise_stream.alg3_stream_step(torch.zeros(8, 8, 256, device=cuda), s, num_groups=2)
-    with pytest.raises(NotImplementedError, match="B10"):
-        from repro_torch.kernels import ops
-
-        ops.subtract_average(torch.zeros(2, 8, 8, 256, dtype=torch.uint16, device=cuda),
-                             algorithm="alg1")
 
 
 def test_executors_on_the_card_match_cpu(cuda):
@@ -144,3 +141,43 @@ def test_filter_executors_on_the_card_match_cpu(cuda, extra):
         assert torch.equal(out.cpu(), want)
     frames = torch.from_numpy(PrismSource(cfg, seed=1).all_frames()).to(cuda)
     assert torch.equal(StreamingDenoiser(cfg)(frames).cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(5, 16, 80, 256), (5, 6, 7, 130)], ids=["80x256", "ragged"])
+def test_tmpframe_kernels_bitwise_equal_plain(cuda, shape):
+    # G = 5: a division by G instead of the multiply by f32(1/G) would differ
+    frames = torch.from_numpy(
+        np.random.default_rng(13).integers(0, 4096, shape).astype(np.uint16))
+    want = denoise_tmpframe.alg1_subtract_average_plain(frames, offset=4096.0)
+    before = [denoise_tmpframe.alg1_subtract_average.launches,
+              denoise_tmpframe.alg2_subtract_average.launches]
+    got1 = denoise_tmpframe.alg1_subtract_average(frames.to(cuda), offset=4096.0).cpu()
+    got2 = denoise_tmpframe.alg2_subtract_average(frames.to(cuda), offset=4096.0).cpu()
+    assert torch.equal(got1, want) and torch.equal(got2, want)
+    assert [denoise_tmpframe.alg1_subtract_average.launches,
+            denoise_tmpframe.alg2_subtract_average.launches] == [b + 2 for b in before]
+    tmp = denoise_tmpframe.subtract_pass(frames.to(cuda), offset=4096.0, burst=True)
+    assert torch.equal(tmp.cpu(), denoise_tmpframe.subtract_pass_plain(frames, offset=4096.0))
+    with pytest.raises(ValueError, match="'u8' ingest"):
+        ops.subtract_average(frames[:, :, :, :128].to(torch.uint8).to(cuda), algorithm="alg1",
+                             stream_dtype="u8")
+    with pytest.raises(NotImplementedError, match="float32"):
+        denoise_tmpframe.alg1_subtract_average(frames.to(cuda), accum_dtype=torch.float64)
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [dict(), dict(filter_name="temporal_median", median_window=2),
+     dict(filter_name="ema_variance"), dict(filter_name="spatial_box", spatial_mode="box")],
+    ids=["pair_average", "temporal_median", "ema_variance", "spatial_box"],
+)
+def test_two_shard_banked_executor_on_one_card_matches_cpu(cuda, extra):
+    cfg = DenoiseConfig(num_groups=3, frames_per_group=16, height=80, width=256,
+                        num_banks=2, **extra)
+    sources = [list(s) for s in PrismSource(cfg, seed=4).bank_sources(2)]
+    want, _ = banks.run_pipelined_banked(cfg, [iter(s) for s in sources],
+                                         banks.BankMesh(("cpu", "cpu")))
+    got, rep = banks.run_pipelined_banked(cfg, [iter(s) for s in sources],
+                                          banks.BankMesh(("cuda:0", "cuda:0")))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert rep.frames == 2 * cfg.num_groups * cfg.frames_per_group

@@ -19,7 +19,7 @@ from repro.core.denoise import DenoiseConfig as JConfig
 from repro.core.denoise import StreamingDenoiser as JDenoiser
 from repro.data.prism import PrismSource as JSource
 from repro_torch import convert
-from repro_torch.core import streaming
+from repro_torch.core import banks, streaming
 from repro_torch.core.denoise import DenoiseConfig, StreamingDenoiser
 from repro_torch.kernels import ops
 
@@ -38,8 +38,9 @@ def _modules():
 
 def test_import_loads_neither_jax_nor_reference():
     mods = _modules()
-    for new in ("denoise_median", "denoise_ema", "denoise_spatial"):
+    for new in ("denoise_median", "denoise_ema", "denoise_spatial", "denoise_tmpframe"):
         assert f"repro_torch.kernels.{new}" in mods
+    assert "repro_torch.core.banks" in mods
     for new in ("temporal_median", "ema_variance", "spatial_box"):
         assert f"repro_torch.denoise.{new}" in mods
     assert "repro_torch.tune.budget" in mods and len(mods) > 25
@@ -77,16 +78,30 @@ def test_no_module_imports_jax_or_reference_statically():
 def test_kernel_modules_have_no_fallback_handlers():
     # a build or launch failure must surface, never reroute to the plain path
     for name in ("denoise_stream.py", "denoise_multibank.py", "denoise_median.py",
-                 "denoise_ema.py", "denoise_spatial.py", "ops.py", "_build.py"):
+                 "denoise_ema.py", "denoise_spatial.py", "denoise_tmpframe.py", "ops.py",
+                 "_build.py"):
         tree = ast.parse((PKG / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+
+
+def test_bank_executor_handlers_only_record_errors():
+    # its handlers end a producer on a closed ring or hand the error to the
+    # caller; none runs anything in place of what failed
+    tree = ast.parse((PKG / "core" / "banks.py").read_text())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert handlers
+    for h in handlers:
+        calls = [n for n in ast.walk(h) if isinstance(n, ast.Call)]
+        assert all(isinstance(c.func, ast.Attribute) and c.func.attr == "append"
+                   for c in calls), ast.unparse(h)
 
 
 def test_build_compiles_every_source_and_raises_on_a_failed_one(tmp_path, monkeypatch):
     from repro_torch.kernels import _build
 
     assert {s.name for s in _build.SOURCES} == {
-        "denoise_stream.cu", "denoise_median.cu", "denoise_ema.cu", "denoise_spatial.cu"}
+        "denoise_stream.cu", "denoise_median.cu", "denoise_ema.cu", "denoise_spatial.cu",
+        "denoise_tmpframe.cu"}
     log = tmp_path / "calls.log"
     fake = tmp_path / "nvcc"  # fails on the EMA source, succeeds on the others
     fake.write_text(f'#!/bin/sh\necho "$@" >> {log}\n'
@@ -142,6 +157,27 @@ def test_every_filter_defaults_to_cuda_and_raises_without_it(no_cuda, name):
     state = den.init()
     leaves = state.values() if isinstance(state, dict) else [state]
     assert all(t.device.type == "cpu" for t in leaves)
+
+
+def test_bank_entry_points_need_cuda_unless_told_otherwise(no_cuda):
+    cfg = DenoiseConfig(**SMALL)
+    with pytest.raises(ValueError, match="need 2 devices for 2 banks, have 0"):
+        banks.make_bank_mesh(2)
+    with pytest.raises(ValueError, match="need 1 devices for 1 banks, have 0"):
+        banks.make_bank_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        banks.banked_filter_init(cfg, None, banks=2)
+    pulled = []
+
+    def src():
+        pulled.append(1)
+        yield np.zeros((8, 8, 128), np.uint16)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        banks.run_pipelined_banked(cfg, [src(), src()], banks.BankMesh(("cuda:0", "cuda:0")))
+    assert not pulled
+    _, state = banks.banked_filter_init(cfg, banks.BankMesh(("cpu", "cpu")))
+    assert [s.device.type for s in state] == ["cpu", "cpu"]
 
 
 def test_explicit_cuda_device_raises_without_cuda(no_cuda):
