@@ -11,11 +11,17 @@ then:
 
 1. holds every kernel against its plain PyTorch version run on the CPU:
    B2-B5 bitwise for u16/u8/p12 wire formats, both variants (Alg 3 and
-   Alg 3 v2) and G in {5, 8}; B6 (median insert) and B8 (EMA step)
-   bitwise for u16/u8/p12 and G in {5, 8}, B8 also at N = 1000 with the
-   main path's 100 merge chunks; B7 (median combine) bitwise for K in
-   {1, 4, 5}; B9 (3x3 spatial) bitwise in box mode and within its
-   declared tolerance in bilateral mode. Then (1b) runs the executors on
+   Alg 3 v2) and G in {5, 8}, the steps (B2/B4) on their vector path
+   (u16, u8), also on a 40 x 136 plane whose last block and warp are
+   partial, and on a ragged 7 x 130 plane and an unaligned 80 x 256 view,
+   where each step launch (and every p12 one) must take the scalar path;
+   B6 (median insert) and B8 (EMA step) bitwise for u16/u8/p12 and G in
+   {5, 8}, B8 also at N = 1000 with the main path's 100 merge chunks, with
+   500 chunks (63 rounds of 8, the last one short), with one chunk of 32
+   pairs (above the register cap), on a ragged 7 x 130 plane and with
+   pair_tile 2, 3, 6, 7 and 8 (each its own kernel); B7 (median combine)
+   bitwise for K in {1, 4, 5}; B9 (3x3 spatial) bitwise in box mode and
+   within its declared tolerance in bilateral mode. Then (1b) runs the executors on
    the card at G = 5, where 1/G is inexact, for ``pair_average`` and the
    three other filters, so the eager true divisions (finalize, a
    consumer's partials, a ``drop_oldest`` stream made to drop one group
@@ -24,13 +30,18 @@ then:
 2. drives the main path at the paper's size (G = 8, N = 1000, 80 x 256,
    u16): ``PrismSource`` -> ``run_pipelined`` (ring depth 2 and 3),
    ``run_inline(prefetch=False)`` and the one-shot ``StreamingDenoiser``
-   call, all bitwise equal to each other and to the CPU plain stream;
+   call, all bitwise equal to each other and to the CPU plain stream,
+   with every step launch on the vector path;
 3. drives the banked path on one card (two banks): ``ingest_many`` and
    the 5-D one-shot call;
-4. times each kernel at the paper's shape with CUDA events against the
-   least time the card needs for its bytes or operations, times its
-   plain version and, where one PyTorch call computes the same function,
-   that call; and times the pipelined executor per group against the
+4. times each kernel at the paper's shape with CUDA events (device time:
+   each sample waits behind a device sleep that outlasts the host's
+   queuing of its calls, so the host's launch rate does not count)
+   against the least time the card needs for its bytes or operations,
+   times its plain version and, where one PyTorch call computes the same
+   function, that call (B2 and B4 also on their scalar path, u16 and u8,
+   in the same run, and the host time per call of the B2, B4 and B8
+   wrappers); and times the pipelined executor per group against the
    camera's 57 ms inter-group interval;
 5. drives the other filters at the paper's size (``temporal_median``
    with its 5-slot window, ``ema_variance``, ``spatial_box`` in box and
@@ -88,6 +99,9 @@ PEAKS = (
     ("H100", 3.35e12, 67e12),  # SXM5 (named "H100 80GB HBM3" or "H100 SXM")
 )
 CAMERA_GROUP_MS = 57e-3 * 1000  # 57 us per frame x 1000 frames per group
+#: device clock cycles of the sleep that heads each timing sample (about
+#: 1 ms at the H100's 1.98 GHz boost clock)
+QUEUE_CYCLES = 2_000_000
 #: kernel -> (CUDA source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "alg3_stream_step": ("denoise_stream.cu", "src/repro/kernels/denoise_stream.py:252"),
@@ -123,22 +137,59 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, *, reps: int = 15, inner: int = 10, warmup: int = 3) -> float:
+def time_ms(fn, *, reps: int = 15, inner: int = 10, warmup: int = 3,
+            strict: bool = True) -> float:
     """Median CUDA-event time of one ``fn()`` call: ``inner`` back-to-back
-    calls between two events, ``reps`` times, after ``warmup`` calls."""
+    calls between two events, ``reps`` times, after ``warmup`` calls. Each
+    sample starts behind a device sleep, so the host has queued the calls
+    before the first one runs and the events read the device's time, not
+    the host's rate of launching: a kernel wrapper takes tens of
+    microseconds of host time a call (``host_us``), as long as the fastest
+    kernels themselves. A sample whose start event the device passed
+    before the host had queued its last call is taken again behind a sleep
+    twice as long, up to 16 times ``QUEUE_CYCLES``; past that a ``strict``
+    timing raises, and any other (a plain version's, which may wait on the
+    device itself) keeps the sample."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
+    cycles, samples = QUEUE_CYCLES, []
+    while len(samples) < reps:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(inner):
             fn()
+        covered = not start.query()  # the sleep still ran when the last call was queued
         end.record()
         end.synchronize()
-        samples.append(start.elapsed_time(end) / inner)
+        if covered or (cycles >= 16 * QUEUE_CYCLES and not strict):
+            samples.append(start.elapsed_time(end) / inner)
+        elif cycles >= 16 * QUEUE_CYCLES:
+            raise AssertionError(f"the host queued {inner} calls for longer than a "
+                                 f"{cycles}-cycle device sleep")
+        else:
+            cycles *= 2
+    return statistics.median(samples)
+
+
+def plain_ms(fn, **kw) -> float:
+    """``time_ms`` of a plain version or a library call, not strict."""
+    return time_ms(fn, strict=False, **kw)
+
+
+def host_us(fn, *, calls: int = 200) -> float:
+    """Host time of one ``fn()`` call, in microseconds, while the device
+    runs the calls queued before it (the median of five runs of ``calls``)."""
+    samples = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t) / calls * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(samples)
 
 
@@ -226,9 +277,22 @@ def main() -> int:
     offset = 4096.0
     H, W = 80, 256
 
-    def wire(shape, fmt):
-        px = rng.integers(0, 4096, shape + (W,)).astype(np.uint16)
+    def wire(shape, fmt, width=W):
+        px = rng.integers(0, 4096, shape + (width,)).astype(np.uint16)
         return torch.from_numpy(np.ascontiguousarray(quant.encode(px, fmt)))
+
+    def shifted(t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the card in storage one element into a buffer: a view whose
+        planes are not aligned for the step's vector loads."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    steps = (denoise_stream.alg3_stream_step, denoise_multibank.multibank_stream_step)
+
+    def step_paths() -> list[tuple[int, int]]:
+        return [(f.vector_launches, f.scalar_launches) for f in steps]
 
     # -- phase 1: each kernel against its plain version on the CPU -------
     t1 = time.perf_counter()
@@ -263,21 +327,53 @@ def main() -> int:
         same("multibank_subtract_average",
              denoise_multibank.multibank_subtract_average(banked.to(dev), **kw),
              denoise_multibank.multibank_subtract_average_plain(banked, **kw), what)
+    # B2/B4 on the edges of their paths: on a 40 x 136 plane (680 vectors: a
+    # full block and a partial one, a partial warp) each u16/u8 launch must
+    # take the vector path; on a ragged 7 x 130 plane and an unaligned view of
+    # 80 x 256, and for p12 on every plane, the scalar path
+    path_cases = 0
+    to_dev = lambda t: t.to(dev)  # noqa: E731
+    for fmt in quant.STREAM_DTYPES:
+        for df in (False, True):
+            for (h, w), place, path in (((40, 136), to_dev, "vector"),
+                                        ((7, 130), to_dev, "scalar"), ((H, W), shifted, "scalar")):
+                path = "scalar" if fmt == "p12" else path
+                what = f"G=3 N=12 {h}x{w} {fmt} {'divide_first' if df else 'divide_last'}"
+                kw = dict(offset=offset, divide_first=df, stream_dtype=fmt, num_groups=3)
+                frames = wire((2, 3, 12, h), fmt, width=w)
+                before = step_paths()
+                s1, s2 = place(torch.zeros(6, h, w)), place(torch.zeros(2, 6, h, w))
+                c1, c2 = torch.zeros(6, h, w), torch.zeros(2, 6, h, w)
+                for k in range(3):
+                    chunk = frames[:, k].contiguous()
+                    denoise_stream.alg3_stream_step(place(chunk[0]), s1, final=k == 2, **kw)
+                    c1 = denoise_stream.alg3_stream_step_plain(chunk[0], c1, final=k == 2, **kw)
+                    denoise_multibank.multibank_stream_step(place(chunk), s2, final=k == 2, **kw)
+                    c2 = denoise_multibank.multibank_stream_step_plain(chunk, c2, final=k == 2, **kw)
+                same("alg3_stream_step", s1, c1, what)
+                same("multibank_stream_step", s2, c2, what)
+                want = [(3, 0) if path == "vector" else (0, 3)] * 2
+                if [(v - v0, c - c0) for (v, c), (v0, c0) in zip(step_paths(), before)] != want:
+                    raise AssertionError(f"{what}: the steps did not all take the {path} path")
+                path_cases += 1
     torch.cuda.synchronize()
     print(f"phase 1: {len(cases)} cases x 4 kernels (B2-B5) bitwise equal to the CPU plain "
-          f"versions ({time.perf_counter() - t1:.1f} s)")
+          f"versions, and B2/B4 in {path_cases} cases on a 40x136 plane (vector path; p12 "
+          f"scalar), a ragged 7x130 plane and an unaligned 80x256 view (scalar path) "
+          f"({time.perf_counter() - t1:.1f} s)")
 
     # B6-B9 against their plain versions on the CPU
     t1 = time.perf_counter()
 
-    def ema_case(frames: torch.Tensor, fmt: str, pair_tile: int, what: str) -> None:
+    def ema_case(frames: torch.Tensor, fmt: str, pair_tile: int, what: str, prior: int = 0,
+                 hw: tuple[int, int] = (H, W)) -> None:
         g, n = frames.shape[:2]
-        gpu = [torch.zeros(n // 2, H, W, device=dev), torch.zeros(H, W, device=dev),
-               torch.zeros(H, W, device=dev)]
+        gpu = [torch.zeros(n // 2, *hw, device=dev), torch.zeros(hw, device=dev),
+               torch.zeros(hw, device=dev)]
         cpu = [t.cpu() for t in gpu]
         for k in range(g):
-            kw = dict(alpha=0.3, offset=offset, prior_count=k * (n // 2), pair_tile=pair_tile,
-                      stream_dtype=fmt)
+            kw = dict(alpha=0.3, offset=offset, prior_count=prior + k * (n // 2),
+                      pair_tile=pair_tile, stream_dtype=fmt)
             denoise_ema.ema_welford_step(*gpu, frames[k].to(dev), **kw)
             cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[k], **kw))
         for a, b in zip(gpu, cpu):
@@ -301,6 +397,16 @@ def main() -> int:
             ema_case(frames, fmt, 4, what + " pair_tile=4")  # B8, 8 chunks
             new_cases += 1
     ema_case(wire((8, 1000, H), "u16"), "u16", 5, "G=8 N=1000 u16 pair_tile=5")  # 100 chunks
+    for fmt in quant.STREAM_DTYPES:  # the chunk rounds' edges: 8 chunks a round
+        g = 2 if fmt == "u16" else 1  # the plain version takes some 3 s a group here
+        ema_case(wire((g, 1000, H), fmt), fmt, 1, f"G={g} N=1000 {fmt} pair_tile=1")  # 500 chunks
+        ema_case(wire((2, 64, H), fmt), fmt, 32, f"G=2 N=64 {fmt} pair_tile=32")  # one chunk
+        ema_case(wire((3, 40, 7), fmt, width=130), fmt, 4, f"G=3 N=40 7x130 {fmt} pair_tile=4",
+                 prior=13, hw=(7, 130))  # 5 chunks, a ragged pixel tile, a prior count
+        for tp in (2, 3, 6, 7, 8):  # the register tiles no other case launches
+            ema_case(wire((2, 336, 16), fmt), fmt, tp, f"G=2 N=336 16x256 {fmt} pair_tile={tp}",
+                     hw=(16, W))
+        new_cases += 8
     bilateral_rel = 0.0
     for p in (32, 500):  # B9 on the main path's (P, 80, 256) and a short stack
         x = torch.from_numpy((4096 + 40 * rng.standard_normal((p, H, W))).astype(np.float32))
@@ -322,7 +428,8 @@ def main() -> int:
             raise AssertionError(f"G={g}: Alg 1 and Alg 2 differ on the card")
     torch.cuda.synchronize()
     print(f"phase 1: B6/B7/B8 bitwise equal to the CPU plain versions in {new_cases} cases "
-          f"(u16/u8/p12, G=5/8, K=1/4/5) and B8 at N=1000 with 100 chunks; B9 box bitwise, "
+          f"(u16/u8/p12, G=5/8, K=1/4/5; B8 also with 500 chunks, one chunk of 32 pairs, "
+          f"a ragged 7x130 plane and pair_tile 2/3/6/7/8) and B8 at N=1000 with 100 chunks; B9 box bitwise, "
           f"bilateral max relative diff {bilateral_rel:.3g} (declared "
           f"{denoise_spatial.BILATERAL_RTOL:g}); B10 Alg 1 and Alg 2 (u16, G=5/8) bitwise "
           f"equal to the CPU plain version and to each other ({time.perf_counter() - t1:.1f} s)")
@@ -461,6 +568,8 @@ def main() -> int:
 
     for fn in wrappers.values():
         fn.launches = 0
+    for fn in steps:
+        fn.vector_launches = fn.scalar_launches = 0
     b2 = wrappers["alg3_stream_step"]
     per_run = {}
 
@@ -505,6 +614,9 @@ def main() -> int:
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    scalar = {f.__name__: f.scalar_launches for f in steps if f.vector_launches != f.launches}
+    if scalar:
+        raise AssertionError(f"step launches at the paper's shape took the scalar path: {scalar}")
     out_np = outs["run_pipelined(num_slots=2)"].cpu().numpy()
     if not np.isfinite(out_np).all():
         raise AssertionError("non-finite output")
@@ -516,7 +628,8 @@ def main() -> int:
           f"other and to the CPU plain stream; alg3_stream_step launches per stream run "
           f"{[per_run[k] for k in ('pipelined2', 'pipelined3', 'inline')]}; SNR {snr:.3f} dB")
     print(f"phase 3: banked (B=2) ingest_many and 5-D one-shot bitwise equal to the CPU plain "
-          f"stream; main-path launches {json.dumps(launches)} ({main_s:.1f} s)")
+          f"stream; main-path launches {json.dumps(launches)}, every step on the vector path "
+          f"({main_s:.1f} s)")
     record.update(main_path_launches=launches, step_launches_per_run=per_run, snr_db=snr)
 
     # -- phase 4: timing at the paper's shape ------------------------------
@@ -545,7 +658,8 @@ def main() -> int:
             s = torch.zeros(P, H, W, device=dev)
             kw = dict(num_groups=G, offset=offset, divide_first=df, stream_dtype=fmt)
             ms = time_ms(lambda: denoise_stream.alg3_stream_step(frames, s, **kw))
-            plain = time_ms(lambda: denoise_stream.alg3_stream_step_plain(frames, s, **kw), reps=5, inner=2)
+            plain = plain_ms(lambda: denoise_stream.alg3_stream_step_plain(frames, s, **kw),
+                             reps=5, inner=2)
             row("alg3_stream_step", f"{fmt} {'v2' if df else 'v1'}", ms, plain,
                 N * H * W * isz + 2 * out_px * 4, out_px * step_flops(fmt, df),
                 main=(fmt == "u16" and not df))
@@ -564,24 +678,55 @@ def main() -> int:
                 frames = wire((2, N, H), "u16").to(dev)
                 s = torch.zeros(2, P, H, W, device=dev)
                 ms = time_ms(lambda: denoise_multibank.multibank_stream_step(frames, s, num_groups=G, **kw))
-                plain = time_ms(lambda: denoise_multibank.multibank_stream_step_plain(
+                plain = plain_ms(lambda: denoise_multibank.multibank_stream_step_plain(
                     frames, s, num_groups=G, **kw), reps=5, inner=2)
                 nbytes = b * (N * H * W * 2 + 2 * out_px * 4)
                 flops = b * out_px * step_flops("u16", df)
             else:
                 frames = wire(((banks,) if banks else ()) + (G, N, H), "u16").to(dev)
                 ms = time_ms(lambda: fn(frames, **kw))
-                plain = time_ms(lambda: plain_fn(frames, **kw), reps=3, inner=1)
+                plain = plain_ms(lambda: plain_fn(frames, **kw), reps=3, inner=1)
                 nbytes = b * (G * N * H * W * 2 + out_px * 4)
                 flops = b * out_px * (G * step_flops("u16", df) + (0 if df else 1))
             row(kernel, f"u16 {'v2' if df else 'v1'} B={b}", ms, plain, nbytes, flops, main=not df)
+
+    # the steps' scalar path (the body they ran everywhere before the vector
+    # path) on an unaligned view of the same shape, u16 and u8 (the p12 rows
+    # above are that path), and the host time a wrapper call takes
+    def b2(f, s, fmt):
+        return denoise_stream.alg3_stream_step(f, s, num_groups=G, offset=offset, stream_dtype=fmt)
+
+    def b4(f, s, fmt):
+        return denoise_multibank.multibank_stream_step(f, s, num_groups=G, offset=offset,
+                                                       stream_dtype=fmt)
+
+    scalar_us, host = {}, {}
+    for kernel, call, fmt, banks in (("alg3_stream_step", b2, "u16", ()),
+                                     ("alg3_stream_step", b2, "u8", ()),
+                                     ("multibank_stream_step", b4, "u16", (2,))):
+        f, s = wire(banks + (N, H), fmt), torch.zeros(banks + (P, H, W))
+        fn = wrappers[kernel]
+        before = fn.scalar_launches
+        fv, sv = shifted(f), shifted(s)
+        scalar_us[f"{kernel} {fmt}"] = time_ms(lambda: call(fv, sv, fmt)) * 1e3
+        if fn.scalar_launches == before:
+            raise AssertionError(f"{kernel}: the unaligned view did not take the scalar path")
+        if fmt == "u16":
+            fa, sa = f.to(dev), s.to(dev)
+            host[kernel] = host_us(lambda: call(fa, sa, fmt))
+    ema1 = [torch.zeros(P, H, W, device=dev), torch.zeros(H, W, device=dev),
+            torch.zeros(H, W, device=dev)]
+    fa = wire((N, H), "u16").to(dev)
+    host["ema_welford_step"] = host_us(lambda: denoise_ema.ema_welford_step(
+        *ema1, fa, alpha=0.25, offset=offset, pair_tile=5))
+    del f, s, ema1, fa, sa, fv, sv
 
     # B6-B9 at the paper's shape (u16 wire, a 5-slot window, P = 500 frames)
     group = wire((1, N, H), "u16")[0].to(dev)
     window = torch.zeros(5, P, H, W, device=dev)
     kw = dict(slot=2, offset=offset)
     row("median_window_insert", "u16", time_ms(lambda: denoise_median.median_window_insert(
-        window, group, **kw)), time_ms(lambda: denoise_median.median_window_insert_plain(
+        window, group, **kw)), plain_ms(lambda: denoise_median.median_window_insert_plain(
             window, group, **kw), reps=5, inner=2),
         N * H * W * 2 + out_px * 4, out_px * 2, main=True)
     for k in range(5):  # fill the window with real diffs
@@ -594,9 +739,9 @@ def main() -> int:
             lib_out = torch.median(win, dim=0).values
             if not torch.equal(lib_out, denoise_median.median_combine(win)):
                 raise AssertionError("torch.median and median_combine disagree at odd K")
-            lib = time_ms(lambda: torch.median(win, dim=0), reps=5, inner=2)
+            lib = plain_ms(lambda: torch.median(win, dim=0), reps=5, inner=2)
         row("median_combine", f"K={k}", time_ms(lambda: denoise_median.median_combine(win)),
-            time_ms(lambda: denoise_median.median_combine_plain(win), reps=5, inner=2),
+            plain_ms(lambda: denoise_median.median_combine_plain(win), reps=5, inner=2),
             (k + 1) * out_px * 4, out_px * k * (k - 1), library=lib, main=(k == 5))
     del window, win
     ema, wmean, wm2 = (torch.zeros(P, H, W, device=dev), torch.zeros(H, W, device=dev),
@@ -605,7 +750,7 @@ def main() -> int:
     kw = dict(alpha=0.25, offset=offset, prior_count=0, pair_tile=tp)
     # per pair-pixel: diff 2, EMA 3, chunk sum 1, centred square 3; per chunk-pixel: merge ~12
     row("ema_welford_step", "u16 pair_tile=5", time_ms(lambda: denoise_ema.ema_welford_step(
-        ema, wmean, wm2, group, **kw)), time_ms(lambda: denoise_ema.ema_welford_step_plain(
+        ema, wmean, wm2, group, **kw)), plain_ms(lambda: denoise_ema.ema_welford_step_plain(
             ema, wmean, wm2, group, **kw), reps=3, inner=1),
         N * H * W * 2 + 2 * out_px * 4 + 4 * H * W * 4, out_px * 9 + (P // tp) * H * W * 12,
         main=True)
@@ -617,13 +762,13 @@ def main() -> int:
     if not lib_rel < 1e-6:
         raise AssertionError(f"avg_pool2d over replicate padding is not the box mean ({lib_rel})")
     row("spatial_filter_3x3", "box", time_ms(lambda: denoise_spatial.spatial_filter_3x3(x)),
-        time_ms(lambda: denoise_spatial.spatial_filter_3x3_plain(x), reps=5, inner=2),
-        2 * out_px * 4, out_px * 10, library=time_ms(padded_pool, reps=5, inner=2), main=True)
+        plain_ms(lambda: denoise_spatial.spatial_filter_3x3_plain(x), reps=5, inner=2),
+        2 * out_px * 4, out_px * 10, library=plain_ms(padded_pool, reps=5, inner=2), main=True)
     kw = dict(mode="bilateral", range_sigma=cfg.spatial_range_sigma)
     # per neighbour: 8 operations plus an expf counted as 8; then one division
     row("spatial_filter_3x3", "bilateral", time_ms(lambda: denoise_spatial.spatial_filter_3x3(
-        x, **kw)), time_ms(lambda: denoise_spatial.spatial_filter_3x3_plain(x, **kw), reps=5,
-                           inner=2),
+        x, **kw)), plain_ms(lambda: denoise_spatial.spatial_filter_3x3_plain(x, **kw), reps=5,
+                            inner=2),
         2 * out_px * 4, out_px * (9 * 16 + 1))
     # B10 at the paper's shape: each algorithm in total and each pass alone
     frames8 = wire((G, N, H), "u16").to(dev)
@@ -633,18 +778,18 @@ def main() -> int:
     for kernel in BASELINE_PATH:
         burst = kernel.startswith("alg2")
         row(kernel, "u16 total", time_ms(lambda: wrappers[kernel](frames8, offset=offset)),
-            time_ms(lambda: denoise_tmpframe.alg1_subtract_average_plain(frames8, offset=offset),
-                    reps=3, inner=1),
+            plain_ms(lambda: denoise_tmpframe.alg1_subtract_average_plain(frames8, offset=offset),
+                     reps=3, inner=1),
             bytes_a + bytes_b, flops_a + flops_b, main=True)
         row(kernel, "pass A", time_ms(lambda: denoise_tmpframe.subtract_pass(
-            frames8, offset=offset, burst=burst)), time_ms(
+            frames8, offset=offset, burst=burst)), plain_ms(
                 lambda: denoise_tmpframe.subtract_pass_plain(frames8, offset=offset), reps=3,
                 inner=1), bytes_a, flops_a)
     tmp = denoise_tmpframe.subtract_pass(frames8, offset=offset, burst=True)
     lib_sum = torch.sum(tmp, dim=0)  # the nearest single call to pass B (no 1/G scale)
     sum_err = diff_max(lib_sum * ref.reciprocal(G), denoise_tmpframe.reduce_pass(tmp))
     row("alg1_subtract_average", "pass B (both)", time_ms(lambda: denoise_tmpframe.reduce_pass(tmp)),
-        time_ms(lambda: denoise_tmpframe.reduce_pass_plain(tmp), reps=5, inner=2), bytes_b,
+        plain_ms(lambda: denoise_tmpframe.reduce_pass_plain(tmp), reps=5, inner=2), bytes_b,
         flops_b, library=time_ms(lambda: torch.sum(tmp, dim=0)), library_call="torch.sum(tmp, 0)",
         library_max_abs_diff=sum_err)
     del frames8, tmp, lib_sum
@@ -652,7 +797,11 @@ def main() -> int:
         lib = f"  library {r['library_ms'] * 1e3:9.1f} us" if r["library_ms"] is not None else ""
         print(f"  {r['kernel']:28s} {r['label']:16s} {r['ms'] * 1e3:9.2f} us  bound "
               f"{r['bound_ms'] * 1e3:8.2f} us ({r['bytes'] / 1e6:.2f} MB, {r['bound_by']})"
-              f"  {r['bound_ms'] / r['ms']:6.1%} of peak  plain {r['plain_ms'] * 1e3:10.1f} us{lib}")
+              f"  {r['bound_ms'] / r['ms']:6.1%} of peak  plain {r['plain_ms'] * 1e3:10.1f} us"
+              f"{lib}")
+    print("  scalar path on an unaligned view, v1: " + ", ".join(
+        f"{k} {v:.2f} us" for k, v in scalar_us.items()))
+    print("  host time per wrapper call: " + ", ".join(f"{k} {v:.1f} us" for k, v in host.items()))
 
     # executor: ms per group, live synthesis vs pre-generated groups
     executor = {}
@@ -677,7 +826,8 @@ def main() -> int:
         print(f"  executor {k:32s} {v['ms_per_group']:8.2f} ms/group (camera {CAMERA_GROUP_MS:.0f}) "
               f"overlap_frac {v['overlap_frac']:.3f} stall {v['stall_ms_per_group']:.2f} ms/group")
     print(f"  host frame synthesis alone: {synth_ms:.2f} ms/group")
-    record.update(rows=rows, executor=executor, synth_ms_per_group=synth_ms,
+    record.update(rows=rows, scalar_path_us=scalar_us, host_us_per_call=host,
+                  executor=executor, synth_ms_per_group=synth_ms,
                   camera_group_ms=CAMERA_GROUP_MS)
 
     # -- phase 5: the other filters' path at the paper's size ----------------

@@ -45,9 +45,9 @@ _F = ctypes.c_float
 #: are ``c_void_p``: ctypes would cut them to 32 bits else.
 ARGTYPES = {
     "alg3_stream_step_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _F, _F, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _P),
     "multibank_stream_step_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _F, _F, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _P),
     "alg3_subtract_average_launch":
         (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _P),
     "multibank_subtract_average_launch":

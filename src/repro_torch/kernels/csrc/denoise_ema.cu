@@ -13,15 +13,31 @@
 // Bound: HBM bytes (read the wire group, read + write the ema frames, read +
 // write two (H, W) planes), about 16 floating-point operations per pair.
 //
-// Design (the simple one, which matches the reference's order of rounding):
-// one thread per pixel (h, w) walks the P / pair_tile chunks in order, as the
-// TPU grid walks its sequential pair axis with the mean/M2 tiles resident in
-// VMEM; here they stay in registers and are written once at the end. Within
-// a chunk the thread reads its pairs once to update the EMA and sum the
-// chunk, then again (an L1/L2 hit) for the chunk's centred sum of squares.
-// With H * W = 20,480 threads at the paper's shape, each with a 100-step
-// sequential loop, the card is far from full: a later PR can split the EMA
-// update (parallel over pairs) from the merge.
+// Design: chunk-parallel statistics, ordered merge. The order of rounding
+// (below) fixes the order within a chunk and the order of the merges, not
+// which thread does what: each chunk's sum, centred sum of squares and EMA
+// updates depend on no other chunk, and only the merge (about ten operations
+// per chunk and pixel) runs in sequence. So a block owns a tile of 32
+// consecutive thread items of the (H * W) plane (pixels; pixel pairs for
+// p12) and has 8 chunk lanes of one warp each: 256 threads. In each round
+// chunk lane r takes chunk c = 8 * round + r. It issues every wire and ema
+// load of the chunk's pairs before it uses one, updates the EMA in place,
+// forms the chunk's sum and centred sum of squares, and writes both to
+// shared memory with the chunk's merge weights. A chunk of up to kCap pairs
+// keeps its diffs in registers, in a kernel compiled for its exact pair
+// count; a longer one re-reads its wire pairs through L1, as the
+// one-thread-per-pixel design did. After one barrier, warp 0 folds the
+// round's chunks into mean/M2 in chunk order while the other warps start
+// the next round's loads: the stats are double-buffered, so one barrier per
+// round suffices. Shared memory per block is 2 x 8 x 32 x 8 bytes (twice
+// that for p12) for any chunk count.
+//
+// At the paper's shape (20,480 pixels, 100 chunks of 5 pairs) that is 640
+// blocks in 13 rounds. The registers are held to 48 a thread (kMinBlocks)
+// so that all 640 blocks are resident at once, 39 warps per SM, each warp
+// with five pairs of loads (1.25 KB) in flight per round: at 55 registers
+// only 528 fitted, the other 112 waited for a second wave, and the kernel
+// took twice as long on the H100.
 //
 // Rounding is part of the contract. The reference's interpret-mode kernel is
 // compiled by XLA, which contracts some products into FMAs and keeps others;
@@ -41,103 +57,194 @@ namespace {
 
 using namespace repro_quant;
 
-// Grid: one thread per (h, item); for p12 an item is two pixels. The wire
-// frame of pair p is 2p (control) and 2p + 1 (excitation).
-template <int FMT>
-__global__ void ema_kernel(const uint8_t* __restrict__ frames,
-                           float* __restrict__ ema, float* __restrict__ mean,
-                           float* __restrict__ m2, int pairs, int height,
-                           int items, int64_t row_bytes, int pair_tile,
-                           float offset, float u8_scale, float alpha,
-                           float one_minus_alpha, float prior,
-                           float rcp_tile) {
-  constexpr int P = Item<FMT>::kPixels;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<int64_t>(height) * items) return;
-  const int64_t h = t / items;
-  const int x = static_cast<int>(t - h * items);
-  const int64_t width = static_cast<int64_t>(items) * P;
-  const int64_t plane = static_cast<int64_t>(height) * width;
-  const int64_t frame_bytes = static_cast<int64_t>(height) * row_bytes;
-  const uint8_t* row = frames + h * row_bytes;
-  float* ema_px = ema + h * width + static_cast<int64_t>(x) * P;
-  float* mean_px = mean + h * width + static_cast<int64_t>(x) * P;
-  float* m2_px = m2 + h * width + static_cast<int64_t>(x) * P;
+constexpr int kLanes = 32;      // thread items per block, one per thread of a warp
+constexpr int kChunkLanes = 8;  // chunks per round, one warp each
+constexpr int kCap = 8;         // chunks of up to kCap pairs keep their diffs in registers
 
-  float mu[P], var[P];
+// Blocks per SM the registers must allow: 5 hold the paper's 640 tiles of 32
+// pixels (u16, u8) on 132 SMs at once; p12 has half as many tiles. A tile
+// that waits for a second wave doubles the kernel's time.
+template <int FMT>
+constexpr int kMinBlocks = FMT == kP12 ? 3 : 5;
+
+// One chunk of pairs [p0, p0 + tile) at thread item t: update the EMA in
+// place and return the chunk's sequential sum s and centred sum of squares
+// sq, rounded as the contract says. The wire frame of pair p is 2p (control)
+// and 2p + 1 (excitation); every plane is (H * W) contiguous pixels. TILE is
+// the chunk's pair count when it is at most kCap (its diffs stay in
+// registers), and 0 for a longer chunk (its wire pairs are read twice).
+template <int FMT, int TILE>
+__device__ __forceinline__ void chunk_stats(
+    const uint8_t* __restrict__ frames, float* __restrict__ ema, int t, int64_t p0,
+    int tile, int64_t frame_bytes, int64_t plane_px, float offset, float u8_scale,
+    float alpha, float one_minus_alpha, float rcp_tile, float (&s)[Item<FMT>::kPixels],
+    float (&sq)[Item<FMT>::kPixels]) {
+  constexpr int P = Item<FMT>::kPixels;
+  float* ema_px = ema + p0 * plane_px + static_cast<int64_t>(t) * P;
+  const uint8_t* ctl0 = frames + 2 * p0 * frame_bytes;
 #pragma unroll
-  for (int k = 0; k < P; ++k) {
-    mu[k] = mean_px[k];
-    var[k] = m2_px[k];
-  }
-  const float m = static_cast<float>(pair_tile);
-  const int chunks = pairs / pair_tile;
-  for (int c = 0; c < chunks; ++c) {
-    const int p0 = c * pair_tile;
-    float s[P];
+  for (int k = 0; k < P; ++k) s[k] = sq[k] = 0.0f;
+  if constexpr (TILE > 0) {
+    float d[TILE][P], e[TILE][P];
 #pragma unroll
-    for (int k = 0; k < P; ++k) s[k] = 0.0f;
-    for (int i = 0; i < pair_tile; ++i) {
-      const int64_t p = p0 + i;
-      const uint8_t* ctl = row + (2 * p) * frame_bytes;
-      float d[P];
-      pair_diff<FMT>(ctl, ctl + frame_bytes, x, offset, u8_scale, d);
-      float* e = ema_px + p * plane;
+    for (int i = 0; i < TILE; ++i) {  // every load of the chunk before any use
+      const uint8_t* ctl = ctl0 + 2 * i * frame_bytes;
+      pair_diff<FMT>(ctl, ctl + frame_bytes, t, offset, u8_scale, d[i]);
+#pragma unroll
+      for (int k = 0; k < P; ++k) e[i][k] = ema_px[i * plane_px + k];
+    }
+#pragma unroll
+    for (int i = 0; i < TILE; ++i) {
 #pragma unroll
       for (int k = 0; k < P; ++k) {
-        e[k] = __fmaf_rn(e[k], one_minus_alpha, __fmul_rn(alpha, d[k]));
-        s[k] = __fadd_rn(s[k], d[k]);
+        ema_px[i * plane_px + k] = __fmaf_rn(e[i][k], one_minus_alpha, __fmul_rn(alpha, d[i][k]));
+        s[k] = __fadd_rn(s[k], d[i][k]);
       }
     }
-    float cm[P], chunk[P];
 #pragma unroll
-    for (int k = 0; k < P; ++k) {
-      cm[k] = __fmul_rn(s[k], rcp_tile);
-      chunk[k] = 0.0f;
-    }
-    for (int i = 0; i < pair_tile; ++i) {
-      const uint8_t* ctl = row + (2 * static_cast<int64_t>(p0 + i)) * frame_bytes;
-      float d[P];
-      pair_diff<FMT>(ctl, ctl + frame_bytes, x, offset, u8_scale, d);
+    for (int i = 0; i < TILE; ++i) {
 #pragma unroll
       for (int k = 0; k < P; ++k) {
-        const float dc = __fsub_rn(d[k], cm[k]);
-        chunk[k] = __fmaf_rn(dc, dc, chunk[k]);
+        const float dc = __fsub_rn(d[i][k], __fmul_rn(s[k], rcp_tile));
+        sq[k] = __fmaf_rn(dc, dc, sq[k]);
       }
     }
-    const float n = __fadd_rn(prior, __fmul_rn(static_cast<float>(c), m));
-    const float tot = __fadd_rn(n, m);
-    const float r = __fdiv_rn(m, tot);
-    const float w = __fdiv_rn(__fmul_rn(n, m), tot);
+    return;
+  }
+  for (int i = 0; i < tile; ++i) {
+    const uint8_t* ctl = ctl0 + 2 * i * frame_bytes;
+    float d[P];
+    pair_diff<FMT>(ctl, ctl + frame_bytes, t, offset, u8_scale, d);
+    float* e = ema_px + i * plane_px;
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      const float dp = __fsub_rn(cm[k], mu[k]);
-      var[k] = __fadd_rn(var[k], __fmaf_rn(__fmul_rn(dp, dp), w, chunk[k]));
-      mu[k] = __fmaf_rn(__fmaf_rn(s[k], rcp_tile, -mu[k]), r, mu[k]);
+      e[k] = __fmaf_rn(e[k], one_minus_alpha, __fmul_rn(alpha, d[k]));
+      s[k] = __fadd_rn(s[k], d[k]);
     }
   }
+  for (int i = 0; i < tile; ++i) {  // the second pass re-reads the wire pairs
+    const uint8_t* ctl = ctl0 + 2 * i * frame_bytes;
+    float d[P];
+    pair_diff<FMT>(ctl, ctl + frame_bytes, t, offset, u8_scale, d);
 #pragma unroll
-  for (int k = 0; k < P; ++k) {
-    mean_px[k] = mu[k];
-    m2_px[k] = var[k];
+    for (int k = 0; k < P; ++k) {
+      const float dc = __fsub_rn(d[k], __fmul_rn(s[k], rcp_tile));
+      sq[k] = __fmaf_rn(dc, dc, sq[k]);
+    }
   }
 }
 
+// Grid: one block per kLanes thread items (for p12 an item is two pixels).
+template <int FMT, int TILE>
+__global__ void __launch_bounds__(kLanes * kChunkLanes, kMinBlocks<FMT>)
+    ema_kernel(const uint8_t* __restrict__ frames, float* __restrict__ ema,
+               float* __restrict__ mean, float* __restrict__ m2, int chunks,
+               int plane_items, int64_t frame_bytes, int pair_tile, float offset,
+               float u8_scale, float alpha, float one_minus_alpha, float prior,
+               float rcp_tile) {
+  constexpr int P = Item<FMT>::kPixels;
+  __shared__ float2 stats[2][kChunkLanes][P][kLanes];  // (s, sq) of each chunk and pixel
+  __shared__ float2 weights[2][kChunkLanes];           // (r, c) of each chunk's merge
+  const int lane = threadIdx.x % kLanes;
+  const int r = threadIdx.x / kLanes;
+  const bool live = static_cast<int64_t>(blockIdx.x) * kLanes + lane < plane_items;
+  const int t = live ? blockIdx.x * kLanes + lane : 0;
+  const bool merger = r == 0 && live;
+  const int64_t plane_px = static_cast<int64_t>(plane_items) * P;
+  const float m = static_cast<float>(pair_tile);
+  float mu[P], var[P];
+  if (merger) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      mu[k] = mean[static_cast<int64_t>(t) * P + k];
+      var[k] = m2[static_cast<int64_t>(t) * P + k];
+    }
+  }
+  const int rounds = (chunks + kChunkLanes - 1) / kChunkLanes;
+  for (int round = 0; round < rounds; ++round) {
+    const int buf = round & 1;
+    const int c = round * kChunkLanes + r;
+    if (c < chunks) {
+      float s[P], sq[P];
+      if (live) {
+        chunk_stats<FMT, TILE>(frames, ema, t, static_cast<int64_t>(c) * pair_tile, pair_tile,
+                         frame_bytes, plane_px, offset, u8_scale, alpha, one_minus_alpha,
+                         rcp_tile, s, sq);
+      } else {
+#pragma unroll
+        for (int k = 0; k < P; ++k) s[k] = sq[k] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < P; ++k) stats[buf][r][k][lane] = make_float2(s[k], sq[k]);
+      if (lane == 0) {
+        const float n = __fadd_rn(prior, __fmul_rn(static_cast<float>(c), m));
+        const float tot = __fadd_rn(n, m);
+        weights[buf][r] = make_float2(__fdiv_rn(m, tot), __fdiv_rn(__fmul_rn(n, m), tot));
+      }
+    }
+    __syncthreads();
+    if (merger) {  // the round's chunks, in chunk order
+      const int count = min(kChunkLanes, chunks - round * kChunkLanes);
+#pragma unroll
+      for (int j = 0; j < kChunkLanes; ++j) {
+        if (j < count) {
+          const float2 w = weights[buf][j];
+#pragma unroll
+          for (int k = 0; k < P; ++k) {
+            const float2 st = stats[buf][j][k][lane];
+            const float dp = __fsub_rn(__fmul_rn(st.x, rcp_tile), mu[k]);
+            var[k] = __fadd_rn(var[k], __fmaf_rn(__fmul_rn(dp, dp), w.y, st.y));
+            mu[k] = __fmaf_rn(__fmaf_rn(st.x, rcp_tile, -mu[k]), w.x, mu[k]);
+          }
+        }
+      }
+    }
+  }
+  if (merger) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      mean[static_cast<int64_t>(t) * P + k] = mu[k];
+      m2[static_cast<int64_t>(t) * P + k] = var[k];
+    }
+  }
+}
+
+template <int FMT, int TILE>
+cudaError_t launch_tile(const void* frames, void* ema, void* mean, void* m2,
+                        int pairs, int plane_items, int64_t frame_bytes,
+                        int pair_tile, float offset, float u8_scale, float alpha,
+                        float one_minus_alpha, float prior, float rcp_tile,
+                        cudaStream_t stream) {
+  const int blocks = (plane_items + kLanes - 1) / kLanes;
+  ema_kernel<FMT, TILE><<<blocks, kLanes * kChunkLanes, 0, stream>>>(
+      static_cast<const uint8_t*>(frames), static_cast<float*>(ema),
+      static_cast<float*>(mean), static_cast<float*>(m2), pairs / pair_tile,
+      plane_items, frame_bytes, pair_tile, offset, u8_scale, alpha,
+      one_minus_alpha, prior, rcp_tile);
+  return cudaGetLastError();
+}
+
+// One kernel per format and register tile: pair_tile 1 .. kCap, and 0 above.
 template <int FMT>
 cudaError_t launch(const void* frames, void* ema, void* mean, void* m2,
-                   int pairs, int height, int items, int64_t row_bytes,
+                   int pairs, int plane_items, int64_t frame_bytes,
                    int pair_tile, float offset, float u8_scale, float alpha,
                    float one_minus_alpha, float prior, float rcp_tile,
                    cudaStream_t stream) {
-  constexpr int kThreads = 128;
-  const int64_t threads = static_cast<int64_t>(height) * items;
-  const int64_t blocks = (threads + kThreads - 1) / kThreads;
-  ema_kernel<FMT><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const uint8_t*>(frames), static_cast<float*>(ema),
-      static_cast<float*>(mean), static_cast<float*>(m2), pairs, height, items,
-      row_bytes, pair_tile, offset, u8_scale, alpha, one_minus_alpha, prior,
-      rcp_tile);
-  return cudaGetLastError();
+  static_assert(kCap == 8, "the switch below lists the register tiles 1 .. kCap");
+#define TILE(T) launch_tile<FMT, T>(frames, ema, mean, m2, pairs, plane_items, frame_bytes, pair_tile, offset, u8_scale, alpha, one_minus_alpha, prior, rcp_tile, stream)
+  switch (pair_tile) {
+    case 1: return TILE(1);
+    case 2: return TILE(2);
+    case 3: return TILE(3);
+    case 4: return TILE(4);
+    case 5: return TILE(5);
+    case 6: return TILE(6);
+    case 7: return TILE(7);
+    case 8: return TILE(8);
+    default: return TILE(0);
+  }
+#undef TILE
 }
 
 }  // namespace
@@ -154,13 +261,15 @@ int ema_welford_step_launch(const void* frames, void* ema, void* mean,
                             float u8_scale, float alpha, float one_minus_alpha,
                             float prior, float rcp_tile, void* stream) {
   if (pairs == 0 || height == 0 || items == 0) return cudaSuccess;
+  // a p12 item is 3 wire bytes at byte 3 * item of its plane: keep that an int
   if (pair_tile < 1 || pairs % pair_tile || pairs > 0x3fffffff ||
-      height * items > 0x7fffffff)
+      3 * height * items > 0x7fffffff)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int p = static_cast<int>(pairs), h = static_cast<int>(height);
-  const int it = static_cast<int>(items), tp = static_cast<int>(pair_tile);
-#define EMA(F) launch<F>(frames, ema, mean, m2, p, h, it, row_bytes, tp, offset, u8_scale, alpha, one_minus_alpha, prior, rcp_tile, s)
+  const int p = static_cast<int>(pairs), tp = static_cast<int>(pair_tile);
+  const int plane_items = static_cast<int>(height * items);
+  const int64_t frame_bytes = height * row_bytes;
+#define EMA(F) launch<F>(frames, ema, mean, m2, p, plane_items, frame_bytes, tp, offset, u8_scale, alpha, one_minus_alpha, prior, rcp_tile, s)
   switch (fmt) {
     case kU16: return EMA(kU16);
     case kU8: return EMA(kU8);

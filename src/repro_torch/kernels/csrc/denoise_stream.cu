@@ -14,15 +14,36 @@
 // magnitude below the ridge of an H100. The only lever is bytes, so every
 // input byte is read once and every output written once.
 //
-// Design (the simple one; cp.async/TMA pipelining is later work):
-//   * one thread per output pixel (per pixel pair for p12, whose 3 wire bytes
+// Design of the step (B2/B4), chosen on the host for each launch:
+//   * vector path, for u16 and u8 where every plane allows it (H * W a
+//     multiple of 8, the frames aligned to the width of their vector load,
+//     the sum to 16 bytes): a pair's control plane frames[2p], excitation
+//     plane frames[2p + 1] and sum plane sum[p] are each one contiguous run
+//     of H * W pixels, read as 8-pixel vectors (u16: one 16-byte load per
+//     frame, u8: one 8-byte load; the sum: two float4 loads and stores). Each
+//     thread takes two vectors of a plane and issues all their loads before
+//     it computes, so four wire loads and four sum loads (up to 128 bytes)
+//     are in flight per thread. The grid is (vectors / 512, pairs): no division in the
+//     index, and at the paper's shape 2,500 blocks of 256 threads. (The
+//     scalar body below keeps one 2- to 4-byte load per thread in flight, in
+//     40,000 one-row blocks at that shape: too few bytes in flight to cover
+//     HBM latency, 68-70 % of the byte bound on the H100.)
+//   * scalar path, on every other shape (a ragged plane, an unaligned view)
+//     and for p12, whose 12-byte vector no single load takes (a warp-wide
+//     load handed round through shared memory gained about 2 % on the H100,
+//     within the spread between runs):
+//     one thread per output pixel (per pixel pair for p12, whose 3 wire bytes
 //     hold two pixels), one block per output row (pair, image row), threads
-//     along W so that a warp's loads and stores are contiguous (coalesced);
-//   * the one-shot forms loop over the G groups inside the thread, keeping the
-//     sum in a register: this replaces the TPU's sequential innermost grid
-//     axis, whose VMEM-resident accumulator has no counterpart across blocks;
-//   * the bank axis is one more index decoded from the row number, so banks
-//     never touch each other's data, as on the TPU grid.
+//     along W so that a warp's loads and stores are contiguous (coalesced).
+//     It is part of the contract, not a fallback: the host sends only shapes
+//     the vector path cannot take here.
+// The one-shot forms (B3/B5) keep the scalar layout and loop over the G
+// groups inside the thread, keeping the sum in a register: this replaces the
+// TPU's sequential innermost grid axis, whose VMEM-resident accumulator has
+// no counterpart across blocks; their G independent loads per thread already
+// give them the memory-level parallelism the step lacked. The bank axis is
+// one more index folded into the pair axis, so banks never touch each
+// other's data, as on the TPU grid.
 //
 // Rounding is part of the contract: the reference's jitted kernels compute
 // (a) the u8 dequant as fma(e, S, -(c*S)) + offset (quant.cuh), (b) x / G as
@@ -43,7 +64,7 @@ __device__ __forceinline__ float fold(float s, float d, float rcp) {
   return __fadd_rn(s, d);
 }
 
-// B2/B4: fold one group into the running sum, in place. Row r of the grid is
+// B2/B4, scalar path: fold one group into the running sum, in place. Row r is
 // (pair p, image row h) over all banks: a (B, N, H, wire) group is the same
 // memory as (B*N, H, wire), so the bank axis folds into the pair axis.
 template <int FMT, bool DIVIDE_FIRST>
@@ -68,6 +89,56 @@ __global__ void stream_step_kernel(const uint8_t* __restrict__ frames,
         if (final_div) t = __fmul_rn(t, rcp);
       }
       out[x * P + k] = t;
+    }
+  }
+}
+
+// B2/B4, vector path (u16, u8): block (x, y) takes vectors [512x, 512x + 512)
+// of the planes of pair y (and of y + gridDim.y, ... when there are more pairs
+// than a grid row holds); thread i takes vectors 512x + i and 512x + 256 + i.
+constexpr int kVecThreads = 256;
+constexpr int kVecPerThread = 2;
+constexpr int kVecPerBlock = kVecThreads * kVecPerThread;
+
+template <int FMT, bool DIVIDE_FIRST>
+__global__ void __launch_bounds__(kVecThreads)
+    stream_step_vec_kernel(const uint8_t* __restrict__ frames, float* __restrict__ sum,
+                           int64_t pairs, int64_t vectors, int64_t plane_bytes,
+                           float offset, float u8_scale, float rcp, bool final_div) {
+  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * kVecPerBlock + threadIdx.x;
+  for (int64_t p = blockIdx.y; p < pairs; p += gridDim.y) {
+    const uint8_t* ctl = frames + 2 * p * plane_bytes;
+    const uint8_t* exc = ctl + plane_bytes;
+    float4* out = reinterpret_cast<float4*>(sum) + p * vectors * 2;
+    Wire8<FMT> c[kVecPerThread], e[kVecPerThread];
+    float4 lo[kVecPerThread], hi[kVecPerThread];
+#pragma unroll
+    for (int u = 0; u < kVecPerThread; ++u) {  // every load before any use
+      const int64_t v = v0 + u * kVecThreads;
+      if (v < vectors) {
+        c[u] = load8<FMT>(ctl, v);
+        e[u] = load8<FMT>(exc, v);
+        lo[u] = out[2 * v];
+        hi[u] = out[2 * v + 1];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kVecPerThread; ++u) {
+      const int64_t v = v0 + u * kVecThreads;
+      if (v < vectors) {
+        float d[8];
+        pair_diff8<FMT>(c[u], e[u], offset, u8_scale, d);
+        float s[8] = {lo[u].x, lo[u].y, lo[u].z, lo[u].w, hi[u].x, hi[u].y, hi[u].z, hi[u].w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          s[k] = fold<DIVIDE_FIRST>(s[k], d[k], rcp);
+          if constexpr (!DIVIDE_FIRST) {
+            if (final_div) s[k] = __fmul_rn(s[k], rcp);
+          }
+        }
+        out[2 * v] = make_float4(s[0], s[1], s[2], s[3]);
+        out[2 * v + 1] = make_float4(s[4], s[5], s[6], s[7]);
+      }
     }
   }
 }
@@ -109,15 +180,30 @@ __global__ void subtract_average_kernel(const uint8_t* __restrict__ frames,
 }
 
 template <int FMT, bool DF>
-cudaError_t launch_step(const void* frames, void* sum, int64_t rows, int height,
+cudaError_t launch_step(const void* frames, void* sum, int64_t pairs, int height,
                         int items, int64_t row_bytes, float offset,
-                        float u8_scale, float rcp, bool final_div,
+                        float u8_scale, float rcp, bool final_div, bool vector,
                         cudaStream_t stream) {
-  stream_step_kernel<FMT, DF><<<static_cast<unsigned>(rows), threads_for(items), 0, stream>>>(
-      static_cast<const uint8_t*>(frames), static_cast<float*>(sum), height,
-      items, row_bytes, offset, u8_scale, rcp, final_div);
+  if constexpr (FMT != kP12) {
+    if (vector) {
+      const int64_t vectors = static_cast<int64_t>(height) * items / 8;
+      const dim3 grid(static_cast<unsigned>((vectors + kVecPerBlock - 1) / kVecPerBlock),
+                      static_cast<unsigned>(pairs < 65535 ? pairs : 65535));
+      stream_step_vec_kernel<FMT, DF><<<grid, kVecThreads, 0, stream>>>(
+          static_cast<const uint8_t*>(frames), static_cast<float*>(sum), pairs, vectors,
+          height * row_bytes, offset, u8_scale, rcp, final_div);
+      return cudaGetLastError();
+    }
+  }
+  stream_step_kernel<FMT, DF><<<static_cast<unsigned>(pairs * height), threads_for(items), 0,
+                                stream>>>(
+      static_cast<const uint8_t*>(frames), static_cast<float*>(sum), height, items,
+      row_bytes, offset, u8_scale, rcp, final_div);
   return cudaGetLastError();
 }
+
+// Alignment (bytes) of a plane start that the vector path's loads need.
+int vector_align(int fmt) { return fmt == kU16 ? 16 : 8; }
 
 template <int FMT, bool DF>
 cudaError_t launch_oneshot(const void* frames, void* out, int64_t rows,
@@ -132,14 +218,21 @@ cudaError_t launch_oneshot(const void* frames, void* out, int64_t rows,
 
 int step(const void* frames, void* sum, int64_t pairs, int64_t height,
          int64_t items, int64_t row_bytes, int fmt, int divide_first,
-         int final_div, float offset, float u8_scale, float rcp, void* stream) {
+         int final_div, int vector, float offset, float u8_scale, float rcp,
+         void* stream) {
   const int64_t rows = pairs * height;
   if (rows == 0 || items == 0) return cudaSuccess;
   if (rows > 0x7fffffff || items > 0x7fffffff) return cudaErrorInvalidValue;
+  if (fmt < kU16 || fmt > kP12) return cudaErrorInvalidValue;
+  // the host chose the vector path; a shape it cannot take is refused, never rerouted
+  if (vector && (fmt == kP12 || (height * items) % 8 ||
+                 reinterpret_cast<uintptr_t>(frames) % vector_align(fmt) ||
+                 reinterpret_cast<uintptr_t>(sum) % 16))
+    return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int h = static_cast<int>(height), it = static_cast<int>(items);
-  const bool fd = final_div != 0;
-#define STEP(F, D) launch_step<F, D>(frames, sum, rows, h, it, row_bytes, offset, u8_scale, rcp, fd, s)
+  const bool fd = final_div != 0, vec = vector != 0;
+#define STEP(F, D) launch_step<F, D>(frames, sum, pairs, h, it, row_bytes, offset, u8_scale, rcp, fd, vec, s)
   switch (fmt) {
     case kU16: return divide_first ? STEP(kU16, true) : STEP(kU16, false);
     case kU8: return divide_first ? STEP(kU8, true) : STEP(kU8, false);
@@ -175,25 +268,28 @@ int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
 // Plain C entry points, one per TPU kernel, loaded with ctypes. Each returns
 // the cudaError_t of its launch (0 = launched). `items` is the number of
 // thread items per output row: W, or W/2 for p12. `row_bytes` is the wire
-// row length in bytes.
+// row length in bytes. A step's `vector` flag selects the vector path; the
+// host sets it only where the planes allow it (denoise_stream.step_path), and
+// a launch that asks for it on planes that do not returns
+// cudaErrorMisalignedAddress.
 extern "C" {
 
 int alg3_stream_step_launch(const void* frames, void* sum, int64_t pairs,
                             int64_t height, int64_t items, int64_t row_bytes,
                             int fmt, int divide_first, int final_div,
-                            float offset, float u8_scale, float rcp,
+                            int vector, float offset, float u8_scale, float rcp,
                             void* stream) {
   return step(frames, sum, pairs, height, items, row_bytes, fmt, divide_first,
-              final_div, offset, u8_scale, rcp, stream);
+              final_div, vector, offset, u8_scale, rcp, stream);
 }
 
 int multibank_stream_step_launch(const void* frames, void* sum, int64_t banks,
                                  int64_t pairs, int64_t height, int64_t items,
                                  int64_t row_bytes, int fmt, int divide_first,
-                                 int final_div, float offset, float u8_scale,
-                                 float rcp, void* stream) {
+                                 int final_div, int vector, float offset,
+                                 float u8_scale, float rcp, void* stream) {
   return step(frames, sum, banks * pairs, height, items, row_bytes, fmt,
-              divide_first, final_div, offset, u8_scale, rcp, stream);
+              divide_first, final_div, vector, offset, u8_scale, rcp, stream);
 }
 
 int alg3_subtract_average_launch(const void* frames, void* out, int64_t groups,

@@ -4,7 +4,9 @@
 // runs inside each Pallas ingest kernel. Here it is a __device__ function
 // that the ingest kernels (denoise_stream.cu, denoise_median.cu,
 // denoise_ema.cu) inline, so a wire byte is read once, in the kernel that
-// uses it.
+// uses it. pair_diff reads one thread item (one pixel, or two for p12);
+// pair_diff8 and its loaders, below it, read eight pixels with vector loads
+// and round exactly as pair_diff does.
 //
 // Rounding is part of the contract: the reference's jitted prologue computes
 // the u8 dequant as fma(e, S, -(c*S)) + offset. It is written here with _rn
@@ -52,6 +54,53 @@ __device__ __forceinline__ void pair_diff(const uint8_t* __restrict__ ctl,
     const float ehi = static_cast<float>((e1 >> 4) | (e2 << 4));
     d[0] = __fadd_rn(__fsub_rn(elo, clo), offset);
     d[1] = __fadd_rn(__fsub_rn(ehi, chi), offset);
+  }
+}
+
+// Vector helpers of the step kernels' vector path (denoise_stream.cu): eight
+// pixels of one wire plane in one wide load, 16 bytes for u16 and 8 for u8.
+// Vector v of a plane starts at byte 8 * v * (pixel bytes), so the plane
+// start must be aligned to the load width. p12 (12 bytes a vector, which no
+// single load takes) stays on the scalar path.
+template <int FMT>
+struct Wire8;
+template <>
+struct Wire8<kU16> { uint4 v; };
+template <>
+struct Wire8<kU8> { uint2 v; };
+
+template <int FMT>
+__device__ __forceinline__ Wire8<FMT> load8(const uint8_t* __restrict__ plane, int64_t v) {
+  Wire8<FMT> x;
+  x.v = reinterpret_cast<const decltype(x.v)*>(plane)[v];
+  return x;
+}
+
+// The wire value of pixel k (0..7) of a loaded vector, exactly as a float.
+template <int FMT>
+__device__ __forceinline__ float pixel8(const Wire8<FMT>& x, int k) {
+  if constexpr (FMT == kU16) {
+    const uint32_t w = k < 2 ? x.v.x : k < 4 ? x.v.y : k < 6 ? x.v.z : x.v.w;
+    return static_cast<float>((k & 1) ? (w >> 16) : (w & 0xFFFFu));
+  } else {
+    const uint32_t w = k < 4 ? x.v.x : x.v.y;
+    return static_cast<float>((w >> (8 * (k & 3))) & 0xFFu);
+  }
+}
+
+// exc - ctl + offset for the eight pixels of a vector, rounded as pair_diff.
+template <int FMT>
+__device__ __forceinline__ void pair_diff8(const Wire8<FMT>& ctl, const Wire8<FMT>& exc,
+                                           float offset, float u8_scale, float d[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float c = pixel8<FMT>(ctl, k);
+    const float e = pixel8<FMT>(exc, k);
+    if constexpr (FMT == kU8) {
+      d[k] = __fadd_rn(__fmaf_rn(e, u8_scale, -__fmul_rn(c, u8_scale)), offset);
+    } else {
+      d[k] = __fadd_rn(__fsub_rn(e, c), offset);
+    }
   }
 }
 

@@ -12,8 +12,10 @@ share one launch and never touch each other's data.
 
 Both run kernels of ``csrc/denoise_stream.cu`` (the bank axis is a stride
 of the same templated bodies) through launchers and launch counters of
-their own. Dispatch and checks are as in
-:mod:`repro_torch.kernels.denoise_stream`.
+their own. The step takes the vector or the scalar path, as
+:func:`repro_torch.kernels.denoise_stream.step_path` picks, counted in
+``multibank_stream_step.vector_launches`` / ``.scalar_launches``.
+Dispatch and checks are as in :mod:`repro_torch.kernels.denoise_stream`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.kernels.denoise_stream import (
     alg3_subtract_average_plain,
     check_kernel_operands,
     check_launch,
+    launch_step,
     on_cuda,
 )
 
@@ -62,20 +65,16 @@ def multibank_stream_step(
         ))
     fmt, items, row_bytes = check_kernel_operands(group_frames, sum_frames, stream_dtype)
     b, n, h, _ = group_frames.shape
-    lib = _build.library()
-    with torch.cuda.device(sum_frames.device):
-        rc = lib.multibank_stream_step_launch(
-            group_frames.data_ptr(), sum_frames.data_ptr(), b, n // 2, h,
-            items, row_bytes, fmt, int(divide_first),
-            int(final and not divide_first), float(offset), U8_SCALE_F32,
-            ref.reciprocal(num_groups), torch.cuda.current_stream().cuda_stream,
-        )
-    check_launch(rc, "multibank_stream_step")
-    multibank_stream_step.launches += 1
+    launch_step(multibank_stream_step, "multibank_stream_step_launch", group_frames,
+                sum_frames, (b, n // 2, h, items, row_bytes), fmt=fmt,
+                divide_first=divide_first, final=final, offset=offset,
+                num_groups=num_groups, stream_dtype=stream_dtype)
     return sum_frames
 
 
 multibank_stream_step.launches = 0
+multibank_stream_step.vector_launches = 0
+multibank_stream_step.scalar_launches = 0
 
 
 def multibank_subtract_average(

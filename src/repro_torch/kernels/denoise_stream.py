@@ -11,6 +11,14 @@ its own CUDA kernel in ``csrc/denoise_stream.cu``:
   each input byte is read once, the sum stays in registers across the
   group loop, only the averaged ``(N/2, H, W)`` frames are written.
 
+The step kernel has two paths, chosen on the host by :func:`step_path`
+and passed to the kernel as a flag: a vector path (eight pixels a thread,
+16-byte loads for u16, 8-byte for u8) wherever every plane allows it, and
+the scalar path (one pixel a thread, one block per row) on every other
+shape and for p12. Each launch
+is counted in ``<wrapper>.vector_launches`` or ``<wrapper>.scalar_launches``
+as well as in ``<wrapper>.launches``.
+
 Dispatch is by the tensors' device: on a CUDA tensor the wrapper checks
 device, dtype, shape and contiguity, launches its kernel on the current
 stream and counts the launch in ``<wrapper>.launches``; on a CPU tensor it
@@ -34,6 +42,7 @@ __all__ = [
     "alg3_stream_step_plain",
     "alg3_subtract_average",
     "alg3_subtract_average_plain",
+    "step_path",
 ]
 
 _FORMATS = {"u16": 0, "u8": 1, "p12": 2}
@@ -82,6 +91,45 @@ def check_kernel_operands(
     w = out.shape[-1]
     items = w // 2 if stream_dtype == "p12" else w
     return _FORMATS[stream_dtype], items, frames.shape[-1] * frames.element_size()
+
+
+#: plane-start alignment (bytes) of the step's vector loads, per wire format
+#: that has a vector path (p12 has none)
+VECTOR_ALIGN = {"u16": 16, "u8": 8}
+
+
+def step_path(plane_px: int, stream_dtype: str, frames_ptr: int, sum_ptr: int) -> str:
+    """The step kernel's path for planes of ``plane_px`` = H*W pixels.
+
+    ``"vector"`` (eight pixels a thread) for u16 and u8 when H*W is a
+    multiple of 8 and the frames and the sum start on the width of their
+    vector loads: every plane then starts so aligned. ``"scalar"``
+    otherwise, and always for p12.
+    """
+    align = VECTOR_ALIGN.get(quant.validate_stream_dtype(stream_dtype))
+    aligned = align is not None and frames_ptr % align == 0 and sum_ptr % 16 == 0
+    return "vector" if plane_px % 8 == 0 and aligned else "scalar"
+
+
+def launch_step(fn, entry: str, group_frames, sum_frame, dims, *, fmt: int,
+                divide_first: bool, final: bool, offset: float, num_groups: int,
+                stream_dtype: str) -> None:
+    """Launch the step kernel through the C entry point ``entry`` on the path
+    :func:`step_path` picks, and count the launch on the wrapper ``fn``.
+    ``dims`` are the launcher's sizes, from the bank or pair count to
+    ``row_bytes``."""
+    *_, h, w = sum_frame.shape
+    path = step_path(h * w, stream_dtype, group_frames.data_ptr(), sum_frame.data_ptr())
+    lib = _build.library()
+    with torch.cuda.device(sum_frame.device):
+        rc = getattr(lib, entry)(
+            group_frames.data_ptr(), sum_frame.data_ptr(), *dims, fmt, int(divide_first),
+            int(final and not divide_first), int(path == "vector"), float(offset),
+            U8_SCALE_F32, ref.reciprocal(num_groups), torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(rc, fn.__name__)
+    fn.launches += 1
+    setattr(fn, f"{path}_launches", getattr(fn, f"{path}_launches") + 1)
 
 
 def check_launch(rc: int, name: str) -> None:
@@ -147,20 +195,15 @@ def alg3_stream_step(
         ))
     fmt, items, row_bytes = check_kernel_operands(group_frames, sum_frame, stream_dtype)
     n, h, _ = group_frames.shape
-    lib = _build.library()
-    with torch.cuda.device(sum_frame.device):
-        rc = lib.alg3_stream_step_launch(
-            group_frames.data_ptr(), sum_frame.data_ptr(), n // 2, h, items,
-            row_bytes, fmt, int(divide_first), int(final and not divide_first),
-            float(offset), U8_SCALE_F32, ref.reciprocal(num_groups),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    check_launch(rc, "alg3_stream_step")
-    alg3_stream_step.launches += 1
+    launch_step(alg3_stream_step, "alg3_stream_step_launch", group_frames, sum_frame,
+                (n // 2, h, items, row_bytes), fmt=fmt, divide_first=divide_first,
+                final=final, offset=offset, num_groups=num_groups, stream_dtype=stream_dtype)
     return sum_frame
 
 
 alg3_stream_step.launches = 0
+alg3_stream_step.vector_launches = 0
+alg3_stream_step.scalar_launches = 0
 
 
 def alg3_subtract_average_plain(

@@ -39,9 +39,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _wire(shape, fmt, seed):
-    px = np.random.default_rng(seed).integers(0, 4096, shape + (256,)).astype(np.uint16)
+def _wire(shape, fmt, seed, width=256):
+    px = np.random.default_rng(seed).integers(0, 4096, shape + (width,)).astype(np.uint16)
     return torch.from_numpy(np.ascontiguousarray(quant.encode(px, fmt)))
+
+
+def _shifted(t, device):
+    """``t`` on ``device`` in storage that starts one element into a buffer:
+    a contiguous view whose planes are not aligned for vector loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 @pytest.mark.parametrize("divide_first", [False, True])
@@ -62,6 +71,78 @@ def test_kernels_bitwise_equal_plain(cuda, g, fmt, divide_first):
         denoise_stream.alg3_stream_step(chunk[0].to(cuda), s[0], num_groups=g, **kw)
         sc[0] = denoise_stream.alg3_stream_step_plain(chunk[0], sc[0], num_groups=g, **kw)
     assert torch.equal(s.cpu(), sc)
+
+
+@pytest.mark.parametrize("divide_first", [False, True])
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+@pytest.mark.parametrize(
+    "shape, shift, path",
+    [((80, 256), False, "vector"), ((8, 136), False, "vector"), ((40, 136), False, "vector"),
+     ((80, 256), True, "scalar"), ((7, 130), False, "scalar")],
+    ids=["80x256", "8x136", "40x136", "80x256-unaligned-view", "ragged-7x130"],
+)
+def test_step_kernels_take_the_path_their_planes_allow(cuda, shape, shift, path, fmt,
+                                                       divide_first):
+    # 8 x 136 is 136 vectors, a partial warp in one partial block; 40 x 136 is
+    # 680, a full block and a partial one. p12 has no vector path.
+    h, w = shape
+    path = "scalar" if fmt == "p12" else path
+    g, n = 3, 12
+    frames = _wire((2, g, n, h), fmt, seed=h + g, width=w)
+    kw = dict(offset=4096.0, divide_first=divide_first, stream_dtype=fmt, num_groups=g)
+    b2, b4 = denoise_stream.alg3_stream_step, denoise_multibank.multibank_stream_step
+    before = [(f.launches, f.vector_launches, f.scalar_launches) for f in (b2, b4)]
+    place = (lambda t: _shifted(t, cuda)) if shift else (lambda t: t.to(cuda))
+    s1, s2 = place(torch.zeros(n // 2, h, w)), place(torch.zeros(2, n // 2, h, w))
+    c1, c2 = torch.zeros(n // 2, h, w), torch.zeros(2, n // 2, h, w)
+    for k in range(g):
+        fin = k == g - 1  # the in-kernel final division on the last group
+        chunk = frames[:, k].contiguous()
+        denoise_stream.alg3_stream_step(place(chunk[0]), s1, final=fin, **kw)
+        c1 = denoise_stream.alg3_stream_step_plain(chunk[0], c1, final=fin, **kw)
+        denoise_multibank.multibank_stream_step(place(chunk), s2, final=fin, **kw)
+        c2 = denoise_multibank.multibank_stream_step_plain(chunk, c2, final=fin, **kw)
+    assert torch.equal(s1.cpu(), c1) and torch.equal(s2.cpu(), c2)
+    for f, (n0, v0, s0) in zip((b2, b4), before):
+        assert f.launches - n0 == g
+        assert (f.vector_launches - v0, f.scalar_launches - s0) == (
+            (g, 0) if path == "vector" else (0, g))
+
+
+def test_step_kernel_refuses_a_vector_launch_its_planes_do_not_allow(cuda, monkeypatch):
+    # the path is the host's choice; the kernel raises on a wrong one, never reroutes
+    monkeypatch.setattr(denoise_stream, "step_path", lambda *a: "vector")
+    frames = _wire((12, 7), "u16", seed=3, width=130).to(cuda)
+    with pytest.raises(RuntimeError, match="alg3_stream_step: CUDA launch failed"):
+        denoise_stream.alg3_stream_step(frames, torch.zeros(6, 7, 130, device=cuda),
+                                        num_groups=2)
+
+
+@pytest.mark.parametrize(
+    "pairs, pair_tile, hw, groups",
+    [(500, 1, (16, 256), 2), (40, 40, (80, 256), 2), (60, 4, (7, 130), 3)]
+    + [(168, t, (16, 256), 2) for t in (2, 3, 6, 7, 8)],
+    ids=["500-chunks", "one-chunk", "ragged-7x130"] + [f"pair_tile-{t}" for t in (2, 3, 6, 7, 8)],
+)
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+def test_ema_kernel_chunk_rounds_bitwise_equal_plain(cuda, fmt, pairs, pair_tile, hw, groups):
+    # 500 chunks: 63 rounds of 8, the last one short; one chunk: longer than
+    # the register cap, one round; ragged: a partial last tile of pixels;
+    # pair_tile 2-8: every register tile the other cases do not launch
+    h, w = hw
+    frames = _wire((groups, 2 * pairs, h), fmt, seed=pairs, width=w)
+    gpu = [torch.zeros(pairs, h, w, device=cuda), torch.zeros(h, w, device=cuda),
+           torch.zeros(h, w, device=cuda)]
+    cpu = [t.cpu() for t in gpu]
+    before = denoise_ema.ema_welford_step.launches
+    for g in range(groups):
+        kw = dict(alpha=0.3, offset=4096.0, prior_count=11 + pairs * g, pair_tile=pair_tile,
+                  stream_dtype=fmt)
+        denoise_ema.ema_welford_step(*gpu, frames[g].to(cuda), **kw)
+        cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[g], **kw))
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu(), b)
+    assert denoise_ema.ema_welford_step.launches - before == groups
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -243,3 +243,40 @@ def test_ignored_tile_arguments_do_not_change_results():
     b = ops.subtract_average(frames, offset=OFFSET, stream_dtype="u8",
                              row_tile=4, pair_tile=2, placement="compiler")
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize(
+    "plane_px, fmt, frames_ptr, sum_ptr, want",
+    [
+        (80 * 256, "u16", 0x1000, 0x2000, "vector"),   # the paper's plane, allocator-aligned
+        (80 * 256, "u8", 0x1008, 0x2000, "vector"),    # u8 loads need 8-byte starts
+        (80 * 256, "p12", 0x1000, 0x2000, "scalar"),   # p12 has no vector path
+        (7 * 130, "u16", 0x1000, 0x2000, "scalar"),    # ragged: H*W not a multiple of 8
+        (7 * 130, "p12", 0x1000, 0x2000, "scalar"),
+        (80 * 256, "u16", 0x1008, 0x2000, "scalar"),   # a u16 view 8 bytes in
+        (80 * 256, "u8", 0x1004, 0x2000, "scalar"),
+        (80 * 256, "u8", 0x1008, 0x2004, "scalar"),    # u8 with the sum a float in
+        (8 * 136, "u8", 0x1000, 0x2000, "vector"),     # 136 vectors: a partial warp and block
+        (80 * 256, "u16", 0x1000, 0x2004, "scalar"),   # the sum a float in
+        (8, "u16", 0x1000, 0x2000, "vector"),          # one vector per plane
+    ],
+)
+def test_step_path_takes_vectors_only_where_every_plane_allows(
+        plane_px, fmt, frames_ptr, sum_ptr, want):
+    assert denoise_stream.step_path(plane_px, fmt, frames_ptr, sum_ptr) == want
+
+
+def test_step_path_rejects_unknown_wire_format():
+    with pytest.raises(ValueError):
+        denoise_stream.step_path(80 * 256, "u12", 0, 0)
+
+
+def test_step_path_of_real_tensors_follows_their_storage():
+    # every plane of a contiguous (P, H, W) tensor starts where the first does
+    # plus a multiple of 8 pixels, so the base pointer decides; PyTorch's
+    # allocators align a fresh tensor to 64 bytes or more
+    frames = torch.zeros(8, 80, 256, dtype=torch.uint16)
+    s = torch.zeros(4, 80, 256)
+    assert denoise_stream.step_path(80 * 256, "u16", frames.data_ptr(), s.data_ptr()) == "vector"
+    view = torch.zeros(8 * 80 * 256 + 1, dtype=torch.uint16)[1:].view(8, 80, 256)
+    assert denoise_stream.step_path(80 * 256, "u16", view.data_ptr(), s.data_ptr()) == "scalar"
