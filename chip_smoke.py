@@ -15,18 +15,29 @@ then:
    (u16, u8), also on a 40 x 136 plane whose last block and warp are
    partial, and on a ragged 7 x 130 plane and an unaligned 80 x 256 view,
    where each step launch (and every p12 one) must take the scalar path;
+   B2-B5 (Alg 3 and Alg 3 v2) and B10 (Alg 1 and Alg 2) bitwise with int32
+   and uint16 sums at G = 10, offset 0 and 4096, on frames whose uint16
+   divide-last sums wrap (the paper's u16-container overflow), each integer
+   step on the scalar path;
    B6 (median insert) and B8 (EMA step) bitwise for u16/u8/p12 and G in
    {5, 8}, B8 also at N = 1000 with the main path's 100 merge chunks, with
    500 chunks (63 rounds of 8, the last one short), with one chunk of 32
    pairs (above the register cap), on a ragged 7 x 130 plane and with
    pair_tile 2, 3, 6, 7 and 8 (each its own kernel); B7 (median combine)
-   bitwise for K in {1, 4, 5}; B9 (3x3 spatial) bitwise in box mode and
-   within its declared tolerance in bilateral mode. Then (1b) runs the executors on
+   bitwise for K in {1, 4, 5} and, on its selection path, K in {65, 100};
+   B9 (3x3 spatial) bitwise in box mode and within its declared tolerance
+   in bilateral mode, on the main path's planes and on planes that take
+   each tile path at its edges (partial row and column tiles, H = 1 and 2
+   on the float4 path; W % 4 != 0, an unaligned view and W = 1 on the
+   scalar path). Then (1b) runs the executors on
    the card at G = 5, where 1/G is inexact, for ``pair_average`` and the
    three other filters, so the eager true divisions (finalize, a
    consumer's partials, a ``drop_oldest`` stream made to drop one group
    whatever the thread timing), the one-shot call and the banked path
-   are held bitwise against the same runs on the CPU;
+   are held bitwise against the same runs on the CPU; and the
+   ``pair_average`` executors with a uint16 sum at G = 10 (Alg 3, Alg 3 v2,
+   Alg 1), whose plain steps (init, the floor division of finalize and of
+   the partials) run on a CUDA uint16 tensor;
 2. drives the main path at the paper's size (G = 8, N = 1000, 80 x 256,
    u16): ``PrismSource`` -> ``run_pipelined`` (ring depth 2 and 3),
    ``run_inline(prefetch=False)`` and the one-shot ``StreamingDenoiser``
@@ -40,8 +51,9 @@ then:
    against the least time the card needs for its bytes or operations,
    times its plain version and, where one PyTorch call computes the same
    function, that call (B2 and B4 also on their scalar path, u16 and u8,
-   in the same run, and the host time per call of the B2, B4 and B8
-   wrappers); and times the pipelined executor per group against the
+   in the same run, B2-B5 and B10 with int32 and uint16 sums, and the host
+   time per call of the B2, B4 and B8 wrappers); and times the pipelined
+   executor per group against the
    camera's 57 ms inter-group interval;
 5. drives the other filters at the paper's size (``temporal_median``
    with its 5-slot window, ``ema_variance``, ``spatial_box`` in box and
@@ -356,11 +368,58 @@ def main() -> int:
                 if [(v - v0, c - c0) for (v, c), (v0, c0) in zip(step_paths(), before)] != want:
                     raise AssertionError(f"{what}: the steps did not all take the {path} path")
                 path_cases += 1
+    # B2-B5 and B10 with integer sums (u16 wire, the scalar layout) at G = 10:
+    # half the pairs bright over dark, so that a uint16 divide-last sum wraps
+    # past 65535 (the paper's container overflow); with offset 0 the other
+    # half's differences are negative, where // and a truncation differ
+    def int_wire(shape):
+        px = rng.integers(0, 4096, shape + (W,)).astype(np.uint16)
+        half = shape[-2] // 2
+        px[..., 0:half:2, :, :] //= 4
+        px[..., 1:half:2, :, :] = 4095 - px[..., 1:half:2, :, :] // 4
+        return torch.from_numpy(px)
+
+    int_cases, oneshots = 0, {}
+    for off in (0.0, offset):
+        banked = int_wire((2, 10, 64, H))
+        for acc in (torch.int32, torch.uint16):
+            for df in (False, True):
+                what = f"G=10 N=64 u16 {acc} offset={off:g} {'divide_first' if df else 'divide_last'}"
+                kw = dict(offset=off, divide_first=df)
+                s1 = torch.zeros(32, H, W, dtype=acc, device=dev)
+                s2 = torch.zeros(2, 32, H, W, dtype=acc, device=dev)
+                c1, c2 = torch.zeros(32, H, W, dtype=acc), torch.zeros(2, 32, H, W, dtype=acc)
+                before = step_paths()
+                for k in range(10):
+                    chunk, fin = banked[:, k].contiguous(), k == 9
+                    denoise_stream.alg3_stream_step(chunk[0].to(dev), s1, num_groups=10, final=fin, **kw)
+                    c1 = denoise_stream.alg3_stream_step_plain(chunk[0], c1, num_groups=10, final=fin, **kw)
+                    denoise_multibank.multibank_stream_step(chunk.to(dev), s2, num_groups=10, final=fin, **kw)
+                    c2 = denoise_multibank.multibank_stream_step_plain(chunk, c2, num_groups=10, final=fin, **kw)
+                same("alg3_stream_step", s1, c1, what)
+                same("multibank_stream_step", s2, c2, what)
+                if [(v - v0, c - c0) for (v, c), (v0, c0) in zip(step_paths(), before)] != [(0, 10)] * 2:
+                    raise AssertionError(f"{what}: integer steps must take the scalar path")
+                kw["accum_dtype"] = acc
+                oneshots[acc, off, df] = denoise_stream.alg3_subtract_average_plain(banked[0], **kw)
+                same("alg3_subtract_average", denoise_stream.alg3_subtract_average(banked[0].to(dev), **kw),
+                     oneshots[acc, off, df], what)
+                same("multibank_subtract_average",
+                     denoise_multibank.multibank_subtract_average(banked.to(dev), **kw),
+                     denoise_multibank.multibank_subtract_average_plain(banked, **kw), what)
+                int_cases += 1
+            want = denoise_tmpframe.alg1_subtract_average_plain(banked[0], offset=off, accum_dtype=acc)
+            for k in BASELINE_PATH:
+                same(k, wrappers[k](banked[0].to(dev), offset=off, accum_dtype=acc), want,
+                     f"G=10 N=64 u16 {acc} offset={off:g}")
+    if torch.equal(oneshots[torch.uint16, offset, False].to(torch.int32), oneshots[torch.int32, offset, False]):
+        raise AssertionError("G=10: the uint16 divide-last sums never wrapped")
     torch.cuda.synchronize()
     print(f"phase 1: {len(cases)} cases x 4 kernels (B2-B5) bitwise equal to the CPU plain "
           f"versions, and B2/B4 in {path_cases} cases on a 40x136 plane (vector path; p12 "
-          f"scalar), a ragged 7x130 plane and an unaligned 80x256 view (scalar path) "
-          f"({time.perf_counter() - t1:.1f} s)")
+          f"scalar), a ragged 7x130 plane and an unaligned 80x256 view (scalar path); "
+          f"B2-B5 with int32/uint16 sums in {int_cases} cases and B10 Alg 1/2 in 4 (G=10, "
+          f"offset 0 and 4096, the uint16 sums wrapping) ({time.perf_counter() - t1:.1f} s)")
 
     # B6-B9 against their plain versions on the CPU
     t1 = time.perf_counter()
@@ -407,17 +466,40 @@ def main() -> int:
             ema_case(wire((2, 336, 16), fmt), fmt, tp, f"G=2 N=336 16x256 {fmt} pair_tile={tp}",
                      hw=(16, W))
         new_cases += 8
+    combine = denoise_median.median_combine
+    for k in (65, 100):  # B7 above its network's 64 slots: the selection path, even and odd K
+        win = rng.integers(4000, 4040, (k, 4, 16, W)) + (rng.random((k, 4, 16, W)) < 0.5) * 0.75
+        win = torch.from_numpy(win.astype(np.float32))
+        before = combine.select_launches
+        same("median_combine", combine(win.to(dev)), denoise_median.median_combine_plain(win),
+             f"K={k} 4x16x256")
+        if combine.select_launches - before != 1:
+            raise AssertionError(f"K={k}: median_combine did not take its selection path")
     bilateral_rel = 0.0
-    for p in (32, 500):  # B9 on the main path's (P, 80, 256) and a short stack
-        x = torch.from_numpy((4096 + 40 * rng.standard_normal((p, H, W))).astype(np.float32))
-        x[:, 7, 11] += 900.0  # a hot pixel
-        same("spatial_filter_3x3", denoise_spatial.spatial_filter_3x3(x.to(dev), mode="box"),
-             denoise_spatial.spatial_filter_3x3_plain(x, mode="box"), f"P={p} box")
+    spatial = denoise_spatial.spatial_filter_3x3
+    # B9 on the main path's (P, 80, 256) and a short stack, and on planes that
+    # take each tile path at its edges: partial row and column tiles, H = 1 and
+    # 2 (float4 path); W % 4 != 0, an unaligned view and W = 1 (scalar path)
+    b9_planes = [((32, H, W), to_dev, "vector"), ((500, H, W), to_dev, "vector"),
+                 ((4, 20, 132), to_dev, "vector"), ((4, 1, W), to_dev, "vector"),
+                 ((4, 2, W), to_dev, "vector"), ((4, 7, 130), to_dev, "scalar"),
+                 ((4, H, W), shifted, "scalar"), ((4, 5, 1), to_dev, "scalar")]
+    for shape, place, path in b9_planes:
+        x = torch.from_numpy((4096 + 40 * rng.standard_normal(shape)).astype(np.float32))
+        x[:, min(7, shape[1] - 1), min(11, shape[2] - 1)] += 900.0  # a hot pixel
+        x[:, -1, -1] += 900.0  # and one in the last tile's corner
+        what = "x".join(map(str, shape)) + (" unaligned" if place is shifted else "")
+        before = (spatial.vector_launches, spatial.scalar_launches)
+        xd = place(x)
+        same("spatial_filter_3x3", spatial(xd, mode="box"),
+             denoise_spatial.spatial_filter_3x3_plain(x, mode="box"), f"{what} box")
         kw = dict(mode="bilateral", range_sigma=60.0)
         bilateral_rel = max(bilateral_rel, close(
-            "spatial_filter_3x3", denoise_spatial.spatial_filter_3x3(x.to(dev), **kw),
-            denoise_spatial.spatial_filter_3x3_plain(x, **kw), denoise_spatial.BILATERAL_RTOL,
-            f"P={p} bilateral"))
+            "spatial_filter_3x3", spatial(xd, **kw), denoise_spatial.spatial_filter_3x3_plain(x, **kw),
+            denoise_spatial.BILATERAL_RTOL, f"{what} bilateral"))
+        took = (spatial.vector_launches - before[0], spatial.scalar_launches - before[1])
+        if took != ((2, 0) if path == "vector" else (0, 2)):
+            raise AssertionError(f"B9 {what}: launches {took} on (vector, scalar), want the {path} path")
     for g in (5, 8):  # B10: a division by G would differ at G = 5
         frames = wire((g, 64, H), "u16")
         want = denoise_tmpframe.alg1_subtract_average_plain(frames, offset=offset)
@@ -429,7 +511,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"phase 1: B6/B7/B8 bitwise equal to the CPU plain versions in {new_cases} cases "
           f"(u16/u8/p12, G=5/8, K=1/4/5; B8 also with 500 chunks, one chunk of 32 pairs, "
-          f"a ragged 7x130 plane and pair_tile 2/3/6/7/8) and B8 at N=1000 with 100 chunks; B9 box bitwise, "
+          f"a ragged 7x130 plane and pair_tile 2/3/6/7/8) and B8 at N=1000 with 100 chunks; B7 "
+          f"at K=65/100 (selection path); B9 on {len(b9_planes)} planes (both tile paths) box bitwise, "
           f"bilateral max relative diff {bilateral_rel:.3g} (declared "
           f"{denoise_spatial.BILATERAL_RTOL:g}); B10 Alg 1 and Alg 2 (u16, G=5/8) bitwise "
           f"equal to the CPU plain version and to each other ({time.perf_counter() - t1:.1f} s)")
@@ -472,10 +555,11 @@ def main() -> int:
             raise AssertionError(f"forced drop: {rep.drops} groups dropped, want 1")
         return out
 
-    def card_vs_cpu(cfg5, groups5, what, bgroups5=None):
+    def card_vs_cpu(cfg5, groups5, what, bgroups5=None, drop=True):
         """Each executor run on the card and on the CPU, bitwise; returns
         the CPU ``run_pipelined`` output. With ``bgroups5`` also the banked
-        (B = 2) ``ingest_many`` stream. Returns the number of runs."""
+        (B = 2) ``ingest_many`` stream; with ``drop`` (G = 5 only) the
+        forced ``drop_oldest`` run. Returns the number of runs."""
 
         def both(label, call):
             got, want = call("cuda"), call("cpu")
@@ -510,14 +594,15 @@ def main() -> int:
         both("run_inline(prefetch=False)", lambda d: streaming.run_inline(
             cfg5, iter(groups5), prefetch=False, device=d)[0])
         both("DownloadConsumer partials", partials)
-        dropped = both("drop_oldest, group 3 of 5 dropped", lambda d: forced_drop(
-            cfg5, groups5, d))
-        if not torch.equal(dropped, survivors("cpu")):
-            raise AssertionError(f"{what} drop_oldest: not the finalize of the 4 surviving groups")
+        if drop:
+            dropped = both("drop_oldest, group 3 of 5 dropped", lambda d: forced_drop(
+                cfg5, groups5, d))
+            if not torch.equal(dropped, survivors("cpu")):
+                raise AssertionError(f"{what} drop_oldest: not the finalize of the 4 surviving groups")
         both("one-shot", lambda d: StreamingDenoiser(cfg5, device=d)(np.stack(groups5)))
         if bgroups5 is not None:
             both("banked ingest_many (B=2)", banked)
-        return want, 5 + (bgroups5 is not None)
+        return want, 4 + drop + (bgroups5 is not None)
 
     t1 = time.perf_counter()
     runs, discriminates = 0, False
@@ -550,10 +635,20 @@ def main() -> int:
         cfg5b = DenoiseConfig(num_groups=5, frames_per_group=64, num_banks=2, **extra)
         bgroups5 = list(PrismSource(cfg5b, seed=7).banked_groups())
         filter_runs += card_vs_cpu(cfg5, groups5, f"G=5 u16 {extra['filter_name']}", bgroups5)[1]
+    u16_runs = 0
+    for algorithm in ("alg3", "alg3_v2", "alg1"):  # the paper's u16 container, G = 10
+        cfg10 = DenoiseConfig(num_groups=10, frames_per_group=64, accum_dtype="uint16",
+                              algorithm=algorithm)
+        want, n_runs = card_vs_cpu(cfg10, list(PrismSource(cfg10, seed=8).groups()),
+                                   f"G=10 uint16 {algorithm}", drop=False)
+        if want.dtype != torch.uint16:
+            raise AssertionError(f"G=10 uint16 {algorithm}: output {want.dtype}")
+        u16_runs += n_runs
     torch.cuda.synchronize()
     print(f"phase 1b: G=5 N=64 80x256: {runs} pair_average executor runs (u16/u8/p12 x "
           f"alg3/alg3_v2, u16 x alg1/alg2) and {filter_runs} runs of temporal_median/ema_variance/spatial_box "
-          f"on the card bitwise equal to the CPU ({time.perf_counter() - t1:.1f} s)")
+          f"on the card bitwise equal to the CPU; G=10 uint16 sums: {u16_runs} runs (alg3/alg3_v2/"
+          f"alg1) bitwise equal to the CPU ({time.perf_counter() - t1:.1f} s)")
 
     # -- phases 2 + 3: the main path at the paper's size -----------------
     cfg = DenoiseConfig()  # G=8, N=1000, 80x256, u16, pair_average, alg3
@@ -689,6 +784,44 @@ def main() -> int:
                 nbytes = b * (G * N * H * W * 2 + out_px * 4)
                 flops = b * out_px * (G * step_flops("u16", df) + (0 if df else 1))
             row(kernel, f"u16 {'v2' if df else 'v1'} B={b}", ms, plain, nbytes, flops, main=not df)
+
+    # integer sums (u16 wire, the scalar layout): B2-B5 and B10 at the paper's
+    # shape, Alg 3 (divide last); the sum moves 4 (int32) or 2 (uint16) bytes
+    for acc in (torch.int32, torch.uint16):
+        name_acc, acc_bytes = str(acc).split(".")[-1], torch.empty((), dtype=acc).element_size()
+        frames1, frames2 = wire((1, N, H), "u16")[0].to(dev), wire((2, N, H), "u16").to(dev)
+        s1 = torch.zeros(P, H, W, dtype=acc, device=dev)
+        s2 = torch.zeros(2, P, H, W, dtype=acc, device=dev)
+        kw = dict(num_groups=G, offset=offset)
+        row("alg3_stream_step", f"u16 v1 {name_acc}",
+            time_ms(lambda: denoise_stream.alg3_stream_step(frames1, s1, **kw)),
+            plain_ms(lambda: denoise_stream.alg3_stream_step_plain(frames1, s1, **kw), reps=3, inner=1),
+            N * H * W * 2 + 2 * out_px * acc_bytes, out_px * step_flops("u16", False))
+        row("multibank_stream_step", f"u16 v1 B=2 {name_acc}",
+            time_ms(lambda: denoise_multibank.multibank_stream_step(frames2, s2, **kw)),
+            plain_ms(lambda: denoise_multibank.multibank_stream_step_plain(frames2, s2, **kw),
+                     reps=3, inner=1),
+            2 * (N * H * W * 2 + 2 * out_px * acc_bytes), 2 * out_px * step_flops("u16", False))
+        del frames1, frames2, s1, s2
+        kw = dict(offset=offset, accum_dtype=acc)
+        for kernel, banks, fn, plain_fn in (
+                ("alg3_subtract_average", (), denoise_stream.alg3_subtract_average,
+                 denoise_stream.alg3_subtract_average_plain),
+                ("multibank_subtract_average", (2,), denoise_multibank.multibank_subtract_average,
+                 denoise_multibank.multibank_subtract_average_plain),
+                ("alg1_subtract_average", (), wrappers["alg1_subtract_average"],
+                 denoise_tmpframe.alg1_subtract_average_plain),
+                ("alg2_subtract_average", (), wrappers["alg2_subtract_average"],
+                 denoise_tmpframe.alg2_subtract_average_plain)):
+            frames = wire(banks + (G, N, H), "u16").to(dev)
+            b = banks[0] if banks else 1
+            nbytes = b * (G * N * H * W * 2 + out_px * acc_bytes)
+            if kernel.startswith(("alg1", "alg2")):  # the tmpFrame written and read back
+                nbytes += 2 * G * out_px * acc_bytes
+            row(kernel, f"u16 v1 B={b} {name_acc}", time_ms(lambda: fn(frames, **kw)),
+                plain_ms(lambda: plain_fn(frames, **kw), reps=3, inner=1), nbytes,
+                b * out_px * (G * step_flops("u16", False) + 1))
+            del frames
 
     # the steps' scalar path (the body they ran everywhere before the vector
     # path) on an unaligned view of the same shape, u16 and u8 (the p12 rows

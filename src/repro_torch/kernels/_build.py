@@ -45,13 +45,13 @@ _F = ctypes.c_float
 #: are ``c_void_p``: ctypes would cut them to 32 bits else.
 ARGTYPES = {
     "alg3_stream_step_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _I, _I64, _P),
     "multibank_stream_step_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _I, _I64, _P),
     "alg3_subtract_average_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _I, _P),
     "multibank_subtract_average_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _I, _P),
     "median_window_insert_launch":
         (_P, _P, _I64, _I64, _I64, _I64, _I, _F, _F, _P),
     "median_combine_launch":
@@ -59,11 +59,11 @@ ARGTYPES = {
     "ema_welford_step_launch":
         (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _F, _F, _F, _F, _F, _F, _P),
     "spatial_filter_3x3_launch":
-        (_P, _P, _I64, _I64, _I64, _I, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I, _I, _F, _P),
     "tmpframe_subtract_launch":
-        (_P, _P, _I64, _I64, _I64, _I, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I, _F, _I, _P),
     "tmpframe_reduce_launch":
-        (_P, _P, _I64, _I64, _I64, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _F, _I, _P),
 }
 
 _lock = threading.Lock()

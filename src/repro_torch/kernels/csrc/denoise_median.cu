@@ -24,9 +24,16 @@
 //     registers; 8 < K <= 64 runs the same network with runtime bounds over
 //     a thread-local array. Even K returns (lo + hi) * 0.5f, the jitted
 //     reference's mid / 2.
+//   * combine, K > 64 (no register array holds the column): an exact
+//     selection of the middle ranks. The thread reads its column of K values
+//     from memory, and for each candidate counts the values below it and
+//     those at most it; the candidate whose range of ranks holds rank K/2
+//     (and K/2 - 1 for even K) is the value the sorting network leaves there.
+//     O(K^2) reads from L1/L2 a pixel, no memory beyond registers, any K.
 //
 // min/max and the final * 0.5f are exact, so the median is the value the
-// reference's network or jnp.sort picks, bit for bit.
+// reference's network or jnp.sort picks, bit for bit. (So is a selection by
+// rank: the values are the diffs of wire pixels, with no NaN and no -0.)
 
 #include "quant.cuh"
 
@@ -91,6 +98,31 @@ __global__ void combine_kernel(const float* __restrict__ window,
   out[i] = median_network<K>(v, n);
 }
 
+// B7, K > kMaxWindow: the values of ranks lo = (K-1)/2 and hi = K/2 of the
+// column by counting. A value v holds every rank in [#{< v}, #{<= v}).
+__global__ void combine_select_kernel(const float* __restrict__ window,
+                                      float* __restrict__ out, int64_t plane,
+                                      int count) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  const float* col = window + i;
+  const int lo = (count - 1) / 2, hi = count / 2;
+  float v_lo = 0.0f, v_hi = 0.0f;
+  bool got_lo = false, got_hi = false;
+  for (int c = 0; c < count && !(got_lo && got_hi); ++c) {
+    const float v = col[c * plane];
+    int below = 0, upto = 0;
+    for (int k = 0; k < count; ++k) {
+      const float x = col[k * plane];
+      below += x < v;
+      upto += x <= v;
+    }
+    if (!got_lo && below <= lo && lo < upto) v_lo = v, got_lo = true;
+    if (!got_hi && below <= hi && hi < upto) v_hi = v, got_hi = true;
+  }
+  out[i] = count % 2 ? v_hi : __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f);
+}
+
 template <int FMT>
 cudaError_t launch_insert(const void* frames, void* slot, int64_t rows,
                           int height, int items, int64_t row_bytes,
@@ -140,10 +172,17 @@ int median_window_insert_launch(const void* frames, void* slot, int64_t pairs,
 int median_combine_launch(const void* window, void* out, int64_t count,
                           int64_t plane, void* stream) {
   if (plane == 0) return cudaSuccess;
-  if (count < 1 || count > kMaxWindow || (plane + 255) / 256 > 0x7fffffff)
+  if (count < 1 || count > 0x7fffffff || (plane + 255) / 256 > 0x7fffffff)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(count);
+  if (c > kMaxWindow) {
+    constexpr int kThreads = 256;
+    combine_select_kernel<<<static_cast<unsigned>((plane + kThreads - 1) / kThreads), kThreads,
+                            0, s>>>(static_cast<const float*>(window), static_cast<float*>(out),
+                                    plane, c);
+    return cudaGetLastError();
+  }
   switch (c) {
     case 1: return launch_combine<1>(window, out, plane, c, s);
     case 2: return launch_combine<2>(window, out, plane, c, s);

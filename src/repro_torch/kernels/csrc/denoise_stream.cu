@@ -45,6 +45,13 @@
 // one more index folded into the pair axis, so banks never touch each
 // other's data, as on the TPU grid.
 //
+// Integer sums (int32, or uint16 wrapping at 16 bits: the paper's u16-container
+// overflow past G = 8) take u16 wire and one layout, the scalar one, in kernels
+// of their own: they are the reference's contract, not its speed path. Their
+// arithmetic is IntSum's (quant.cuh): the pair difference in int32, narrowed to
+// the sum type; the divide-first fold adds floor(d / G); the final division
+// floors.
+//
 // Rounding is part of the contract: the reference's jitted kernels compute
 // (a) the u8 dequant as fma(e, S, -(c*S)) + offset (quant.cuh), (b) x / G as
 // x * f32(1/G), and (c) the divide-first fold s + d / G as fma(d, 1/G, s).
@@ -179,6 +186,91 @@ __global__ void subtract_average_kernel(const uint8_t* __restrict__ frames,
   }
 }
 
+// B2/B4 and B3/B5 with an integer sum T (scalar layout, u16 wire): the step
+// folds one group in place (row r = (pair p, image row h) as above); the
+// one-shot keeps the sum in a register across the G groups.
+template <typename T, bool DIVIDE_FIRST>
+__global__ void stream_step_int_kernel(const uint16_t* __restrict__ frames,
+                                       T* __restrict__ sum, int height, int width,
+                                       int32_t offset, int32_t groups, bool final_div) {
+  const int64_t r = blockIdx.x;
+  const int64_t p = r / height;
+  const int64_t h = r - p * height;
+  const uint16_t* ctl = frames + ((2 * p) * height + h) * width;
+  const uint16_t* exc = ctl + static_cast<int64_t>(height) * width;
+  T* out = sum + r * width;
+  for (int x = threadIdx.x; x < width; x += blockDim.x) {
+    T d = int_pair_diff<T>(ctl[x], exc[x], offset);
+    if constexpr (DIVIDE_FIRST) d = IntSum<T>::div(d, groups);
+    T s = IntSum<T>::add(out[x], d);
+    if constexpr (!DIVIDE_FIRST) {
+      if (final_div) s = IntSum<T>::div(s, groups);
+    }
+    out[x] = s;
+  }
+}
+
+template <typename T, bool DIVIDE_FIRST>
+__global__ void subtract_average_int_kernel(const uint16_t* __restrict__ frames,
+                                            T* __restrict__ out, int groups, int pairs,
+                                            int height, int width, int32_t offset) {
+  const int64_t r = blockIdx.x;
+  const int64_t bp = r / height;
+  const int64_t h = r - bp * height;
+  const int64_t b = bp / pairs;
+  const int64_t p = bp - b * pairs;
+  const int64_t plane = static_cast<int64_t>(height) * width;
+  const int64_t group_px = 2 * static_cast<int64_t>(pairs) * plane;
+  const uint16_t* base = frames + b * groups * group_px + (2 * p) * plane + h * width;
+  T* dst = out + r * width;
+  for (int x = threadIdx.x; x < width; x += blockDim.x) {
+    T acc = 0;
+    for (int g = 0; g < groups; ++g) {
+      const uint16_t* ctl = base + g * group_px;
+      T d = int_pair_diff<T>(ctl[x], ctl[plane + x], offset);
+      if constexpr (DIVIDE_FIRST) d = IntSum<T>::div(d, groups);
+      acc = IntSum<T>::add(acc, d);
+    }
+    dst[x] = DIVIDE_FIRST ? acc : IntSum<T>::div(acc, groups);
+  }
+}
+
+template <typename T>
+cudaError_t launch_step_int(const void* frames, void* sum, int64_t rows, int height,
+                            int width, int32_t offset, int32_t groups, bool divide_first,
+                            bool final_div, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(rows);
+  const int t = threads_for(width);
+  const uint16_t* f = static_cast<const uint16_t*>(frames);
+  T* s = static_cast<T*>(sum);
+  if (divide_first) {
+    stream_step_int_kernel<T, true><<<blocks, t, 0, stream>>>(f, s, height, width, offset,
+                                                               groups, final_div);
+  } else {
+    stream_step_int_kernel<T, false><<<blocks, t, 0, stream>>>(f, s, height, width, offset,
+                                                                groups, final_div);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_oneshot_int(const void* frames, void* out, int64_t rows, int groups,
+                               int pairs, int height, int width, int32_t offset,
+                               bool divide_first, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(rows);
+  const int t = threads_for(width);
+  const uint16_t* f = static_cast<const uint16_t*>(frames);
+  T* o = static_cast<T*>(out);
+  if (divide_first) {
+    subtract_average_int_kernel<T, true><<<blocks, t, 0, stream>>>(f, o, groups, pairs, height,
+                                                                    width, offset);
+  } else {
+    subtract_average_int_kernel<T, false><<<blocks, t, 0, stream>>>(f, o, groups, pairs, height,
+                                                                     width, offset);
+  }
+  return cudaGetLastError();
+}
+
 template <int FMT, bool DF>
 cudaError_t launch_step(const void* frames, void* sum, int64_t pairs, int height,
                         int items, int64_t row_bytes, float offset,
@@ -219,11 +311,22 @@ cudaError_t launch_oneshot(const void* frames, void* out, int64_t rows,
 int step(const void* frames, void* sum, int64_t pairs, int64_t height,
          int64_t items, int64_t row_bytes, int fmt, int divide_first,
          int final_div, int vector, float offset, float u8_scale, float rcp,
-         void* stream) {
+         int acc, int64_t groups, void* stream) {
   const int64_t rows = pairs * height;
   if (rows == 0 || items == 0) return cudaSuccess;
   if (rows > 0x7fffffff || items > 0x7fffffff) return cudaErrorInvalidValue;
   if (fmt < kU16 || fmt > kP12) return cudaErrorInvalidValue;
+  if (acc != kAccF32) {  // integer sums: u16 wire, the scalar layout only
+    if (fmt != kU16 || vector || groups < 1 || groups > 0x7fffffff) return cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int h = static_cast<int>(height), w = static_cast<int>(items);
+    const int32_t off = static_cast<int32_t>(offset), g = static_cast<int32_t>(groups);
+    if (acc == kAccI32)
+      return launch_step_int<int32_t>(frames, sum, rows, h, w, off, g, divide_first, final_div, s);
+    if (acc == kAccU16)
+      return launch_step_int<uint16_t>(frames, sum, rows, h, w, off, g, divide_first, final_div, s);
+    return cudaErrorInvalidValue;
+  }
   // the host chose the vector path; a shape it cannot take is refused, never rerouted
   if (vector && (fmt == kP12 || (height * items) % 8 ||
                  reinterpret_cast<uintptr_t>(frames) % vector_align(fmt) ||
@@ -245,7 +348,7 @@ int step(const void* frames, void* sum, int64_t pairs, int64_t height,
 int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
             int64_t pairs, int64_t height, int64_t items, int64_t row_bytes,
             int fmt, int divide_first, float offset, float u8_scale, float rcp,
-            void* stream) {
+            int acc, void* stream) {
   const int64_t rows = banks * pairs * height;
   if (rows == 0 || items == 0) return cudaSuccess;
   if (rows > 0x7fffffff || items > 0x7fffffff || groups > 0x7fffffff)
@@ -253,6 +356,15 @@ int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = static_cast<int>(groups), p = static_cast<int>(pairs);
   const int h = static_cast<int>(height), it = static_cast<int>(items);
+  if (acc != kAccF32) {  // integer sums: u16 wire only
+    if (fmt != kU16 || groups < 1) return cudaErrorInvalidValue;
+    const int32_t off = static_cast<int32_t>(offset);
+    if (acc == kAccI32)
+      return launch_oneshot_int<int32_t>(frames, out, rows, g, p, h, it, off, divide_first, s);
+    if (acc == kAccU16)
+      return launch_oneshot_int<uint16_t>(frames, out, rows, g, p, h, it, off, divide_first, s);
+    return cudaErrorInvalidValue;
+  }
 #define ONESHOT(F, D) launch_oneshot<F, D>(frames, out, rows, g, p, h, it, row_bytes, offset, u8_scale, rcp, s)
   switch (fmt) {
     case kU16: return divide_first ? ONESHOT(kU16, true) : ONESHOT(kU16, false);
@@ -271,34 +383,38 @@ int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
 // row length in bytes. A step's `vector` flag selects the vector path; the
 // host sets it only where the planes allow it (denoise_stream.step_path), and
 // a launch that asks for it on planes that do not returns
-// cudaErrorMisalignedAddress.
+// cudaErrorMisalignedAddress. `acc` is the sum's AccumCode (quant.cuh): an
+// integer sum takes u16 wire and the scalar layout (else
+// cudaErrorInvalidValue), and a step's `groups` is G.
 extern "C" {
 
 int alg3_stream_step_launch(const void* frames, void* sum, int64_t pairs,
                             int64_t height, int64_t items, int64_t row_bytes,
                             int fmt, int divide_first, int final_div,
                             int vector, float offset, float u8_scale, float rcp,
-                            void* stream) {
+                            int acc, int64_t groups, void* stream) {
   return step(frames, sum, pairs, height, items, row_bytes, fmt, divide_first,
-              final_div, vector, offset, u8_scale, rcp, stream);
+              final_div, vector, offset, u8_scale, rcp, acc, groups, stream);
 }
 
 int multibank_stream_step_launch(const void* frames, void* sum, int64_t banks,
                                  int64_t pairs, int64_t height, int64_t items,
                                  int64_t row_bytes, int fmt, int divide_first,
                                  int final_div, int vector, float offset,
-                                 float u8_scale, float rcp, void* stream) {
+                                 float u8_scale, float rcp, int acc, int64_t groups,
+                                 void* stream) {
   return step(frames, sum, banks * pairs, height, items, row_bytes, fmt,
-              divide_first, final_div, vector, offset, u8_scale, rcp, stream);
+              divide_first, final_div, vector, offset, u8_scale, rcp, acc, groups,
+              stream);
 }
 
 int alg3_subtract_average_launch(const void* frames, void* out, int64_t groups,
                                  int64_t pairs, int64_t height, int64_t items,
                                  int64_t row_bytes, int fmt, int divide_first,
-                                 float offset, float u8_scale, float rcp,
+                                 float offset, float u8_scale, float rcp, int acc,
                                  void* stream) {
   return oneshot(frames, out, 1, groups, pairs, height, items, row_bytes, fmt,
-                 divide_first, offset, u8_scale, rcp, stream);
+                 divide_first, offset, u8_scale, rcp, acc, stream);
 }
 
 int multibank_subtract_average_launch(const void* frames, void* out,
@@ -306,9 +422,9 @@ int multibank_subtract_average_launch(const void* frames, void* out,
                                       int64_t pairs, int64_t height,
                                       int64_t items, int64_t row_bytes,
                                       int fmt, int divide_first, float offset,
-                                      float u8_scale, float rcp, void* stream) {
+                                      float u8_scale, float rcp, int acc, void* stream) {
   return oneshot(frames, out, banks, groups, pairs, height, items, row_bytes,
-                 fmt, divide_first, offset, u8_scale, rcp, stream);
+                 fmt, divide_first, offset, u8_scale, rcp, acc, stream);
 }
 
 }  // extern "C"

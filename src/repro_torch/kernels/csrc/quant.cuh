@@ -104,6 +104,48 @@ __device__ __forceinline__ void pair_diff8(const Wire8<FMT>& ctl, const Wire8<FM
   }
 }
 
+// Integer sums (int32, or uint16 that wraps at 16 bits), u16 wire only: the
+// plain versions' integer arithmetic (repro_torch/kernels/ref.py), which
+// computes in int32 and wraps back. The pair difference exc - ctl + offset is
+// taken in int32 (offset = trunc(f32 offset), the plain version's int32 cast
+// of it for every |offset| < 2^24) and narrowed to the sum type; a sum wraps
+// at its width after every add; a division floors, as Python's // does (CUDA's
+// integer / truncates toward zero, which differs for a negative int32). Adds
+// run in uint32, so an int32 overflow wraps as PyTorch's does, without C++'s
+// undefined signed overflow.
+template <typename T>
+struct IntSum;
+template <>
+struct IntSum<int32_t> {
+  static __device__ __forceinline__ int32_t narrow(uint32_t x) { return static_cast<int32_t>(x); }
+  static __device__ __forceinline__ int32_t add(int32_t s, int32_t d) {
+    return static_cast<int32_t>(static_cast<uint32_t>(s) + static_cast<uint32_t>(d));
+  }
+  static __device__ __forceinline__ int32_t div(int32_t x, int32_t g) {  // g > 0
+    const int32_t q = x / g;
+    return x % g < 0 ? q - 1 : q;
+  }
+};
+template <>
+struct IntSum<uint16_t> {
+  static __device__ __forceinline__ uint16_t narrow(uint32_t x) { return static_cast<uint16_t>(x); }
+  static __device__ __forceinline__ uint16_t add(uint16_t s, uint16_t d) {
+    return static_cast<uint16_t>(s + d);
+  }
+  static __device__ __forceinline__ uint16_t div(uint16_t x, int32_t g) {  // x >= 0: trunc = floor
+    return static_cast<uint16_t>(x / g);
+  }
+};
+
+// exc - ctl + offset of one u16 pixel pair, narrowed to the sum type T.
+template <typename T>
+__device__ __forceinline__ T int_pair_diff(uint16_t ctl, uint16_t exc, int32_t offset) {
+  return IntSum<T>::narrow(uint32_t{exc} - uint32_t{ctl} + static_cast<uint32_t>(offset));
+}
+
+// Accumulator codes of the C entry points: float32, int32, uint16.
+enum AccumCode : int { kAccF32 = 0, kAccI32 = 1, kAccU16 = 2 };
+
 // Threads per block for a row of `items` thread items: whole warps, <= 256.
 inline int threads_for(int items) {
   const int t = ((items + 31) / 32) * 32;

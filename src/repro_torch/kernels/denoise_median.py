@@ -13,7 +13,10 @@
   with the reference's network or its ``jnp.sort``.
 
 Dispatch, checks and launch counters are as in
-:mod:`repro_torch.kernels.denoise_stream`. The CUDA combine takes K <= 64.
+:mod:`repro_torch.kernels.denoise_stream`. The CUDA combine runs the
+network for K <= :data:`NETWORK_WINDOW` and, above it, an exact selection
+of the middle ranks by counting, which gives the same values (its
+launches also count in ``median_combine.select_launches``).
 """
 
 from __future__ import annotations
@@ -29,15 +32,16 @@ from repro_torch.kernels.denoise_stream import (
 )
 
 __all__ = [
-    "MAX_WINDOW",
+    "NETWORK_WINDOW",
     "median_window_insert",
     "median_window_insert_plain",
     "median_combine",
     "median_combine_plain",
 ]
 
-#: the longest window the CUDA combine takes (``csrc/denoise_median.cu``)
-MAX_WINDOW = 64
+#: the longest window the CUDA combine sorts with its network; longer ones
+#: take the selection path (``kMaxWindow`` in ``csrc/denoise_median.cu``)
+NETWORK_WINDOW = 64
 
 
 def _check_insert(window, group_frames, slot, stream_dtype):
@@ -121,11 +125,6 @@ def median_combine(window: torch.Tensor) -> torch.Tensor:
     if not on_cuda(window):
         return median_combine_plain(window)
     k = window.shape[0]
-    if k > MAX_WINDOW:
-        raise NotImplementedError(
-            f"the CUDA median combine takes windows of up to {MAX_WINDOW} "
-            f"slots, got {k} (ROADMAP.md queue C)"
-        )
     if window.dtype != torch.float32:
         raise NotImplementedError(f"accumulator {window.dtype}: the CUDA kernels take float32 only")
     if not window.is_contiguous():
@@ -139,7 +138,9 @@ def median_combine(window: torch.Tensor) -> torch.Tensor:
         )
     check_launch(rc, "median_combine")
     median_combine.launches += 1
+    median_combine.select_launches += k > NETWORK_WINDOW
     return out
 
 
 median_combine.launches = 0
+median_combine.select_launches = 0

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import _build, quant, ref
 from repro_torch.kernels.denoise_stream import (
+    ACCUM_CODES,
     U8_SCALE_F32,
     check_step_shapes,
     alg3_stream_step_plain,
@@ -63,7 +64,8 @@ def multibank_stream_step(
             group_frames, sum_frames, num_groups=num_groups, offset=offset,
             divide_first=divide_first, final=final, stream_dtype=stream_dtype,
         ))
-    fmt, items, row_bytes = check_kernel_operands(group_frames, sum_frames, stream_dtype)
+    fmt, items, row_bytes = check_kernel_operands(group_frames, sum_frames, stream_dtype,
+                                                  integer_sums=True)
     b, n, h, _ = group_frames.shape
     launch_step(multibank_stream_step, "multibank_stream_step_launch", group_frames,
                 sum_frames, (b, n // 2, h, items, row_bytes), fmt=fmt,
@@ -100,13 +102,13 @@ def multibank_subtract_average(
         (b, n // 2, h, quant.logical_width(wp, stream_dtype)),
         dtype=ref.as_torch_dtype(accum_dtype), device=frames.device,
     )
-    fmt, items, row_bytes = check_kernel_operands(frames, out, stream_dtype)
+    fmt, items, row_bytes = check_kernel_operands(frames, out, stream_dtype, integer_sums=True)
     lib = _build.library()
     with torch.cuda.device(frames.device):
         rc = lib.multibank_subtract_average_launch(
             frames.data_ptr(), out.data_ptr(), b, g, n // 2, h, items,
             row_bytes, fmt, int(divide_first), float(offset), U8_SCALE_F32,
-            ref.reciprocal(g), torch.cuda.current_stream().cuda_stream,
+            ref.reciprocal(g), ACCUM_CODES[out.dtype], torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "multibank_subtract_average")
     multibank_subtract_average.launches += 1

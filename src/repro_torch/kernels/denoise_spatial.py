@@ -13,8 +13,12 @@
   so this mode is held to the reference and to the kernel within
   :data:`BILATERAL_RTOL`.
 
-Dispatch, checks and the launch counter are as in
-:mod:`repro_torch.kernels.denoise_stream`.
+The kernel stages tiles of 16 rows x 128 columns with their halo in
+shared memory. It takes one of two paths, chosen on the host by
+:func:`tile_path` and counted in ``spatial_filter_3x3.vector_launches``
+or ``.scalar_launches``: float4 loads and stores where W % 4 == 0 and
+both planes are 16-byte aligned, scalar ones otherwise. Dispatch, checks
+and the launch counter are as in :mod:`repro_torch.kernels.denoise_stream`.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.denoise_stream import check_launch, on_cuda
 
-__all__ = ["BILATERAL_RTOL", "spatial_filter_3x3", "spatial_filter_3x3_plain"]
+__all__ = ["BILATERAL_RTOL", "spatial_filter_3x3", "spatial_filter_3x3_plain", "tile_path"]
 
 #: declared tolerance of ``bilateral`` against the reference and between
 #: the kernel and its plain version. Each float32 evaluation rounds its
@@ -43,6 +47,13 @@ _MODES = {"box": 0, "bilateral": 1}
 def _inv2s2(range_sigma: float) -> float:
     """``f32(1 / (2 sigma^2))``, computed in float64 as the reference's host does."""
     return float(np.float32(1.0 / (2.0 * range_sigma * range_sigma)))
+
+
+def tile_path(width: int, in_ptr: int, out_ptr: int) -> str:
+    """The kernel's path for rows of ``width`` pixels: ``"vector"`` (float4
+    loads and stores) when W % 4 == 0 and both planes start 16-byte aligned
+    (every row then does), ``"scalar"`` otherwise."""
+    return "vector" if width % 4 == 0 and in_ptr % 16 == 0 and out_ptr % 16 == 0 else "scalar"
 
 
 def _neighbours(frames: torch.Tensor) -> list[torch.Tensor]:
@@ -96,15 +107,20 @@ def spatial_filter_3x3(
         raise ValueError("the CUDA kernels need contiguous frames")
     p, h, w = frames.shape
     out = torch.empty_like(frames)
+    path = tile_path(w, frames.data_ptr(), out.data_ptr())
     lib = _build.library()
     with torch.cuda.device(frames.device):
         rc = lib.spatial_filter_3x3_launch(
-            frames.data_ptr(), out.data_ptr(), p, h, w, _MODES[mode],
+            frames.data_ptr(), out.data_ptr(), p, h, w, _MODES[mode], int(path == "vector"),
             _inv2s2(range_sigma), torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "spatial_filter_3x3")
     spatial_filter_3x3.launches += 1
+    setattr(spatial_filter_3x3, f"{path}_launches",
+            getattr(spatial_filter_3x3, f"{path}_launches") + 1)
     return out
 
 
 spatial_filter_3x3.launches = 0
+spatial_filter_3x3.vector_launches = 0
+spatial_filter_3x3.scalar_launches = 0

@@ -15,7 +15,7 @@ The step kernel has two paths, chosen on the host by :func:`step_path`
 and passed to the kernel as a flag: a vector path (eight pixels a thread,
 16-byte loads for u16, 8-byte for u8) wherever every plane allows it, and
 the scalar path (one pixel a thread, one block per row) on every other
-shape and for p12. Each launch
+shape, for p12 and for integer sums. Each launch
 is counted in ``<wrapper>.vector_launches`` or ``<wrapper>.scalar_launches``
 as well as in ``<wrapper>.launches``.
 
@@ -24,7 +24,10 @@ device, dtype, shape and contiguity, launches its kernel on the current
 stream and counts the launch in ``<wrapper>.launches``; on a CPU tensor it
 runs the plain PyTorch version beside it (``*_plain``), the counterpart
 of the reference's interpret mode. It never falls back from one to the
-other. The wrappers take no tile arguments: the CUDA kernels choose their
+other. Sums are float32, or, from u16 wire, int32 or uint16 (the paper's
+u16 container, which wraps at 16 bits): the integer kernels do the plain
+versions' integer arithmetic (``ref.fold``), floor divisions included.
+The wrappers take no tile arguments: the CUDA kernels choose their
 own launch geometry, and the numerics of this family do not depend on
 tiles (only :mod:`repro_torch.kernels.ops` keeps the reference's
 ``row_tile`` / ``pair_tile`` / ``placement``, and ignores them).
@@ -50,9 +53,12 @@ _FORMATS = {"u16": 0, "u8": 1, "p12": 2}
 U8_SCALE_F32 = float(np.float32(quant.U8_SCALE))
 #: ROADMAP.md item an unported request names
 NOT_PORTED_ACCUM = (
-    "the CUDA kernels accumulate in float32 only; other accumulators run "
-    "on the CPU (ROADMAP.md queue C, 'non-float32 accumulators on CUDA')"
+    "the CUDA kernels accumulate in float32, and the Alg 1-3 kernels also in "
+    "int32 and uint16 from u16 wire; other accumulators run on the CPU "
+    "(ROADMAP.md queue C, 'other accumulators on CUDA')"
 )
+#: the C entry points' accumulator codes (``AccumCode``, ``csrc/quant.cuh``)
+ACCUM_CODES = {torch.float32: 0, torch.int32: 1, torch.uint16: 2}
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -70,16 +76,21 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def check_kernel_operands(
-    frames: torch.Tensor, out: torch.Tensor, stream_dtype: str
+    frames: torch.Tensor, out: torch.Tensor, stream_dtype: str, *,
+    integer_sums: bool = False,
 ) -> tuple[int, int, int]:
     """Validate a CUDA launch; returns ``(format code, items, row_bytes)``.
 
     ``items`` is the per-row thread count (W, or W/2 for p12, whose 3 wire
     bytes hold two pixels); ``row_bytes`` the wire row length in bytes.
+    ``out`` is float32, or with ``integer_sums`` also an int32 or uint16
+    sum of u16 wire.
     """
     quant.validate_stream_dtype(stream_dtype)
-    if out.dtype != torch.float32:
-        raise NotImplementedError(f"accumulator {out.dtype}: {NOT_PORTED_ACCUM}")
+    integer = integer_sums and stream_dtype == "u16" and out.dtype in (torch.int32, torch.uint16)
+    if out.dtype != torch.float32 and not integer:
+        raise NotImplementedError(
+            f"accumulator {out.dtype} ({stream_dtype} wire): {NOT_PORTED_ACCUM}")
     want = quant.container_torch_dtype(stream_dtype)
     if frames.dtype != want:
         raise TypeError(
@@ -115,17 +126,20 @@ def launch_step(fn, entry: str, group_frames, sum_frame, dims, *, fmt: int,
                 divide_first: bool, final: bool, offset: float, num_groups: int,
                 stream_dtype: str) -> None:
     """Launch the step kernel through the C entry point ``entry`` on the path
-    :func:`step_path` picks, and count the launch on the wrapper ``fn``.
-    ``dims`` are the launcher's sizes, from the bank or pair count to
-    ``row_bytes``."""
+    :func:`step_path` picks (the scalar one for an integer sum), and count
+    the launch on the wrapper ``fn``. ``dims`` are the launcher's sizes,
+    from the bank or pair count to ``row_bytes``."""
     *_, h, w = sum_frame.shape
-    path = step_path(h * w, stream_dtype, group_frames.data_ptr(), sum_frame.data_ptr())
+    acc = ACCUM_CODES[sum_frame.dtype]
+    path = "scalar" if acc else step_path(
+        h * w, stream_dtype, group_frames.data_ptr(), sum_frame.data_ptr())
     lib = _build.library()
     with torch.cuda.device(sum_frame.device):
         rc = getattr(lib, entry)(
             group_frames.data_ptr(), sum_frame.data_ptr(), *dims, fmt, int(divide_first),
             int(final and not divide_first), int(path == "vector"), float(offset),
-            U8_SCALE_F32, ref.reciprocal(num_groups), torch.cuda.current_stream().cuda_stream,
+            U8_SCALE_F32, ref.reciprocal(num_groups), acc, num_groups,
+            torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, fn.__name__)
     fn.launches += 1
@@ -193,7 +207,8 @@ def alg3_stream_step(
             group_frames, sum_frame, num_groups=num_groups, offset=offset,
             divide_first=divide_first, final=final, stream_dtype=stream_dtype,
         ))
-    fmt, items, row_bytes = check_kernel_operands(group_frames, sum_frame, stream_dtype)
+    fmt, items, row_bytes = check_kernel_operands(group_frames, sum_frame, stream_dtype,
+                                                  integer_sums=True)
     n, h, _ = group_frames.shape
     launch_step(alg3_stream_step, "alg3_stream_step_launch", group_frames, sum_frame,
                 (n // 2, h, items, row_bytes), fmt=fmt, divide_first=divide_first,
@@ -252,13 +267,13 @@ def alg3_subtract_average(
         (n // 2, h, quant.logical_width(wp, stream_dtype)),
         dtype=ref.as_torch_dtype(accum_dtype), device=frames.device,
     )
-    fmt, items, row_bytes = check_kernel_operands(frames, out, stream_dtype)
+    fmt, items, row_bytes = check_kernel_operands(frames, out, stream_dtype, integer_sums=True)
     lib = _build.library()
     with torch.cuda.device(frames.device):
         rc = lib.alg3_subtract_average_launch(
             frames.data_ptr(), out.data_ptr(), g, n // 2, h, items, row_bytes,
             fmt, int(divide_first), float(offset), U8_SCALE_F32,
-            ref.reciprocal(g), torch.cuda.current_stream().cuda_stream,
+            ref.reciprocal(g), ACCUM_CODES[out.dtype], torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "alg3_subtract_average")
     alg3_subtract_average.launches += 1

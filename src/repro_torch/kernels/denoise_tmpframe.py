@@ -22,8 +22,10 @@ Dispatch is as in :mod:`repro_torch.kernels.denoise_stream`: on a CUDA
 tensor the wrapper checks its operands, launches both kernels on the
 current stream and adds one to ``<wrapper>.launches`` at each launch (two
 per call); on a CPU tensor it runs the plain version (``*_plain``). The
-kernels ingest u16 frames into a float32 accumulator only, as the
-reference's Pallas baselines have no dequant path.
+kernels ingest u16 frames only, as the reference's Pallas baselines have
+no dequant path, into a float32 accumulator or an int32 or uint16 one
+(the tmpFrame then has that type; pass B floors its division by G, as
+the plain version does).
 """
 
 from __future__ import annotations
@@ -31,7 +33,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.denoise_stream import NOT_PORTED_ACCUM, check_launch, on_cuda
+from repro_torch.kernels.denoise_stream import (
+    ACCUM_CODES,
+    NOT_PORTED_ACCUM,
+    check_launch,
+    on_cuda,
+)
 
 __all__ = [
     "alg1_subtract_average",
@@ -54,7 +61,7 @@ def _check_frames(frames: torch.Tensor) -> None:
 
 
 def _check_cuda_frames(frames: torch.Tensor, accum_dtype) -> None:
-    if ref.as_torch_dtype(accum_dtype) != torch.float32:
+    if ref.as_torch_dtype(accum_dtype) not in ACCUM_CODES:
         raise NotImplementedError(f"accumulator {accum_dtype}: {NOT_PORTED_ACCUM}")
     if frames.dtype != torch.uint16:
         raise TypeError(
@@ -81,17 +88,20 @@ def reduce_pass_plain(tmp: torch.Tensor) -> torch.Tensor:
     return ref.scale_reciprocal(total, g)
 
 
-def subtract_pass(frames: torch.Tensor, *, offset: float = 0.0, burst: bool) -> torch.Tensor:
-    """Pass A on the card: a new (G, N/2, H, W) float32 tmpFrame in HBM.
-    ``burst`` picks Alg 2's wide tiles over Alg 1's single rows."""
+def subtract_pass(frames: torch.Tensor, *, offset: float = 0.0, burst: bool,
+                  accum_dtype=torch.float32) -> torch.Tensor:
+    """Pass A on the card: a new (G, N/2, H, W) tmpFrame in HBM, of the
+    accumulator's type. ``burst`` picks Alg 2's wide tiles over Alg 1's
+    single rows."""
     _check_frames(frames)
-    _check_cuda_frames(frames, torch.float32)
+    _check_cuda_frames(frames, accum_dtype)
     g, n, h, w = frames.shape
-    tmp = torch.empty((g, n // 2, h, w), dtype=torch.float32, device=frames.device)
+    acc = ref.as_torch_dtype(accum_dtype)
+    tmp = torch.empty((g, n // 2, h, w), dtype=acc, device=frames.device)
     with torch.cuda.device(frames.device):
         rc = _build.library().tmpframe_subtract_launch(
             frames.data_ptr(), tmp.data_ptr(), g * (n // 2), h, w, int(burst),
-            float(offset), torch.cuda.current_stream().cuda_stream,
+            float(offset), ACCUM_CODES[acc], torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "tmpframe_subtract")
     return tmp
@@ -99,17 +109,17 @@ def subtract_pass(frames: torch.Tensor, *, offset: float = 0.0, burst: bool) -> 
 
 def reduce_pass(tmp: torch.Tensor) -> torch.Tensor:
     """Pass B on the card: tmpFrame (G, P, H, W) -> (P, H, W) averaged."""
-    if tmp.ndim != 4 or tmp.dtype != torch.float32 or not tmp.is_contiguous():
+    if tmp.ndim != 4 or tmp.dtype not in ACCUM_CODES or not tmp.is_contiguous():
         raise ValueError(
-            f"expected a contiguous (G, P, H, W) float32 tmpFrame, got "
-            f"{tuple(tmp.shape)} {tmp.dtype}"
+            f"expected a contiguous (G, P, H, W) float32, int32 or uint16 "
+            f"tmpFrame, got {tuple(tmp.shape)} {tmp.dtype}"
         )
     g, p, h, w = tmp.shape
-    out = torch.empty((p, h, w), dtype=torch.float32, device=tmp.device)
+    out = torch.empty((p, h, w), dtype=tmp.dtype, device=tmp.device)
     with torch.cuda.device(tmp.device):
         rc = _build.library().tmpframe_reduce_launch(
             tmp.data_ptr(), out.data_ptr(), g, p * h, w, ref.reciprocal(g),
-            torch.cuda.current_stream().cuda_stream,
+            ACCUM_CODES[tmp.dtype], torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "tmpframe_reduce")
     return out
@@ -119,8 +129,7 @@ def _two_pass(fn, frames, *, offset, accum_dtype, burst):
     _check_frames(frames)
     if not on_cuda(frames):
         return alg1_subtract_average_plain(frames, offset=offset, accum_dtype=accum_dtype)
-    _check_cuda_frames(frames, accum_dtype)
-    tmp = subtract_pass(frames, offset=offset, burst=burst)
+    tmp = subtract_pass(frames, offset=offset, burst=burst, accum_dtype=accum_dtype)
     fn.launches += 1
     out = reduce_pass(tmp)
     fn.launches += 1

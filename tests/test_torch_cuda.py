@@ -150,9 +150,112 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(NotImplementedError, match="float32"):
         denoise_stream.alg3_stream_step(
             torch.zeros(8, 8, 256, dtype=torch.uint16, device=cuda),
-            s.to(torch.int32), num_groups=2)
+            s.to(torch.float64), num_groups=2)
+    with pytest.raises(NotImplementedError, match="u8 wire"):  # integer sums take u16 wire
+        denoise_stream.alg3_stream_step(
+            torch.zeros(8, 8, 256, dtype=torch.uint8, device=cuda),
+            s.to(torch.int32), num_groups=2, stream_dtype="u8")
+    with pytest.raises(NotImplementedError, match="float32"):  # the median window is float32
+        denoise_median.median_window_insert(
+            torch.zeros(2, 4, 8, 256, dtype=torch.int32, device=cuda),
+            torch.zeros(8, 8, 256, dtype=torch.uint16, device=cuda), slot=0)
     with pytest.raises(TypeError):
         denoise_stream.alg3_stream_step(torch.zeros(8, 8, 256, device=cuda), s, num_groups=2)
+
+
+@pytest.mark.parametrize("offset", [0.0, 4096.0], ids=["offset0", "offset4096"])
+@pytest.mark.parametrize("divide_first", [False, True])
+@pytest.mark.parametrize("accum", [torch.int32, torch.uint16], ids=["int32", "uint16"])
+def test_integer_sums_bitwise_equal_plain(cuda, accum, divide_first, offset):
+    # G = 10: a uint16 divide-last sum wraps past G = 8; offset 0 makes half the
+    # differences negative, where a truncating division would differ from //
+    g, n, h, w = 10, 12, 9, 132
+    frames = _wire((2, g, n, h), "u16", seed=21, width=w)
+    kw = dict(offset=offset, divide_first=divide_first, accum_dtype=accum)
+    assert torch.equal(
+        denoise_multibank.multibank_subtract_average(frames.to(cuda), **kw).cpu(),
+        denoise_multibank.multibank_subtract_average_plain(frames, **kw))
+    assert torch.equal(denoise_stream.alg3_subtract_average(frames[0].to(cuda), **kw).cpu(),
+                       denoise_stream.alg3_subtract_average_plain(frames[0], **kw))
+    kw = dict(offset=offset, divide_first=divide_first, num_groups=g)
+    s = torch.zeros(2, n // 2, h, w, dtype=accum, device=cuda)
+    sc = torch.zeros(2, n // 2, h, w, dtype=accum)
+    before = denoise_stream.alg3_stream_step.scalar_launches
+    for k in range(g):
+        fin = k == g - 1  # the in-kernel final division on the last group
+        chunk = frames[:, k].contiguous()
+        denoise_multibank.multibank_stream_step(chunk.to(cuda), s, final=fin, **kw)
+        sc = denoise_multibank.multibank_stream_step_plain(chunk, sc, final=fin, **kw)
+        denoise_stream.alg3_stream_step(chunk[0].to(cuda), s[0], final=fin, **kw)
+        sc[0] = denoise_stream.alg3_stream_step_plain(chunk[0], sc[0], final=fin, **kw)
+    assert torch.equal(s.cpu(), sc)
+    assert denoise_stream.alg3_stream_step.scalar_launches - before == g
+    if not divide_first:  # B10: Alg 1 and Alg 2 with the same sums
+        want = denoise_tmpframe.alg1_subtract_average_plain(frames[0], offset=offset,
+                                                            accum_dtype=accum)
+        for fn in (denoise_tmpframe.alg1_subtract_average,
+                   denoise_tmpframe.alg2_subtract_average):
+            got = fn(frames[0].to(cuda), offset=offset, accum_dtype=accum)
+            assert got.dtype == accum and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("algorithm", ["alg3", "alg3_v2", "alg1"])
+def test_uint16_pair_average_executors_match_cpu(cuda, algorithm):
+    # the paper's u16-container stream on the card: every plain step left on
+    # the executors' path (init, finalize's floor division) runs on uint16
+    cfg = DenoiseConfig(num_groups=10, frames_per_group=16, height=80, width=256,
+                        accum_dtype="uint16", algorithm=algorithm)
+    groups = list(PrismSource(cfg, seed=2).groups())
+    want = StreamingDenoiser(cfg, device="cpu").run(groups)
+    assert want.dtype == torch.uint16
+    for depth in (1, 2):
+        out, _ = streaming.run_pipelined(cfg, iter(groups), num_slots=depth)
+        assert out.dtype == torch.uint16 and torch.equal(out.cpu(), want)
+    oneshot = StreamingDenoiser(cfg)(np.stack(groups)).cpu()
+    assert torch.equal(oneshot, StreamingDenoiser(cfg, device="cpu")(np.stack(groups)))
+
+
+@pytest.mark.parametrize("k", [65, 66, 100])
+def test_median_combine_above_the_network_window(cuda, k):
+    # integer-valued slots give ties; a fractional part makes (lo + hi) / 2 round
+    rng = np.random.default_rng(k)
+    window = rng.integers(4000, 4040, (k, 3, 7, 130)) + (rng.random((k, 3, 7, 130)) < 0.5) * 0.75
+    window = torch.from_numpy(window.astype(np.float32))
+    before = denoise_median.median_combine.select_launches
+    got = denoise_median.median_combine(window.to(cuda))
+    assert torch.equal(got.cpu(), denoise_median.median_combine_plain(window))
+    assert denoise_median.median_combine.select_launches - before == 1
+
+
+def test_spatial_kernel_refuses_a_float4_launch_its_rows_do_not_allow(cuda, monkeypatch):
+    # the path is the host's choice; the kernel raises on a wrong one, never reroutes
+    monkeypatch.setattr(denoise_spatial, "tile_path", lambda *a: "vector")
+    with pytest.raises(RuntimeError, match="spatial_filter_3x3: CUDA launch failed"):
+        denoise_spatial.spatial_filter_3x3(torch.zeros(2, 7, 130, device=cuda))
+
+
+@pytest.mark.parametrize(
+    "shape, shift, path",
+    [((3, 80, 256), False, "vector"), ((2, 20, 132), False, "vector"),
+     ((2, 1, 256), False, "vector"), ((2, 2, 8), False, "vector"),
+     ((2, 7, 130), False, "scalar"), ((2, 80, 256), True, "scalar"),
+     ((2, 5, 1), False, "scalar"), ((1, 17, 3), False, "scalar")],
+    ids=["80x256", "partial-tiles-20x132", "H1", "H2-W8", "ragged-7x130",
+         "80x256-unaligned-view", "W1", "17x3"],
+)
+def test_spatial_tiles_edges_and_paths(cuda, shape, shift, path):
+    x = torch.from_numpy(
+        (4096 + 40 * np.random.default_rng(sum(shape)).standard_normal(shape)).astype(np.float32))
+    x[:, 0, -1] += 900.0  # a hot pixel on the tile edge
+    fn = denoise_spatial.spatial_filter_3x3
+    before = (fn.vector_launches, fn.scalar_launches)
+    xd = _shifted(x, cuda) if shift else x.to(cuda)
+    assert torch.equal(fn(xd, mode="box").cpu(), denoise_spatial.spatial_filter_3x3_plain(x))
+    kw = dict(mode="bilateral", range_sigma=60.0)
+    torch.testing.assert_close(fn(xd, **kw).cpu(), denoise_spatial.spatial_filter_3x3_plain(x, **kw),
+                               rtol=denoise_spatial.BILATERAL_RTOL, atol=0)
+    assert (fn.vector_launches - before[0], fn.scalar_launches - before[1]) == (
+        (2, 0) if path == "vector" else (0, 2))
 
 
 def test_executors_on_the_card_match_cpu(cuda):

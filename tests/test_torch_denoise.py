@@ -228,3 +228,37 @@ def test_remove_offset_and_run_match():
     assert DEFAULT_OFFSET == 4096
     with pytest.raises(ValueError, match="expected 3 groups"):
         den.run(iter(frames[:2]))
+
+
+def _bright_over_dark(kw, seed):
+    """u16 groups whose first half of pairs has exc - ctl near 4095, so that
+    a uint16 divide-last sum wraps past G = 8 (the paper's u16 container)."""
+    frames = _groups(kw, seed=seed)
+    half = kw["frames_per_group"] // 2
+    frames[:, 0:half:2] //= 4
+    frames[:, 1:half:2] = 4095 - frames[:, 1:half:2] // 4
+    return frames
+
+
+@pytest.mark.parametrize("algorithm", ["alg3", "alg3_v2"])
+def test_uint16_stream_at_g10_matches_reference(algorithm):
+    # backend="auto" in both: the port's kernel plain versions (what its
+    # kernels compute on the card) against the reference's own CPU path.
+    # (Alg 1/2 have no counterpart here: the reference's XLA composite
+    # returns a float32 mean for an integer container, and its Pallas
+    # kernels refuse to store that float into one.)
+    kw = {**BASE, "num_groups": 10, "accum_dtype": "uint16", "algorithm": algorithm}
+    frames = _bright_over_dark(kw, seed=8)
+    den, jden = StreamingDenoiser(DenoiseConfig(**kw), device="cpu"), JDenoiser(JConfig(**kw))
+    st, jst = den.init(), jden.init()
+    for g in range(10):
+        st = den.ingest(st, frames[g])
+        jst = jden.ingest(jst, jnp.asarray(frames[g]))
+        _same(den.partial(st, g), jden.partial(jst, g))
+    out = den.finalize(st)
+    assert out.dtype == torch.uint16
+    _same(out, jden.finalize(jst))
+    _same(den(torch.from_numpy(frames)), jden(jnp.asarray(frames)))
+    if algorithm == "alg3":  # the sums wrapped: the int32 container reads otherwise
+        wide = StreamingDenoiser(DenoiseConfig(**{**kw, "accum_dtype": "int32"}), device="cpu")
+        assert not torch.equal(out.to(torch.int32), wide.run(iter(frames)))

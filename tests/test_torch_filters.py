@@ -87,7 +87,7 @@ def test_median_window_insert_b6_bitwise(fmt):
             _same(tw, jw)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 65])  # 65: above the CUDA network's 64 slots
 def test_median_combine_b7_bitwise(k):
     rng = np.random.default_rng(k)
     # integer-valued slots give ties; a fractional part makes (lo + hi) / 2 round
@@ -185,6 +185,22 @@ def test_spatial_filter_b9(mode):
             _same(got, want)
         else:
             np.testing.assert_allclose(got.numpy(), want, rtol=denoise_spatial.BILATERAL_RTOL, atol=0)
+
+
+@pytest.mark.parametrize(
+    "width, in_ptr, out_ptr, want",
+    [
+        (256, 0x1000, 0x2000, "vector"),   # the paper's rows, allocator-aligned
+        (132, 0x1000, 0x2000, "vector"),   # a partial last column tile
+        (4, 0x1010, 0x2030, "vector"),
+        (130, 0x1000, 0x2000, "scalar"),   # W % 4 != 0: rows start unaligned
+        (1, 0x1000, 0x2000, "scalar"),
+        (256, 0x1004, 0x2000, "scalar"),   # a view one float in
+        (256, 0x1000, 0x2008, "scalar"),
+    ],
+)
+def test_spatial_tile_path_takes_float4_only_where_every_row_allows(width, in_ptr, out_ptr, want):
+    assert denoise_spatial.tile_path(width, in_ptr, out_ptr) == want
 
 
 ERROR_CALLS = {

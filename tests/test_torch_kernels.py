@@ -18,7 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import quant as jquant
-from repro_torch.kernels import denoise_multibank, denoise_stream, ops
+from repro_torch.kernels import denoise_multibank, denoise_stream, ops, quant
 
 FORMATS = ("u16", "u8", "p12")
 VARIANTS = ("divide_last", "divide_first")
@@ -264,6 +264,30 @@ def test_ignored_tile_arguments_do_not_change_results():
 def test_step_path_takes_vectors_only_where_every_plane_allows(
         plane_px, fmt, frames_ptr, sum_ptr, want):
     assert denoise_stream.step_path(plane_px, fmt, frames_ptr, sum_ptr) == want
+
+
+@pytest.mark.parametrize(
+    "acc, fmt, integer_sums, ok",
+    [
+        (torch.float32, "u16", False, True),
+        (torch.float32, "p12", True, True),
+        (torch.int32, "u16", True, True),     # the Alg 1-3 kernels' integer sums
+        (torch.uint16, "u16", True, True),
+        (torch.int32, "u16", False, False),   # a kernel without them (B6, B8)
+        (torch.int32, "u8", True, False),     # integer sums take u16 wire only
+        (torch.uint16, "p12", True, False),
+        (torch.float64, "u16", True, False),
+    ],
+)
+def test_kernel_operands_take_integer_sums_only_from_u16_wire(acc, fmt, integer_sums, ok):
+    w = 8
+    frames = torch.zeros(4, 2, quant.wire_width(w, fmt), dtype=quant.container_torch_dtype(fmt))
+    out = torch.zeros(2, 2, w, dtype=acc)
+    if ok:
+        assert denoise_stream.check_kernel_operands(frames, out, fmt, integer_sums=integer_sums)
+    else:
+        with pytest.raises(NotImplementedError, match="queue C"):
+            denoise_stream.check_kernel_operands(frames, out, fmt, integer_sums=integer_sums)
 
 
 def test_step_path_rejects_unknown_wire_format():
