@@ -70,13 +70,26 @@ then:
    ``banked_subtract_average``, from two pre-generated bank sources at
    the paper's size, each equal to the same run on the CPU (on a machine
    with two cards, again over ``make_bank_mesh(2)``), and times the
-   executor per group at 1 and at 2 banks.
+   executor per group at 1 and at 2 banks;
+8. drives the session service (``repro_torch.serve.SessionScheduler``) at
+   the paper's size, each tenant folding phase 2's groups plus 16 times
+   its index: (8a) 4 ``pair_average`` sessions on one 4-slot executor,
+   every group one full cohort (B4 at B = 4), then 1 session alone (B2
+   only); (8b) 2 ``pair_average`` and 2 ``temporal_median`` sessions on
+   two executors at once; (8c) 2 sessions over ``BankMesh(("cuda:0",
+   "cuda:0"))``, the gang path; (8d) a ``CompressedEgress`` int8 and a
+   top-k consumer. Every output is bitwise equal to the session's own
+   ``run_pipelined`` (or ``run_pipelined_banked``) on the card, and every
+   packet to the CPU compressor run on a host copy of the same partial.
+   (8e) times the 4 sessions co-scheduled against 4 sequential
+   ``run_pipelined`` runs, reports each session's transfer and compute
+   share and latency, and times B4 at B = 4 against its bound.
 
 Phases 2-3 are the ``pair_average`` path (B2-B5), phase 5 the other
-filters' path (B6-B9), phase 6 the baselines' path (B10) and phase 7 the
-banked path (B4-B9): every launch counter is set to 0 just before each
-and read just after; a kernel of the path launched no time there fails
-the run. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
+filters' path (B6-B9), phase 6 the baselines' path (B10), phase 7 the
+banked path (B4-B9) and phase 8 (8a-8d) the service's path (B2, B4, B6,
+B7): every launch counter is set to 0 just before each and read just
+after; a kernel of the path launched no time there fails the run. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
 its sum over those phases. The script prints the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -132,6 +145,14 @@ PAIR_AVERAGE_PATH = ("alg3_stream_step", "alg3_subtract_average", "multibank_str
 FILTER_PATH = ("median_window_insert", "median_combine", "ema_welford_step", "spatial_filter_3x3")
 BASELINE_PATH = ("alg1_subtract_average", "alg2_subtract_average")
 BANKED_PATH = ("multibank_stream_step", "multibank_subtract_average") + FILTER_PATH
+#: the session service's path (phase 8): the lone-slot step (B2), the cohort
+#: and gang steps (B4) and ``temporal_median``'s window (B6, B7)
+SERVE_PATH = ("alg3_stream_step", "multibank_stream_step", "median_window_insert",
+              "median_combine")
+#: a coalescing window long enough that co-paced sessions always form full
+#: cohorts (8a); the service's default is 5 ms
+FULL_COHORT_MS = 60_000.0
+SESSION_TIMEOUT_S = 120  # every session's result() is bounded
 
 
 def card_peaks(name: str) -> tuple[float, float]:
@@ -203,6 +224,231 @@ def host_us(fn, *, calls: int = 200) -> float:
         samples.append((time.perf_counter() - t) / calls * 1e6)
     torch.cuda.synchronize()
     return statistics.median(samples)
+
+
+def serve_phase(cfg, groups, wrappers, reset_counters, read_counters, one_card, bound, time_ms):
+    """Phase 8: the session service at the paper's size. Returns the
+    launches of 8a-8d (counters zeroed just before 8a, read just after 8d)
+    and a record of what was held and timed."""
+    from repro_torch.core import streaming
+    from repro_torch.core.banks import run_pipelined_banked
+    from repro_torch.core.denoise import DenoiseConfig
+    from repro_torch.core.egress import CompressedEgress
+    from repro_torch.optim.compress import int8_compress, topk_compress
+    from repro_torch.serve import Session, SessionScheduler
+
+    t8 = time.perf_counter()
+    G, N, H, W, P = cfg.num_groups, cfg.frames_per_group, cfg.height, cfg.width, cfg.pairs_per_group
+    # session s folds phase 2's groups plus 16 s (u16): no two slots hold the same data
+    tenants = [[g + np.uint16(16 * s) for g in groups] for s in range(4)]
+    cfg_tm = DenoiseConfig(filter_name="temporal_median")  # K = 5
+    b2, b4 = wrappers["alg3_stream_step"], wrappers["multibank_stream_step"]
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: wrappers[k].launches for k in SERVE_PATH}
+
+    def gated(chunks, gate):
+        if not gate.wait(60):
+            raise TimeoutError("the sessions never all joined")
+        yield from chunks
+
+    def serve(sched_kw, sessions):
+        """Submit every (config, groups, consumer) session, open their
+        sources once all of them hold a slot (so the first chunk of one is
+        never stepped before the others have joined), and return each
+        ``(output, SessionReport)``, the seconds from the gate to the last
+        result, and the scheduler's stats."""
+        gate = threading.Event()
+        with SessionScheduler(**sched_kw) as sched:
+            hs = [sched.submit(Session(config=c, source=gated(g, gate), name=f"tenant{i}",
+                                       consumer=consumer))
+                  for i, (c, g, consumer) in enumerate(sessions)]
+            deadline = time.monotonic() + 60
+            while not all(h.status == "active" for h in hs):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"sessions never joined: {[h.status for h in hs]}")
+                time.sleep(1e-3)
+            t = time.perf_counter()
+            gate.set()
+            res = [h.result(timeout=SESSION_TIMEOUT_S) for h in hs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            stats = sched.stats()
+        return res, wall, stats
+
+    def held(what, got: torch.Tensor, want: torch.Tensor) -> None:
+        if got.shape != (P, H, W) or not torch.equal(got.to(want.device), want):
+            raise AssertionError(f"{what}: not bitwise equal to its reference run on the card")
+
+    def pair(s, consumer=None):
+        return (cfg, tenants[s], consumer)
+
+    # each session's reference run on the card, before the counters are zeroed
+    refs = [streaming.run_pipelined(cfg, iter(t))[0] for t in tenants]
+    tm_refs = {s: streaming.run_pipelined(cfg_tm, iter(tenants[s]))[0] for s in (2, 3)}
+    gang = {"pair_average": cfg, "temporal_median": cfg_tm}
+    gang_refs = {label: run_pipelined_banked(dataclasses.replace(c, num_banks=2),
+                                             [iter(tenants[0]), iter(tenants[1])], one_card)[0].cpu()
+                 for label, c in gang.items()}
+    record: dict = {}
+
+    # 8a: four co-paced pair_average tenants on one 4-slot executor, every
+    # group one full cohort (B4 at B = 4); then one tenant alone (B2 only)
+    reset_counters()
+    c0 = counts()
+    full = dict(slots_per_executor=4, max_executors=2, coalesce_ms=FULL_COHORT_MS)
+    res, _, _ = serve(full, [pair(s) for s in range(4)])
+    for s, (out, rep) in enumerate(res):
+        held(f"8a tenant{s}", out, refs[s])
+        if rep.groups != G:
+            raise AssertionError(f"8a tenant{s}: {rep.groups} groups folded, want {G}")
+    c1 = counts()
+    steps_8a = (c1["multibank_stream_step"] - c0["multibank_stream_step"],
+                c1["alg3_stream_step"] - c0["alg3_stream_step"])
+    if steps_8a != (G, 0):
+        raise AssertionError(f"8a: (B4, B2) launches {steps_8a}, want ({G}, 0): every group "
+                             "one full cohort at B = 4")
+    res, _, _ = serve(dict(slots_per_executor=1, max_executors=1), [pair(0)])
+    held("8a one session", res[0][0], refs[0])
+    c2 = counts()
+    steps_1 = (c2["multibank_stream_step"] - c1["multibank_stream_step"],
+               c2["alg3_stream_step"] - c1["alg3_stream_step"])
+    if steps_1 != (0, G):
+        raise AssertionError(f"8a one session: (B4, B2) launches {steps_1}, want (0, {G})")
+    print(f"phase 8a: 4 pair_average sessions on SessionScheduler(slots_per_executor=4) at "
+          f"G=8 N=1000 80x256 u16 bitwise equal to their run_pipelined on the card, {G} B4 "
+          f"launches at B=4 and no B2; 1 session (slots_per_executor=1) bitwise equal, {G} B2 "
+          f"launches and no B4")
+
+    # 8b: two executors' threads on one card at once
+    res, _, stats = serve(dict(slots_per_executor=4, max_executors=2),
+                          [pair(0), pair(1), (cfg_tm, tenants[2], None), (cfg_tm, tenants[3], None)])
+    for s in (0, 1):
+        held(f"8b pair_average tenant{s}", res[s][0], refs[s])
+    for s in (2, 3):
+        held(f"8b temporal_median tenant{s}", res[s][0], tm_refs[s])
+    if sorted(e["filter"] for e in stats["executors"]) != ["pair_average", "temporal_median"]:
+        raise AssertionError(f"8b: executors {stats['executors']}")
+    c3 = counts()
+    tm_launches = {k: c3[k] - c2[k] for k in ("median_window_insert", "median_combine")}
+    if not all(tm_launches.values()):
+        raise AssertionError(f"8b: temporal_median kernels not launched: {tm_launches}")
+    print(f"phase 8b: 2 pair_average + 2 temporal_median (K=5) sessions on two executors at once, "
+          f"each bitwise equal to its own run on the card; launches {json.dumps(tm_launches)}")
+
+    # 8c: the gang path, one session per bank shard of a two-shard mesh on one card
+    for label, c in gang.items():
+        res, _, _ = serve(dict(mesh=one_card, max_executors=1),
+                          [(c, tenants[0], None), (c, tenants[1], None)])
+        for b, (out, _) in enumerate(res):
+            held(f"8c gang {label} shard {b}", out.cpu(), gang_refs[label][b])
+    print("phase 8c: 2 sessions over BankMesh(cuda:0, cuda:0) (gang path), pair_average and "
+          "temporal_median, bitwise equal to run_pipelined_banked over the same mesh (host copies)")
+
+    # 8d: compressed egress as a session consumer
+    class Tapped:
+        """Keeps a host copy of each partial, then egresses it."""
+
+        def __init__(self, egress):
+            self.egress, self.partials = egress, []
+
+        def __call__(self, step, partial):
+            self.partials.append(partial.cpu())
+            self.egress(step, partial)
+
+    taps = {kind: Tapped(CompressedEgress(kind, center=cfg.offset)) for kind in ("int8", "topk")}
+    res, _, _ = serve(dict(slots_per_executor=2, max_executors=1),
+                      [pair(0, taps["int8"]), pair(1, taps["topk"])])
+    held("8d int8 egress session", res[0][0], refs[0])
+    held("8d topk egress session", res[1][0], refs[1])
+    center = torch.tensor(cfg.offset, dtype=torch.float32)
+    for i, (kind, tap) in enumerate(taps.items()):
+        packets = tap.egress.packets
+        if len(packets) != G or not torch.equal(tap.partials[-1], res[i][0].cpu()):
+            raise AssertionError(f"8d {kind}: {len(packets)} packets, or the last partial is "
+                                 "not the output")
+        for step, (pkt, host) in enumerate(zip(packets, tap.partials)):
+            x = host - center
+            if kind == "int8":
+                q, scale = int8_compress(x)
+                want, same_scale = (q.numpy(),), pkt.scale == float(scale)
+            else:
+                vals, idx = topk_compress(x.reshape(-1), max(1, int(x.numel() * tap.egress.k_fraction)))
+                want, same_scale = (vals.numpy(), idx.numpy()), True
+            if pkt.step != step or not same_scale or len(pkt.payload) != len(want) or not all(
+                    a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(pkt.payload, want)):
+                raise AssertionError(f"8d {kind} packet {step}: not bitwise the CPU compressor's")
+    egress = {kind: dict(packets=len(t.egress.packets), wire_bytes=t.egress.wire_bytes,
+                         raw_bytes=t.egress.raw_bytes, reduction=t.egress.reduction)
+              for kind, t in taps.items()}
+    del taps, res
+    serve_launches = read_counters(SERVE_PATH, "session service's path")
+    print(f"phase 8d: CompressedEgress int8 and topk as session consumers, all {2 * G} packets "
+          f"bitwise equal to int8_compress/topk_compress on the CPU of a host copy of the same "
+          f"partial; reduction int8 {egress['int8']['reduction']:.2f}x, topk "
+          f"{egress['topk']['reduction']:.2f}x")
+    print(f"phase 8 launches (8a-8d): {json.dumps(serve_launches)}")
+
+    # 8e: timing, pre-generated groups: 4 sequential run_pipelined against the
+    # 4 co-scheduled sessions (default 5 ms coalescing window, and a window
+    # long enough that every group is one full cohort), in the order
+    # sequential, co, full, full, co, sequential
+    timing: dict = {"sequential": [], "co_scheduled": [], "co_scheduled_full_cohort": []}
+    for mode in ("sequential", "co_scheduled", "co_scheduled_full_cohort",
+                 "co_scheduled_full_cohort", "co_scheduled", "sequential"):
+        if mode == "sequential":
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            reps = [streaming.run_pipelined(cfg, iter(tenants[s]))[1] for s in range(4)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            row = dict(ms_per_group=wall / (4 * G) * 1e3, per_session=[dict(
+                transfer_ms_per_group=r.transfer_s / G * 1e3, ms_per_group=r.elapsed_s / G * 1e3,
+                latency_p50_ms=r.latency_p50_ms, latency_p99_ms=r.latency_p99_ms) for r in reps])
+        else:
+            kw = dict(slots_per_executor=4, max_executors=2)
+            if mode == "co_scheduled_full_cohort":
+                kw["coalesce_ms"] = FULL_COHORT_MS
+            before = (b4.launches, b2.launches)
+            res, wall, _ = serve(kw, [pair(s) for s in range(4)])
+            row = dict(ms_per_group=wall / (4 * G) * 1e3,
+                       b4_b2_launches=(b4.launches - before[0], b2.launches - before[1]),
+                       per_session=[dict(
+                           transfer_ms_per_group=r.transfer_s / r.groups * 1e3,
+                           compute_ms_per_group=r.compute_s / r.groups * 1e3,
+                           latency_p50_ms=r.latency_p50_ms, latency_p99_ms=r.latency_p99_ms)
+                           for _, r in res])
+            del res
+        timing[mode].append(row)
+    for mode, rows in timing.items():
+        for row in rows:
+            sessions = row["per_session"]
+            extra = f", (B4, B2) launches {row['b4_b2_launches']}" if "b4_b2_launches" in row else ""
+            comp = ("compute " + ", ".join(f"{p['compute_ms_per_group']:.3f}" for p in sessions)
+                    + " ms/group, " if "compute_ms_per_group" in sessions[0] else "")
+            print(f"  serve {mode:26s} aggregate {row['ms_per_group']:7.3f} ms/group over 4 x {G} "
+                  f"groups; per session transfer "
+                  + ", ".join(f"{p['transfer_ms_per_group']:.2f}" for p in sessions)
+                  + f" ms/group, {comp}latency p50/p99 "
+                  + ", ".join(f"{p['latency_p50_ms']:.2f}/{p['latency_p99_ms']:.2f}" for p in sessions)
+                  + f" ms{extra}")
+    dev = torch.device("cuda")
+    frames4 = torch.from_numpy(np.stack([t[0] for t in tenants])).to(dev)
+    sum4 = torch.zeros(4, P, H, W, device=dev)
+    b4_ms = time_ms(lambda: b4(frames4, sum4, num_groups=G, offset=cfg.offset))
+    nbytes = 4 * (N * H * W * 2 + 2 * P * H * W * 4)
+    b4_bound, b4_by = bound(nbytes, 4 * P * H * W * 3)
+    print(f"  multibank_stream_step B=4 u16 v1 (the full cohort's step): {b4_ms * 1e3:.2f} us, "
+          f"bound {b4_bound * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, {b4_by}), "
+          f"{b4_bound / b4_ms:.1%} of peak")
+    del frames4, sum4, refs, tm_refs
+    record.update(steps_8a=steps_8a, steps_one_session=steps_1, temporal_median_launches=tm_launches,
+                  egress=egress, launches=serve_launches, timing=timing,
+                  b4_at_b4=dict(ms=b4_ms, bound_ms=b4_bound, bound_by=b4_by, bytes=nbytes),
+                  seconds=time.perf_counter() - t8)
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    return serve_launches, record
 
 
 def main() -> int:
@@ -1123,6 +1369,12 @@ def main() -> int:
               f"stall {[round(r['stall_ms_per_group'], 2) for r in reps]}, transfer (summed over "
               f"banks) {[round(r['transfer_ms_per_group'], 2) for r in reps]} ms/group")
     record["banked_executor"] = {f"{b}_banks": reps for b, reps in bank_exec.items()}
+
+    serve_launches, serve_record = serve_phase(
+        cfg, groups, wrappers, reset_counters, read_counters, one_card, bound, time_ms)
+    record["serve"] = serve_record
+    for k, n in serve_launches.items():
+        launches[k] = launches.get(k, 0) + n
 
     main_rows = {r["kernel"]: r for r in rows if r["main"]}
     kernels = [

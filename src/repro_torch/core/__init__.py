@@ -5,6 +5,8 @@
   run_inline / run_buffered          — inline vs buffer-then-process drivers
   RingBuffer                         — bounded ring with backpressure
   BankMesh / run_pipelined_banked    — one pipeline per bank (Table 5)
+  CompressedEgress                   — int8 / top-k compressed partials
+  latency_model                      — paper §6 analytic model (exact)
 """
 
 from repro_torch.core.banks import (  # noqa: F401
@@ -22,6 +24,11 @@ from repro_torch.core.denoise import (  # noqa: F401
     MONO12_MAX,
     DenoiseConfig,
     StreamingDenoiser,
+)
+from repro_torch.core.egress import (  # noqa: F401
+    EGRESS_KINDS,
+    CompressedEgress,
+    EgressPacket,
 )
 from repro_torch.core.ringbuf import RingBuffer, RingClosed, RingStats  # noqa: F401
 from repro_torch.core.streaming import (  # noqa: F401

@@ -11,8 +11,15 @@ instrument against it on hot loops:
 * :mod:`repro_torch.obs.metrics` — labelled counter/gauge/histogram
   registry whose ``snapshot()`` the ``StreamReport`` columns derive from.
 
-The reference's judgement tier (``slo``, ``health``, ``regress``) is not
-ported yet (ROADMAP.md queue A item 11).
+On top sits the judgement tier, copies of the reference's modules:
+
+* :mod:`repro_torch.obs.slo` — declarative :class:`SloSpec` objectives and
+  a multi-window burn-rate :class:`SloEngine` over registry snapshots
+  (the session scheduler's ``slos=``).
+* :mod:`repro_torch.obs.health` — the fleet ``HealthReport`` (not
+  re-exported here: its capacity model reaches into ``repro_torch.core``).
+* :mod:`repro_torch.obs.regress` — the noise-aware perf-regression
+  sentinel over ``BENCH_denoise.json`` point families.
 """
 
 from repro_torch.obs.metrics import (
@@ -21,6 +28,13 @@ from repro_torch.obs.metrics import (
     Histogram,
     MetricsRegistry,
     nearest_rank,
+)
+from repro_torch.obs.slo import (
+    SLO_KINDS,
+    SloEngine,
+    SloSpec,
+    SloVerdict,
+    default_serve_slos,
 )
 from repro_torch.obs.trace import (
     Span,
@@ -39,6 +53,11 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "nearest_rank",
+    "SLO_KINDS",
+    "SloEngine",
+    "SloSpec",
+    "SloVerdict",
+    "default_serve_slos",
     "Span",
     "Tracer",
     "configure",

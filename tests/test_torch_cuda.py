@@ -11,6 +11,8 @@ the bilateral mode of the spatial kernel, whose ``expf`` is held to the
 plain version's ``torch.exp`` within ``denoise_spatial.BILATERAL_RTOL``.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -365,3 +367,57 @@ def test_two_shard_banked_executor_on_one_card_matches_cpu(cuda, extra):
                                           banks.BankMesh(("cuda:0", "cuda:0")))
     assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
     assert rep.frames == 2 * cfg.num_groups * cfg.frames_per_group
+
+
+def _gated(groups, gate):
+    gate.wait(60)
+    yield from groups
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [dict(), dict(filter_name="temporal_median", median_window=2),
+     dict(filter_name="ema_variance"), dict(filter_name="spatial_box", spatial_mode="box")],
+    ids=["pair_average", "temporal_median", "ema_variance", "spatial_box"],
+)
+def test_one_session_service_on_the_card_equals_run_pipelined(cuda, extra):
+    from repro_torch.serve import Session, SessionScheduler
+
+    cfg = DenoiseConfig(num_groups=3, frames_per_group=16, height=80, width=256, **extra)
+    groups = list(PrismSource(cfg, seed=2).groups())
+    want, _ = streaming.run_pipelined(cfg, iter(groups))
+    b2, b4 = denoise_stream.alg3_stream_step, denoise_multibank.multibank_stream_step
+    before = (b2.launches, b4.launches)
+    with SessionScheduler(slots_per_executor=1, max_executors=1) as sched:
+        out, rep = sched.submit(Session(config=cfg, source=iter(groups))).result(timeout=120)
+    assert out.device.type == "cuda" and torch.equal(out.cpu(), want.cpu())
+    assert rep.groups == cfg.num_groups
+    if cfg.filter_name in ("pair_average", "spatial_box"):  # the lone-slot path: B2 only
+        assert (b2.launches - before[0], b4.launches - before[1]) == (cfg.num_groups, 0)
+
+
+def test_four_session_full_cohort_on_the_card_equals_run_pipelined(cuda):
+    import threading
+
+    from repro_torch.serve import Session, SessionScheduler
+
+    cfg = DenoiseConfig(num_groups=4, frames_per_group=64, height=80, width=256)
+    base = list(PrismSource(cfg, seed=3).groups())
+    per_session = [[g + np.uint16(16 * s) for g in base] for s in range(4)]
+    wants = [streaming.run_pipelined(cfg, iter(g))[0].cpu() for g in per_session]
+    b2, b4 = denoise_stream.alg3_stream_step, denoise_multibank.multibank_stream_step
+    before = (b2.launches, b4.launches)
+    gate = threading.Event()
+    with SessionScheduler(slots_per_executor=4, max_executors=1, coalesce_ms=30_000) as sched:
+        hs = [sched.submit(Session(config=cfg, source=_gated(g, gate), name=f"t{s}"))
+              for s, g in enumerate(per_session)]
+        deadline = time.monotonic() + 60
+        while not all(h.status == "active" for h in hs):
+            assert time.monotonic() < deadline, "sessions never joined"
+            time.sleep(1e-3)
+        gate.set()
+        outs = [h.result(timeout=120)[0] for h in hs]
+    for out, want in zip(outs, wants):
+        assert torch.equal(out.cpu(), want)
+    # every group one full-cohort step at B = 4, and no lone-slot step
+    assert (b2.launches - before[0], b4.launches - before[1]) == (0, cfg.num_groups)

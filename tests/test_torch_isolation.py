@@ -7,6 +7,7 @@ and can take over or hand back a stream mid-acquisition (``convert``).
 import ast
 import dataclasses
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -44,6 +45,10 @@ def test_import_loads_neither_jax_nor_reference():
     for new in ("temporal_median", "ema_variance", "spatial_box"):
         assert f"repro_torch.denoise.{new}" in mods
     assert "repro_torch.tune.budget" in mods and len(mods) > 25
+    for new in ("serve", "serve.session", "serve.scheduler", "serve.faults", "serve.retry",
+                "obs.slo", "obs.health", "obs.regress", "core.latency_model", "core.egress",
+                "optim", "optim.compress"):
+        assert f"repro_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -94,6 +99,33 @@ def test_bank_executor_handlers_only_record_errors():
         calls = [n for n in ast.walk(h) if isinstance(n, ast.Call)]
         assert all(isinstance(c.func, ast.Attribute) and c.func.attr == "append"
                    for c in calls), ast.unparse(h)
+
+
+def test_scheduler_handlers_only_record_errors():
+    # every handler of the session service records the error on its session
+    # (act.error) or executor (self.failed), counts it, re-raises it, or ends
+    # a producer or a drain on an exhausted source or a closed ring; none
+    # runs anything in place of what failed
+    tree = ast.parse((PKG / "serve" / "scheduler.py").read_text())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert len(handlers) >= 8
+    for h in handlers:
+        for stmt in h.body:
+            text = ast.unparse(stmt)
+            if isinstance(stmt, ast.Break):
+                continue  # ends the loop the handler is in
+            if isinstance(stmt, ast.Pass):
+                assert "RingClosed" in ast.unparse(h.type), text
+            elif isinstance(stmt, ast.Raise):
+                assert stmt.exc is None, text  # re-raises the same error
+            elif isinstance(stmt, ast.Assign):
+                assert all(isinstance(t, ast.Attribute) and t.attr in ("error", "failed")
+                           for t in stmt.targets), text
+                assert isinstance(stmt.value, ast.Name) and stmt.value.id == h.name, text
+            else:  # a counter of errors, nothing else
+                assert isinstance(stmt, ast.Expr) and isinstance(stmt.value, ast.Call), text
+                assert isinstance(stmt.value.func, ast.Attribute), text
+                assert stmt.value.func.attr == "inc", text
 
 
 def test_build_compiles_every_source_and_raises_on_a_failed_one(tmp_path, monkeypatch):
@@ -178,6 +210,32 @@ def test_bank_entry_points_need_cuda_unless_told_otherwise(no_cuda):
     assert not pulled
     _, state = banks.banked_filter_init(cfg, banks.BankMesh(("cpu", "cpu")))
     assert [s.device.type for s in state] == ["cpu", "cpu"]
+
+
+def test_session_scheduler_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from repro_torch.serve import SessionScheduler
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SessionScheduler()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SessionScheduler(slots_per_executor=4, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SessionScheduler(mesh=banks.BankMesh(("cuda:0", "cuda:0")))
+    with SessionScheduler(device="cpu") as sched:
+        assert sched.device == torch.device("cpu")
+    with SessionScheduler(mesh=banks.BankMesh(("cpu", "cpu"))) as sched:
+        assert sched.slots_per_executor == 2
+
+
+def test_unported_serve_names_raise_naming_their_item():
+    import repro_torch.serve as serve
+
+    for name, item in (("FleetScheduler", "10(b)"), ("SessionCheckpointer", "10(b)"),
+                       ("Autoscaler", "10(c)"), ("build_trace", "10(c)")):
+        with pytest.raises(NotImplementedError, match=re.escape(f"item {item}")):
+            getattr(serve, name)
+    with pytest.raises(AttributeError):
+        serve.NoSuchThing
 
 
 def test_explicit_cuda_device_raises_without_cuda(no_cuda):
