@@ -83,13 +83,34 @@ then:
    packet to the CPU compressor run on a host copy of the same partial.
    (8e) times the 4 sessions co-scheduled against 4 sequential
    ``run_pipelined`` runs, reports each session's transfer and compute
-   share and latency, and times B4 at B = 4 against its bound.
+   share and latency, and times B4 at B = 4 against its bound;
+9. drives the fault-tolerant fleet (``repro_torch.serve.FleetScheduler``)
+   at the paper's size on the tenants of phase 8, checkpointing into a
+   ``tempfile.mkdtemp()`` directory removed at the end: (9a) for every
+   filter (``spatial_box`` bilateral), two sessions in full cohorts on a
+   2-slot executor killed before its 6th cohort, at
+   ``checkpoint_every=1`` (restore) and 3 (restore + replay), the restored
+   state on the card; (9b) live migration under a co-tenant's load,
+   ``pair_average`` and ``temporal_median``; (9c) straggler and heartbeat
+   evictions on a ``FakeClock``; (9d) ``scale_down`` draining its victim
+   through live migration, over two 1-slot executors and over
+   ``BankMesh(("cuda:0", "cuda:0"))``. Every output is bitwise equal to
+   that stream's undisturbed ``run_pipelined`` on the card. (9e) times,
+   beside the card's name and power limit, each filter's checkpoint (the
+   slot's device-to-host copy, the write and fsync, its size) and
+   ``restore_latest``; one session's ms/group with no checkpoint and at
+   ``checkpoint_every`` 1, 2 and 4 against the camera's 57 ms, with the
+   executor thread's wall time per cohort split into the device wait,
+   the fold and the checkpoint; kill-to-recovered ms on the real clock
+   (9a); and 4 ``pair_average`` sessions on two 4-slot executors with and
+   without checkpoints, beside phase 8e's ``SessionScheduler``.
 
 Phases 2-3 are the ``pair_average`` path (B2-B5), phase 5 the other
 filters' path (B6-B9), phase 6 the baselines' path (B10), phase 7 the
-banked path (B4-B9) and phase 8 (8a-8d) the service's path (B2, B4, B6,
-B7): every launch counter is set to 0 just before each and read just
-after; a kernel of the path launched no time there fails the run. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
+banked path (B4-B9), phase 8 (8a-8d) the service's path (B2, B4, B6,
+B7) and phase 9 (9a-9d) the fleet's path (B2, B4, B6-B9): every launch
+counter is set to 0 just before each and read just after; a kernel of
+the path launched no time there fails the run. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
 its sum over those phases. The script prints the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -149,8 +170,19 @@ BANKED_PATH = ("multibank_stream_step", "multibank_subtract_average") + FILTER_P
 #: and gang steps (B4) and ``temporal_median``'s window (B6, B7)
 SERVE_PATH = ("alg3_stream_step", "multibank_stream_step", "median_window_insert",
               "median_combine")
+#: the fleet's path (phase 9): every filter's sessions through the lone-slot
+#: and cohort steps, killed and restored, replayed, migrated and drained
+FLEET_PATH = ("alg3_stream_step", "multibank_stream_step", "median_window_insert",
+              "median_combine", "ema_welford_step", "spatial_filter_3x3")
+#: phase 9's filters at their defaults (spatial_box: bilateral)
+FLEET_FILTERS = {
+    "pair_average": {},
+    "temporal_median": dict(filter_name="temporal_median"),
+    "ema_variance": dict(filter_name="ema_variance"),
+    "spatial_box": dict(filter_name="spatial_box"),
+}
 #: a coalescing window long enough that co-paced sessions always form full
-#: cohorts (8a); the service's default is 5 ms
+#: cohorts (8a, 9a); the service's default is 5 ms
 FULL_COHORT_MS = 60_000.0
 SESSION_TIMEOUT_S = 120  # every session's result() is bounded
 
@@ -449,6 +481,398 @@ def serve_phase(cfg, groups, wrappers, reset_counters, read_counters, one_card, 
                   seconds=time.perf_counter() - t8)
     print(f"phase 8: {time.perf_counter() - t8:.1f} s")
     return serve_launches, record
+
+
+def fleet_phase(cfg, groups, reset_counters, read_counters, one_card, smi, serve_timing,
+                device="cuda"):
+    """Phase 9: the fault-tolerant fleet at the paper's size. Returns the
+    launches of 9a-9d (counters zeroed just before 9a, read just after 9d)
+    and a record of what was held and timed. Checkpoints go to a
+    ``tempfile.mkdtemp()`` directory, removed at the end."""
+    import contextlib
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import streaming
+    from repro_torch.core.banks import banked_filter_init
+    from repro_torch.denoise.base import tree_leaves
+    from repro_torch.serve import (
+        FakeClock,
+        FaultPlan,
+        FleetScheduler,
+        Session,
+        SessionCheckpointer,
+    )
+    from repro_torch.serve import scheduler as sched_mod
+
+    t9 = time.perf_counter()
+    G, P, H, W = cfg.num_groups, cfg.pairs_per_group, cfg.height, cfg.width
+    dev = torch.empty(0, device=device).device  # with its index: cuda:0
+    on = dict(device=device)
+    # tenant s folds phase 2's groups plus 16 s (u16), as in phase 8
+    tenants = [[g + np.uint16(16 * s) for g in groups] for s in range(4)]
+    cfgs = {label: dataclasses.replace(cfg, **extra) for label, extra in FLEET_FILTERS.items()}
+    root = tempfile.mkdtemp(prefix="fleet-checkpoints-")
+    record: dict = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def held(what, got, want):
+        if tuple(got.shape) != (P, H, W) or got.device.type != dev.type or not torch.equal(
+                got, want):
+            raise AssertionError(f"{what}: not bitwise equal to its undisturbed run_pipelined")
+
+    def gated(chunks, gate, first=0):
+        yield from chunks[:first]
+        if not gate.wait(SESSION_TIMEOUT_S):
+            raise TimeoutError("a gated source was never opened")
+        yield from chunks[first:]
+
+    def seated(fleet):
+        """Every executor beats once after its next join pass (the fleet's
+        own probe), so each submitted session holds its slot before any
+        gated group exists and co-tenants fold in full cohorts."""
+        res = fleet.check_faults(probe_timeout_s=60)
+        if res["evicted"]:
+            raise AssertionError(f"a probe evicted {res['evicted']}")
+
+    def folded(event, at):
+        def consumer(step, _partial):
+            if step >= at:
+                event.set()
+        return consumer
+
+    def ckpt(name):
+        """A fresh checkpoint directory; the runs before it are over, so
+        their checkpoints are removed first (the temporal_median window
+        writes 204.8 MB a group)."""
+        for old in os.listdir(root):
+            shutil.rmtree(os.path.join(root, old))
+        return os.path.join(root, name)
+
+    @contextlib.contextmanager
+    def cohort_split():
+        """The executor thread's wall time per cohort, split into the wait
+        for the device (the fold's ``_wait``), the checkpoint (the fleet's
+        ``_on_session_step``) and the rest of the fold (ring pickup, the
+        launches, the consumer's partial). Yields the list of
+        ``(wait_s, fold_s, checkpoint_s)`` rows it fills."""
+        rows, local = [], threading.local()
+        wait0, fold0 = sched_mod._wait, sched_mod._SlotExecutor._fold_cohort_inner
+        step0 = FleetScheduler._on_session_step
+
+        def wait(devices):
+            t = time.perf_counter()
+            wait0(devices)
+            local.wait += time.perf_counter() - t
+
+        def fold(self, *args):
+            local.wait = local.ckpt = 0.0
+            t = time.perf_counter()
+            fold0(self, *args)
+            total = time.perf_counter() - t
+            rows.append((local.wait, total - local.wait - local.ckpt, local.ckpt))
+
+        def on_session_step(self, *args):
+            t = time.perf_counter()
+            step0(self, *args)
+            local.ckpt += time.perf_counter() - t
+
+        sched_mod._wait, sched_mod._SlotExecutor._fold_cohort_inner = wait, fold
+        FleetScheduler._on_session_step = on_session_step
+        try:
+            yield rows
+        finally:
+            sched_mod._wait, sched_mod._SlotExecutor._fold_cohort_inner = wait0, fold0
+            FleetScheduler._on_session_step = step0
+
+    try:
+        # every session's undisturbed run on the card, before the counters are zeroed
+        refs = {label: [streaming.run_pipelined(c, iter(tenants[s]), **on)[0] for s in (0, 1, 2)]
+                for label, c in cfgs.items()}
+        sync()
+        reset_counters()
+
+        # 9a: kill and recover, every filter, two sessions in full cohorts on
+        # a 2-slot executor; ex0 dies before its 6th cohort. every=1 restores
+        # the checkpoint of group 5, every=3 that of group 3 and replays 2
+        kills, latencies = {}, {}
+        for label, c in cfgs.items():
+            for every in (1, 3):
+                gate, restored = threading.Event(), []
+                plan = FaultPlan().crash("ex0", at_step=5)
+                fleet = FleetScheduler(checkpoint_dir=ckpt(f"9a-{label}-{every}"),
+                                       checkpoint_every=every, faults=plan, slots_per_executor=2,
+                                       max_executors=2, coalesce_ms=FULL_COHORT_MS, **on)
+                restore = fleet.checkpointer.restore_latest
+
+                def recording(*args, _restore=restore, _restored=restored, **kw):
+                    out = _restore(*args, **kw)
+                    if out[0] is not None:
+                        _restored.extend(t.device for t in tree_leaves(out[0])[0])
+                    return out
+
+                fleet.checkpointer.restore_latest = recording
+                with fleet:
+                    hs = [fleet.submit(Session(config=c, source=gated(tenants[s], gate),
+                                               name=f"s{s}")) for s in (0, 1)]
+                    seated(fleet)
+                    gate.set()
+                    res = [h.result(timeout=SESSION_TIMEOUT_S) for h in hs]
+                what = f"9a {label} every={every}"
+                for s, (out, rep) in enumerate(res):
+                    held(f"{what} s{s}", out, refs[label][s])
+                    if (rep.restarts, rep.groups) != (1, G):
+                        raise AssertionError(f"{what} s{s}: restarts {rep.restarts}, groups "
+                                             f"{rep.groups}")
+                want = "steps=5+0" if every == 1 else "steps=3+2"
+                if not plan.crashed("ex0") or sorted(fleet.events) != [
+                        "dead@ex0:InjectedExecutorFailure", f"recover@s0->ex1:{want}",
+                        f"recover@s1->ex1:{want}"]:
+                    raise AssertionError(f"{what}: events {fleet.events}, want two {want}")
+                if not restored or any(d != dev for d in restored):
+                    raise AssertionError(f"{what}: restored state on {restored}")
+                kills[f"{label}/every={every}"] = fleet.events
+                latencies[f"{label}/every={every}"] = [x * 1e3 for x in
+                                                       fleet.recovery_latencies_s()]
+        print(f"phase 9a: FleetScheduler at G=8 N=1000 80x256 u16, 2 sessions in full cohorts, "
+              f"ex0 killed before its 6th cohort, for {', '.join(cfgs)} (bilateral) at every=1 "
+              f"(restore @5) and every=3 (restore @3 + replay 2): every output bitwise equal to "
+              f"its undisturbed run_pipelined, restarts 1, restored state on {dev}")
+
+        # 9b: live migration under a co-tenant's load, mid-stream
+        for label in ("pair_average", "temporal_median"):
+            gate, fed = threading.Event(), threading.Event()
+
+            def src(chunks=tenants[0]):
+                yield chunks[0]
+                yield chunks[1]
+                fed.set()
+                if not gate.wait(SESSION_TIMEOUT_S):
+                    raise TimeoutError("9b: source never released")
+                yield from chunks[2:]
+
+            with FleetScheduler(slots_per_executor=2, max_executors=2, **on) as fleet:
+                h = fleet.submit(Session(config=cfgs[label], source=src(), name="m0"))
+                hb = fleet.submit(Session(config=cfgs[label], source=iter(tenants[1]), name="m1"))
+                if not fed.wait(60):
+                    raise TimeoutError("9b: source never staged its first groups")
+                target = fleet.migrate(h, timeout=60)
+                gate.set()
+                res = [h.result(timeout=SESSION_TIMEOUT_S), hb.result(timeout=SESSION_TIMEOUT_S)]
+            if target != "ex1" or fleet.events != ["migrate@m0:ex0->ex1"]:
+                raise AssertionError(f"9b {label}: target {target}, events {fleet.events}")
+            for s, (out, _) in enumerate(res):
+                held(f"9b {label} m{s}", out, refs[label][s])
+            if (res[0][1].migrations, res[1][1].migrations) != (1, 0):
+                raise AssertionError(f"9b {label}: migrations {[r.migrations for _, r in res]}")
+        print("phase 9b: pair_average and temporal_median sessions live-migrated mid-stream "
+              "(ex0 -> ex1) under a co-tenant's load, both outputs bitwise equal")
+
+        # 9c: scripted evictions on a FakeClock: a straggler (virtual step
+        # times 0.1 s and 0.5 s) and a stalled executor (heartbeat timeout)
+        plan = FaultPlan().slow("ex0", extra_s=0.1, from_step=0).slow("ex1", extra_s=0.5,
+                                                                      from_step=0)
+        gates, warm = [threading.Event(), threading.Event()], [threading.Event(), threading.Event()]
+        with FleetScheduler(checkpoint_dir=ckpt("9c-straggler"), faults=plan, clock=FakeClock(),
+                            slots_per_executor=1, max_executors=3, straggler_threshold=1.5,
+                            straggler_warmup=3, **on) as fleet:
+            hs = [fleet.submit(Session(config=cfg, source=gated(tenants[s], gates[s], first=4),
+                                       name=n, consumer=folded(warm[s], 3)))
+                  for s, n in enumerate(("A", "B"))]
+            if not (warm[0].wait(60) and warm[1].wait(60)):
+                raise TimeoutError("9c: sessions never warmed up")
+            straggle = fleet.check_faults(probe=False)
+            for g in gates:
+                g.set()
+            res = [h.result(timeout=SESSION_TIMEOUT_S) for h in hs]
+            events_straggler = list(fleet.events)
+        if straggle["evicted"] != ["ex1"] or straggle["recovered"] != ["B"] or \
+                events_straggler != ["evict@ex1:straggler", "recover@B->ex2:steps=4+0"]:
+            raise AssertionError(f"9c straggler: {straggle}, events {events_straggler}")
+        for s, (out, _) in enumerate(res):
+            held(f"9c straggler {'AB'[s]}", out, refs["pair_average"][s])
+        plan, clock = FaultPlan().stall("ex0", at_step=2), FakeClock()
+        try:
+            with FleetScheduler(checkpoint_dir=ckpt("9c-heartbeat"), faults=plan, clock=clock,
+                                slots_per_executor=1, max_executors=2, heartbeat_timeout_s=60.0,
+                                **on) as fleet:
+                h = fleet.submit(Session(config=cfg, source=iter(tenants[0]), name="S"))
+                if not plan.wait_stalled("ex0", timeout=60):
+                    raise TimeoutError("9c: ex0 never stalled")
+                clock.advance(61.0)
+                silent = fleet.check_faults(probe=False)
+                out, rep = h.result(timeout=SESSION_TIMEOUT_S)
+                events_heartbeat = list(fleet.events)
+        finally:
+            plan.poison("ex0")
+        if silent["evicted"] != ["ex0"] or events_heartbeat != [
+                "evict@ex0:heartbeat", "recover@S->ex1:steps=2+0"]:
+            raise AssertionError(f"9c heartbeat: {silent}, events {events_heartbeat}")
+        held("9c heartbeat S", out, refs["pair_average"][0])
+        print(f"phase 9c: on a FakeClock, straggler ex1 evicted ({events_straggler}) and stalled "
+              f"ex0 evicted by heartbeat ({events_heartbeat}), every output bitwise equal")
+
+        # 9d: scale_down drains its victim through live migration: a pool of
+        # two 1-slot executors, and over the two-shard mesh on one card (s0
+        # and s1 fill ex0's shards, s2 runs on ex1, which is drained)
+        drains = {}
+        for label in ("pair_average", "temporal_median"):
+            for mesh in (None, one_card):
+                n = 2 if mesh is None else 3
+                first = [2] * n if mesh is None else [0, 0, 2]
+                gate, mids = threading.Event(), [threading.Event() for _ in range(n)]
+                kw = dict(slots_per_executor=1, **on) if mesh is None else dict(mesh=mesh)
+                with FleetScheduler(clock=FakeClock(), max_executors=2, coalesce_ms=0.0,
+                                    **kw) as fleet:
+                    hs = [fleet.submit(Session(config=cfgs[label],
+                                               source=gated(tenants[s], gate, first=first[s]),
+                                               name=f"d{s}", consumer=folded(mids[s], 1)))
+                          for s in range(n)]
+                    if not all(m.wait(60) for m, f in zip(mids, first) if f):
+                        raise TimeoutError("9d: the sessions never reached mid-stream")
+                    seated(fleet)
+                    drained = fleet.scale_down(reason="chip_smoke")
+                    gate.set()
+                    res = [h.result(timeout=SESSION_TIMEOUT_S) for h in hs]
+                victim = "ex0" if mesh is None else "ex1"
+                moved = "d0:ex0->ex1" if mesh is None else "d2:ex1->ex0"
+                if drained != victim or fleet.events != [f"migrate@{moved}",
+                                                         f"scale-down:{victim}:chip_smoke"]:
+                    raise AssertionError(f"9d {label} mesh={mesh}: drained {drained}, events "
+                                         f"{fleet.events}")
+                for s, (out, rep) in enumerate(res):
+                    held(f"9d {label} mesh={mesh} d{s}", out, refs[label][s])
+                if sum(rep.migrations for _, rep in res) != 1:
+                    raise AssertionError(f"9d {label}: {[r.migrations for _, r in res]}")
+                drains[f"{label}/{'mesh' if mesh else 'pool'}"] = fleet.events
+        del res, out
+        launches = read_counters(FLEET_PATH, "fleet's path")
+        print("phase 9d: scale_down drained its victim through live migration, pair_average "
+              "and temporal_median, over two 1-slot executors and over BankMesh("
+              f"{', '.join(str(d) for d in one_card.devices)}): every output bitwise equal")
+        print(f"phase 9 launches (9a-9d): {json.dumps(launches)}")
+
+        # 9e: timings. The checkpoint of each filter's slot: the device-to-host
+        # copy (slot_to_host) and the write (np.savez, fsync of the manifest,
+        # rename), and restore_latest onto the card
+        timing: dict = {"smi": smi, "checkpoint": {}, "session_ms_per_group": {},
+                        "cohort_split_ms": {}, "recovery_ms": latencies}
+        for label, c in cfgs.items():
+            filt, state = banked_filter_init(c, None, banks=1, **on)
+            sub = filt.slot_extract(state, 0)
+            for k in range(2):
+                sub = filt.step(sub, torch.from_numpy(tenants[0][k]).to(dev), step_index=k)
+            sync()
+            mgr = CheckpointManager(ckpt(f"9e-{label}"), keep=2)
+            d2h, write = [], []
+            for k in range(5):
+                t0 = time.perf_counter()
+                host = filt.slot_to_host(sub)
+                t1 = time.perf_counter()
+                mgr.save(k, host, blocking=True, extra={"frames": 0, "stream_key": repr(
+                    c.stream_key())})
+                write.append(time.perf_counter() - t1)
+                d2h.append(t1 - t0)
+            sessions = SessionCheckpointer(ckpt(f"9e-restore-{label}"))
+            sessions.save("s", filt, sub, steps=2, frames=2 * c.frames_per_group)
+            restore = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                got, _, _ = sessions.restore_latest("s", filt, device=dev)
+                sync()
+                restore.append(time.perf_counter() - t0)
+            if not all(torch.equal(a, b) for a, b in zip(tree_leaves(got)[0], tree_leaves(sub)[0])):
+                raise AssertionError(f"9e {label}: the restored slot differs")
+            nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(sub)[0])
+            timing["checkpoint"][label] = dict(
+                mb=nbytes / 1e6, d2h_ms=statistics.median(d2h) * 1e3,
+                write_ms=statistics.median(write) * 1e3,
+                restore_ms=statistics.median(restore) * 1e3)
+            del filt, state, sub, got, host
+
+        def timed(fleet_kw, sessions, split=None):
+            """Seconds from opening the gate to the last result, the gate
+            opened once every session holds its slot; ``split`` (a
+            ``cohort_split`` list) is emptied first."""
+            gate = threading.Event()
+            if split is not None:
+                split.clear()
+            with FleetScheduler(**fleet_kw, **on) as fleet:
+                hs = [fleet.submit(Session(config=c, source=gated(chunks, gate), name=f"t{i}"))
+                      for i, (c, chunks) in enumerate(sessions)]
+                seated(fleet)
+                sync()
+                t0 = time.perf_counter()
+                gate.set()
+                for h in hs:
+                    h.result(timeout=SESSION_TIMEOUT_S)
+                sync()
+                return time.perf_counter() - t0
+
+        # one session through the fleet with no checkpoint and at every 1, 2, 4
+        modes = ("off", "every=1", "every=2", "every=4")
+        with cohort_split() as split:
+            for label, c in cfgs.items():
+                per = timing["session_ms_per_group"][label] = {m: [] for m in modes}
+                cohorts = timing["cohort_split_ms"][label] = {}
+                for mode in modes + modes[::-1]:
+                    every = None if mode == "off" else int(mode.split("=")[1])
+                    kw = dict(checkpoint_dir=ckpt(f"9e-{label}-{mode}") if every else None,
+                              checkpoint_every=every or 1, slots_per_executor=1, max_executors=1)
+                    per[mode].append(timed(kw, [(c, tenants[0])], split) / G * 1e3)
+                    cohorts.setdefault(mode, []).extend(split)
+                for mode, rows in cohorts.items():
+                    cohorts[mode] = {part: statistics.fmean(r[i] for r in rows) * 1e3
+                                     for i, part in enumerate(("wait", "fold", "checkpoint"))}
+        # 4 pair_average sessions on two 4-slot executors (phase 8e's
+        # SessionScheduler configuration), without and with checkpoints
+        four = timing["four_sessions_ms_per_group"] = {"off": [], "every=1": []}
+        four_split = timing["cohort_split_ms"]["four_sessions"] = {"off": [], "every=1": []}
+        with cohort_split() as split:
+            for mode in ("off", "every=1", "every=1", "off"):
+                kw = dict(checkpoint_dir=ckpt(f"9e-four-{mode}") if mode != "off" else None,
+                          slots_per_executor=4, max_executors=2)
+                four[mode].append(timed(kw, [(cfg, tenants[s]) for s in range(4)], split)
+                                  / (4 * G) * 1e3)
+                four_split[mode].extend(split)
+        for mode, rows in four_split.items():
+            four_split[mode] = {part: statistics.fmean(r[i] for r in rows) * 1e3
+                                for i, part in enumerate(("wait", "fold", "checkpoint"))}
+        four["session_scheduler_8e"] = [r["ms_per_group"] for r in serve_timing["co_scheduled"]]
+
+        for label, v in timing["checkpoint"].items():
+            per = timing["session_ms_per_group"][label]
+            print(f"  fleet {label:15s} checkpoint {v['mb']:.2f} MB: d2h {v['d2h_ms']:.2f} ms + "
+                  f"write/fsync {v['write_ms']:.2f} ms; restore_latest {v['restore_ms']:.2f} ms; "
+                  f"1 session ms/group " + ", ".join(
+                      f"{m} {[round(x, 2) for x in per[m]]}" for m in modes)
+                  + f" (camera {CAMERA_GROUP_MS:.0f}) [{smi}]")
+            print(f"  fleet {label:15s} executor ms per cohort (mean) wait/fold/checkpoint: "
+                  + ", ".join(f"{m} " + "/".join(f"{x:.2f}" for x in parts.values())
+                              for m, parts in timing["cohort_split_ms"][label].items())
+                  + f" [{smi}]")
+        print("  fleet kill-to-recovered ms (real clock): " + ", ".join(
+            f"{k} {[round(x, 2) for x in v]}" for k, v in latencies.items()) + f" [{smi}]")
+        print(f"  fleet 4 pair_average sessions / two 4-slot executors aggregate ms/group: off "
+              f"{[round(x, 2) for x in four['off']]}, every=1 "
+              f"{[round(x, 2) for x in four['every=1']]}; phase 8e SessionScheduler "
+              f"{[round(x, 2) for x in four['session_scheduler_8e']]}; executor ms per cohort "
+              f"(mean) wait/fold/checkpoint: " + ", ".join(
+                  f"{m} " + "/".join(f"{x:.2f}" for x in parts.values())
+                  for m, parts in four_split.items()) + f" [{smi}]")
+        record.update(kills=kills, straggler=events_straggler, heartbeat=events_heartbeat,
+                      drains=drains, launches=launches, timing=timing)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - t9
+    print(f"phase 9: {record['seconds']:.1f} s")
+    return launches, record
 
 
 def main() -> int:
@@ -1374,6 +1798,12 @@ def main() -> int:
         cfg, groups, wrappers, reset_counters, read_counters, one_card, bound, time_ms)
     record["serve"] = serve_record
     for k, n in serve_launches.items():
+        launches[k] = launches.get(k, 0) + n
+
+    fleet_launches, fleet_record = fleet_phase(
+        cfg, groups, reset_counters, read_counters, one_card, smi, serve_record["timing"])
+    record["fleet"] = fleet_record
+    for k, n in fleet_launches.items():
         launches[k] = launches.get(k, 0) + n
 
     main_rows = {r["kernel"]: r for r in rows if r["main"]}

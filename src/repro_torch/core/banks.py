@@ -28,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Iterator, Sequence
+from typing import ClassVar, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -71,6 +71,8 @@ class BankMesh:
     """
 
     devices: tuple
+    #: the one axis, as a ``Mesh``'s ``axis_names``
+    axis_names: ClassVar[tuple[str, ...]] = ("bank",)
 
     def __post_init__(self):
         devices = tuple(torch.device(d) for d in self.devices)
@@ -81,6 +83,11 @@ class BankMesh:
     @property
     def shape(self) -> dict[str, int]:
         return {"bank": len(self.devices)}
+
+    @property
+    def size(self) -> int:
+        """The number of bank shards (a ``Mesh``'s ``size``)."""
+        return len(self.devices)
 
 
 def make_bank_mesh(num_banks: int | None = None) -> BankMesh:

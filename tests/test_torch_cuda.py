@@ -421,3 +421,130 @@ def test_four_session_full_cohort_on_the_card_equals_run_pipelined(cuda):
         assert torch.equal(out.cpu(), want)
     # every group one full-cohort step at B = 4, and no lone-slot step
     assert (b2.launches - before[0], b4.launches - before[1]) == (0, cfg.num_groups)
+
+
+FLEET_FILTERS = pytest.mark.parametrize(
+    "extra",
+    [dict(), dict(filter_name="temporal_median", median_window=3),
+     dict(filter_name="ema_variance"), dict(filter_name="spatial_box")],
+    ids=["pair_average", "temporal_median", "ema_variance", "spatial_box"],
+)
+
+
+def _fleet_cfg(**extra):
+    return DenoiseConfig(num_groups=5, frames_per_group=16, height=80, width=256, **extra)
+
+
+@FLEET_FILTERS
+@pytest.mark.parametrize("every", [1, 3])
+def test_fleet_crash_recovery_on_the_card_equals_run_pipelined(cuda, tmp_path, extra, every):
+    """Two sessions in full cohorts on ``ex0``, which crashes before its
+    5th cohort; both restore (``every=1``: the checkpoint of fold 4;
+    ``every=3``: that of fold 3 and a replay of one group) on ``ex1``."""
+    import threading
+
+    from repro_torch.serve import FaultPlan, FleetScheduler, Session
+
+    cfg = _fleet_cfg(**extra)
+    sources = [list(PrismSource(cfg, seed=s).groups()) for s in (1, 2)]
+    wants = [streaming.run_pipelined(cfg, iter(g))[0].cpu() for g in sources]
+    plan, gate = FaultPlan().crash("ex0", at_step=4), threading.Event()
+    with FleetScheduler(checkpoint_dir=str(tmp_path), checkpoint_every=every, faults=plan,
+                        slots_per_executor=2, max_executors=2, coalesce_ms=30_000) as fleet:
+        hs = [fleet.submit(Session(config=cfg, source=_gated(g, gate), name=f"s{i}"))
+              for i, g in enumerate(sources)]
+        # one beat after ex0's next join pass: both sessions hold a slot
+        # before any group exists, so every cohort is a full one
+        assert fleet.check_faults(probe_timeout_s=60)["evicted"] == []
+        gate.set()
+        outs = [h.result(timeout=120) for h in hs]
+    assert plan.crashed("ex0")
+    for (out, rep), want in zip(outs, wants):
+        assert out.device.type == "cuda" and torch.equal(out.cpu(), want)
+        assert rep.restarts == 1 and rep.groups == cfg.num_groups
+    resumed = "steps=4+0" if every == 1 else "steps=3+1"
+    assert sorted(fleet.events) == ["dead@ex0:InjectedExecutorFailure",
+                                    f"recover@s0->ex1:{resumed}", f"recover@s1->ex1:{resumed}"]
+
+
+@FLEET_FILTERS
+def test_fleet_migration_on_the_card_lands_on_it_and_equals_run_pipelined(cuda, tmp_path,
+                                                                          extra):
+    import threading
+
+    from repro_torch.denoise.base import tree_leaves
+    from repro_torch.serve import FleetScheduler, Session
+
+    arrived = []
+
+    class Recording(FleetScheduler):
+        def _on_migrate(self, ex, act):
+            super()._on_migrate(ex, act)
+            arrived.extend(t.device for t in tree_leaves(act.resume_state)[0])
+
+    cfg = _fleet_cfg(**extra)
+    groups, other = (list(PrismSource(cfg, seed=s).groups()) for s in (4, 5))
+    wants = [streaming.run_pipelined(cfg, iter(g))[0].cpu() for g in (groups, other)]
+    gate, fed = threading.Event(), threading.Event()
+
+    def src():
+        yield from groups[:2]
+        fed.set()
+        assert gate.wait(60)
+        yield from groups[2:]
+
+    with Recording(checkpoint_dir=str(tmp_path), slots_per_executor=2,
+                   max_executors=2) as fleet:
+        h = fleet.submit(Session(config=cfg, source=src(), name="m0"))
+        hb = fleet.submit(Session(config=cfg, source=iter(other), name="m1"))
+        assert fed.wait(60)
+        assert fleet.migrate(h, timeout=60) == "ex1"
+        gate.set()
+        outs = [h.result(timeout=120), hb.result(timeout=120)]
+    assert arrived and all(d == torch.device("cuda", 0) for d in arrived)
+    assert [rep.migrations for _, rep in outs] == [1, 0]
+    for (out, _), want in zip(outs, wants):
+        assert torch.equal(out.cpu(), want)
+
+
+@FLEET_FILTERS
+def test_fleet_checkpoint_at_fold_k_is_the_state_of_fold_k(cuda, tmp_path, extra):
+    """Every checkpoint the fleet takes on its executor thread holds the
+    state the step of that fold wrote on the card, bitwise."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.denoise.base import tree_leaves
+    from repro_torch.serve import FleetScheduler, Session
+
+    cfg = _fleet_cfg(**extra)
+    groups = list(PrismSource(cfg, seed=6).groups())
+    with FleetScheduler(checkpoint_dir=str(tmp_path), checkpoint_keep=cfg.num_groups,
+                        slots_per_executor=1, max_executors=1) as fleet:
+        fleet.submit(Session(config=cfg, source=iter(groups), name="c")).result(timeout=120)
+    mgr = CheckpointManager(str(tmp_path / "c"), keep=cfg.num_groups)
+    assert mgr.steps() == list(range(1, cfg.num_groups + 1))
+    filt, state = banks.banked_filter_init(cfg, None, banks=1)
+    sub = filt.slot_extract(state, 0)
+    for k, g in enumerate(groups, start=1):
+        sub = filt.step(sub, torch.from_numpy(g).to(cuda), step_index=k - 1)
+        saved, step = mgr.restore(k, device="cuda")
+        assert step == k
+        for got, want in zip(tree_leaves(saved)[0], tree_leaves(sub)[0]):
+            assert got.device.type == "cuda" and got.dtype == want.dtype
+            assert torch.equal(got, want)
+
+
+def test_elastic_reshard_on_the_card_is_bit_exact(cuda):
+    from repro_torch.runtime.elastic import available_mesh, elastic_reshard, state_spec_tree
+
+    rng = np.random.default_rng(9)
+    state = {"mean": torch.from_numpy(rng.standard_normal((8, 80, 256)).astype(np.float32))
+             .to(cuda), "count": torch.tensor(7, dtype=torch.int32, device=cuda)}
+    mesh = available_mesh()
+    assert mesh.devices[0] == torch.device("cuda", 0)
+    moved = elastic_reshard(state, state_spec_tree(state), banks.BankMesh(("cuda:0",)))
+    for k in state:
+        assert moved[k].device == torch.device("cuda", 0) and torch.equal(moved[k], state[k])
+    banked = torch.arange(4 * 6, dtype=torch.float32, device=cuda).reshape(4, 6)
+    shards = elastic_reshard(banked, state_spec_tree(banked, axes={0: "bank"}),
+                             banks.BankMesh(("cuda:0", "cuda:0")))
+    assert torch.equal(torch.cat(shards), banked)

@@ -47,7 +47,8 @@ def test_import_loads_neither_jax_nor_reference():
     assert "repro_torch.tune.budget" in mods and len(mods) > 25
     for new in ("serve", "serve.session", "serve.scheduler", "serve.faults", "serve.retry",
                 "obs.slo", "obs.health", "obs.regress", "core.latency_model", "core.egress",
-                "optim", "optim.compress"):
+                "optim", "optim.compress", "checkpoint", "checkpoint.checkpoint", "runtime",
+                "runtime.fault_tolerance", "runtime.elastic", "serve.recovery", "serve.fleet"):
         assert f"repro_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -230,12 +231,43 @@ def test_session_scheduler_defaults_to_cuda_and_raises_without_it(no_cuda):
 def test_unported_serve_names_raise_naming_their_item():
     import repro_torch.serve as serve
 
-    for name, item in (("FleetScheduler", "10(b)"), ("SessionCheckpointer", "10(b)"),
-                       ("Autoscaler", "10(c)"), ("build_trace", "10(c)")):
+    for name, item in (("Autoscaler", "10(c)"), ("AutoscaleDecision", "10(c)"),
+                       ("build_trace", "10(c)"), ("poisson_schedule", "10(c)")):
         with pytest.raises(NotImplementedError, match=re.escape(f"item {item}")):
             getattr(serve, name)
     with pytest.raises(AttributeError):
         serve.NoSuchThing
+
+
+def test_fleet_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    from repro_torch.checkpoint import restore_tree, save_tree
+    from repro_torch.runtime.elastic import available_mesh
+    from repro_torch.serve import FleetScheduler, SessionCheckpointer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetScheduler()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetScheduler(checkpoint_dir=str(tmp_path / "f"), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetScheduler(mesh=banks.BankMesh(("cuda:0", "cuda:0")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        available_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        available_mesh(devices=["cuda:0"])
+    assert available_mesh(devices=["cpu", "cpu"]) == banks.BankMesh(("cpu", "cpu"))
+    save_tree(str(tmp_path / "ck"), {"x": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore_tree(str(tmp_path / "ck"), device="cuda")
+    cfg = DenoiseConfig(**SMALL)
+    filt, state = banks.banked_filter_init(cfg, None, banks=1, device="cpu")
+    ck = SessionCheckpointer(str(tmp_path / "s"))
+    ck.save("s", filt, filt.slot_extract(state, 0), steps=0, frames=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ck.restore_latest("s", filt, device="cuda")
+    restored, _, _ = ck.restore_latest("s", filt)  # the filter's own device
+    assert restored.device == torch.device("cpu")
+    with FleetScheduler(checkpoint_dir=str(tmp_path / "f"), device="cpu") as fleet:
+        assert fleet.device == torch.device("cpu")
 
 
 def test_explicit_cuda_device_raises_without_cuda(no_cuda):
