@@ -103,14 +103,32 @@ then:
    executor thread's wall time per cohort split into the device wait,
    the fold and the checkpoint; kill-to-recovered ms on the real clock
    (9a); and 4 ``pair_average`` sessions on two 4-slot executors with and
-   without checkpoints, beside phase 8e's ``SessionScheduler``.
+   without checkpoints, beside phase 8e's ``SessionScheduler``;
+10. drives the elastic tier at the paper's size: a seeded
+   ``flash_crowd_schedule`` trace of ``pair_average`` and
+   ``temporal_median`` tenants (``TenantProfile``) replayed on a
+   ``FakeClock`` against ``FleetScheduler(device="cuda")`` with an
+   ``Autoscaler``, which scales up, climbs a rung of the degradation
+   ladder, restores and scales down; the decisions, states, admissions
+   and events equal those of the same trace on the CPU at a small shape,
+   and every session's output is bitwise equal to its tenant's
+   undisturbed ``run_pipelined`` on the card; it prints the crowd's
+   aggregate ms/group and the host time of one ``evaluate``;
+11. resolves ``tile_plan="auto"`` for every filter at the paper's shape
+   into a fresh plan cache (the launch model's candidates timed on the
+   card with CUDA events), resolves each again from the cache without a
+   single measurement, and runs ``run_pipelined`` under each tuned plan,
+   bitwise equal to the heuristic's; it prints each family's candidates'
+   device time, the heuristic's, the winner (timed again beside the
+   heuristic with ``time_ms`` when it differs) and the tuned ``num_slots``.
 
 Phases 2-3 are the ``pair_average`` path (B2-B5), phase 5 the other
 filters' path (B6-B9), phase 6 the baselines' path (B10), phase 7 the
 banked path (B4-B9), phase 8 (8a-8d) the service's path (B2, B4, B6,
-B7) and phase 9 (9a-9d) the fleet's path (B2, B4, B6-B9): every launch
-counter is set to 0 just before each and read just after; a kernel of
-the path launched no time there fails the run. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
+B7), phase 9 (9a-9d) the fleet's path (B2, B4, B6-B9), phase 10 the
+elastic tier's (B2, B4, B6, B7) and phase 11 the tuned runs' (B2,
+B6-B9): every launch counter is set to 0 just before each and read just
+after; a kernel of the path launched no time there fails the run. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
 its sum over those phases. The script prints the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -873,6 +891,310 @@ def fleet_phase(cfg, groups, reset_counters, read_counters, one_card, smi, serve
     record["seconds"] = time.perf_counter() - t9
     print(f"phase 9: {record['seconds']:.1f} s")
     return launches, record
+
+
+#: phase 10's tenants: the paper's average and the median, as the traffic
+#: mix of a lab that serves both (TenantProfile priority: the median's
+#: cosmic-ray runs are the ones kept under shedding)
+ELASTIC_TENANTS = {"pair_average": ({}, 0), "temporal_median": (dict(filter_name="temporal_median"), 10)}
+#: the elastic tier's path (phase 10): lone-slot (B2) and cohort (B4)
+#: steps, and the median's window (B6, B7)
+ELASTIC_PATH = ("alg3_stream_step", "multibank_stream_step", "median_window_insert",
+                "median_combine")
+#: phase 10's flash crowd: base and burst rates (Hz), the burst window and
+#: the trace's length (s) and its seed; the autoscaler evaluates every
+#: EVAL_EVERY_S of virtual time
+CROWD = dict(base_hz=0.25, burst_hz=2.0, burst_at_s=2.0, burst_s=4.0, duration_s=6.0, seed=5)
+EVAL_EVERY_S = 2.0
+
+
+def elastic_scenario(cfg, groups, device) -> dict:
+    """Phase 10's script, on ``device``: a seeded flash crowd of
+    ``pair_average`` and ``temporal_median`` sessions replayed on a
+    ``FakeClock`` against a 2-executor ``FleetScheduler`` (2 slots each)
+    with an ``Autoscaler`` that starts at one executor and evaluates every
+    ``EVAL_EVERY_S`` of virtual time. Every admitted session is gated, so
+    every decision depends on session counts only and the same trace gives
+    the same decisions on any device and at any shape. After the trace the
+    gates open (the crowd folds), one clean session runs (the ladder
+    restores), then three gated sessions are seated and a clean tick lets
+    the capacity plan shrink the pool: the drained executor's session
+    migrates. Returns the decisions, states, outcomes, events and every
+    completed session's output and report, and each session's tenant."""
+    from repro_torch.serve import (
+        AdmissionError,
+        Autoscaler,
+        FakeClock,
+        FleetScheduler,
+        Session,
+        TenantProfile,
+        admission_pressure_slo,
+        build_trace,
+        flash_crowd_schedule,
+        replay_trace,
+    )
+
+    G = cfg.num_groups
+    clock = FakeClock()
+    fleet = FleetScheduler(clock=clock, slots_per_executor=2, max_executors=3, max_sessions=6,
+                           max_waiting=64, coalesce_ms=0.0, slo_eval_every_s=1e9,
+                           slos=[admission_pressure_slo(budget=0.25, window_s=EVAL_EVERY_S)],
+                           device=device)
+    scaler = Autoscaler(fleet, min_executors=1, initial_executors=2, breach_streak=1,
+                        clear_streak=1, cooldown_down_s=0.0, planner_headroom=0.5)
+    configs = {name: dataclasses.replace(cfg, **extra)
+               for name, (extra, _) in ELASTIC_TENANTS.items()}
+    profiles = [TenantProfile(name, configs[name], priority=prio)
+                for name, (_, prio) in ELASTIC_TENANTS.items()]
+    rng = np.random.default_rng(CROWD["seed"])
+    arrivals = flash_crowd_schedule(CROWD["base_hz"], CROWD["burst_hz"],
+                                    burst_at_s=CROWD["burst_at_s"], burst_s=CROWD["burst_s"],
+                                    duration_s=CROWD["duration_s"], rng=rng)
+    trace = build_trace(profiles, arrivals, rng=rng, min_groups=G, max_groups=G,
+                        name_prefix="fc")
+    handles, tenant, outcome, decisions, states = {}, {}, [], [], []
+    next_eval = [EVAL_EVERY_S]
+
+    def evaluate():
+        decisions.append(scaler.evaluate().to_dict())
+        states.append(scaler.state())
+
+    def gated(chunks, gate):
+        if not gate.wait(SESSION_TIMEOUT_S):
+            raise TimeoutError("a gated source was never opened")
+        yield from chunks
+
+    def submit(name, profile, gate=None):
+        source = iter(groups) if gate is None else gated(groups, gate)
+        try:
+            handles[name] = fleet.submit(Session(config=configs[profile], source=source,
+                                                 name=name))
+        except AdmissionError:
+            outcome.append((name, "rejected"))
+            return False
+        outcome.append((name, "admitted"))
+        tenant[name] = profile
+        return True
+
+    def tick(now):
+        while now >= next_eval[0]:
+            evaluate()
+            next_eval[0] += EVAL_EVERY_S
+
+    def seated():
+        res = fleet.check_faults(probe_timeout_s=60)
+        if res["evicted"]:
+            raise AssertionError(f"a probe evicted {res['evicted']}")
+
+    def results(names):
+        return {n: handles[n].result(timeout=SESSION_TIMEOUT_S) for n in names if n in handles}
+
+    with fleet:
+        evaluate()  # the baseline snapshot at t = 0
+        crowd = threading.Event()
+        replay_trace(trace, clock=clock, on_tick=tick,
+                     submit=lambda ev: submit(ev.session, ev.profile, crowd))
+        clock.advance(next_eval[0] - clock.now())
+        evaluate()  # the crowd's last window
+        admitted = [n for n, what in outcome if what == "admitted"]
+        t0 = time.perf_counter()
+        crowd.set()
+        done = results(admitted)
+        crowd_s = time.perf_counter() - t0
+        # a clean window: one session alone (the lone-slot step), then
+        # restore; it and the tail take the first arrival's tenant, whose
+        # executor the pool holds
+        first = trace[0].profile
+        clock.advance(EVAL_EVERY_S)
+        submit("clean0", first)
+        done.update(results(["clean0"]))
+        evaluate()
+        # three seated sessions and a clean window: the plan shrinks the pool
+        last = threading.Event()
+        for i in range(3):
+            submit(f"tail{i}", first, last)
+        seated()
+        clock.advance(EVAL_EVERY_S)
+        evaluate()
+        last.set()
+        done.update(results([f"tail{i}" for i in range(3)]))
+        events, kinds = list(fleet.events), [k for k, _, _ in fleet.timeline]
+        clock.advance(4 * EVAL_EVERY_S)  # past every window: no verdict acts
+        t_eval = time.perf_counter()
+        for _ in range(100):  # the controller's own cost
+            scaler.evaluate()
+        eval_us = (time.perf_counter() - t_eval) / 100 * 1e6
+    return dict(decisions=decisions, states=states, outcome=outcome, events=events,
+                kinds=kinds, done=done, crowd_s=crowd_s,
+                crowd_groups=sum(rep.groups for n, (_, rep) in done.items()
+                                 if n.startswith("fc")),
+                evaluate_us=eval_us, tenant=tenant)
+
+
+def elastic_phase(cfg, groups, reset_counters, read_counters, device="cuda"):
+    """Phase 10: the elastic tier at the paper's size. The crowd of
+    ``elastic_scenario`` on ``device``, held against the same trace on the
+    CPU at a small shape (the decisions depend on session counts only):
+    the same decisions, states, admissions and events, with a scale-up, a
+    rung of degradation, a restore and a scale-down; every completed
+    session bitwise equal to its tenant's undisturbed ``run_pipelined`` on
+    ``device``. Returns the launches (counters zeroed just before the crowd
+    and read after its last session) and a record."""
+    from repro_torch.core import streaming
+    from repro_torch.core.denoise import DenoiseConfig
+    from repro_torch.data.prism import PrismSource
+
+    t10 = time.perf_counter()
+    small = DenoiseConfig(num_groups=cfg.num_groups, frames_per_group=8, height=8, width=32)
+    want = elastic_scenario(small, list(PrismSource(small, seed=1).groups()), "cpu")
+    refs = {name: streaming.run_pipelined(dataclasses.replace(cfg, **extra), iter(groups),
+                                          device=device)[0]
+            for name, (extra, _) in ELASTIC_TENANTS.items()}
+    reset_counters()
+    got = elastic_scenario(cfg, groups, device)
+    launches = read_counters(ELASTIC_PATH, "elastic tier's path")
+    for key in ("decisions", "states", "outcome", "events", "kinds"):
+        if got[key] != want[key]:
+            raise AssertionError(f"phase 10: {key} differ from the CPU replay: {got[key]} != "
+                                 f"{want[key]}")
+    actions = [d["action"] for d in got["decisions"]]
+    for needed in ("scale-up", "degrade", "restore", "scale-down"):
+        if needed not in actions:
+            raise AssertionError(f"phase 10: no {needed} in {actions}")
+    for name, (out, rep) in got["done"].items():
+        tenant = got["tenant"][name]
+        if (rep.groups, rep.drops) != (cfg.num_groups, 0) or not torch.equal(out, refs[tenant]):
+            raise AssertionError(f"phase 10: {name} ({tenant}) not bitwise equal to its "
+                                 f"undisturbed run_pipelined (groups {rep.groups}, drops "
+                                 f"{rep.drops})")
+    ms_per_group = got["crowd_s"] / got["crowd_groups"] * 1e3
+    admitted = sum(1 for _, what in got["outcome"] if what == "admitted")
+    print(f"phase 10: flash crowd of {len(got['outcome']) - 4} arrivals "
+          f"({', '.join(ELASTIC_TENANTS)}) on a FakeClock against FleetScheduler(device="
+          f"{device!r}) with an Autoscaler at G={cfg.num_groups} N={cfg.frames_per_group} "
+          f"{cfg.height}x{cfg.width}: decisions {actions} and events {got['events']} equal to "
+          f"the CPU replay; {admitted} sessions admitted, every one bitwise equal to its "
+          f"undisturbed run_pipelined; the crowd's {got['crowd_groups']} groups at "
+          f"{ms_per_group:.3f} ms/group aggregate; Autoscaler.evaluate {got['evaluate_us']:.1f} "
+          f"us of host time; launches {json.dumps(launches)} "
+          f"({time.perf_counter() - t10:.1f} s)")
+    record = dict(decisions=got["decisions"], events=got["events"], outcome=got["outcome"],
+                  crowd_ms_per_group=ms_per_group, crowd_groups=got["crowd_groups"],
+                  evaluate_us=got["evaluate_us"], launches=launches)
+    return launches, record
+
+
+#: phase 11's path: each filter's run_pipelined under its tuned plan
+TUNED_PATH = ("alg3_stream_step", "median_window_insert", "median_combine", "ema_welford_step",
+              "spatial_filter_3x3")
+
+
+def tune_phase(cfg, groups, reset_counters, read_counters, device="cuda"):
+    """Phase 11: ``tile_plan="auto"`` at the paper's shape for every filter
+    (``spatial_box`` bilateral), tuned into a fresh cache file: each plan
+    resolves again from the cache without one measurement, and
+    ``run_pipelined`` under it is bitwise equal to the heuristic's. Each
+    family's candidates are timed by the tuner itself (CUDA events behind a
+    device sleep); a winner other than the heuristic is timed again beside
+    it with ``time_ms``. Returns the launches of the tuned runs (counters
+    zeroed before the first, read after the last) and a record."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import tune
+    from repro_torch.core import streaming
+    from repro_torch.tune import autotune
+    from repro_torch.tune.cache import PlanCache
+    from repro_torch.tune.plan import family_key
+
+    t11 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tune-cache-")
+    old = os.environ.get("REPRO_TUNE_CACHE_PATH")
+    os.environ["REPRO_TUNE_CACHE_PATH"] = os.path.join(root, "plans.json")
+    tune.clear_plan_memo()
+    cfgs = {label: dataclasses.replace(cfg, **extra) for label, extra in FLEET_FILTERS.items()}
+    plans, families, record = {}, {}, {}
+    try:
+        for label, c in cfgs.items():
+            plans[label] = tune.resolve_plan(dataclasses.replace(c, tile_plan="auto"), device)
+        tune.clear_plan_memo()  # a fresh process: the cache file alone
+        calls = []
+        timer0, knobs0 = autotune.family_timer, autotune.tune_exec_knobs
+        autotune.family_timer = lambda *a, **k: calls.append(a[0]) or timer0(*a, **k)
+        autotune.tune_exec_knobs = lambda *a, **k: calls.append("exec") or knobs0(*a, **k)
+        try:
+            again = {label: tune.resolve_plan(dataclasses.replace(c, tile_plan="auto"), device)
+                     for label, c in cfgs.items()}
+        finally:
+            autotune.family_timer, autotune.tune_exec_knobs = timer0, knobs0
+        if calls or any(p.source != "cache" or p.tiles != plans[k].tiles
+                        or p.num_slots != plans[k].num_slots for k, p in again.items()):
+            raise AssertionError(f"phase 11: the second resolution measured {calls} or "
+                                 f"changed a plan: {again}")
+        cache = PlanCache()
+        dev = torch.device(device)
+        backend = autotune.resolved_backend(cfg, dev)
+        p, h, w = cfg.pairs_per_group, cfg.height, cfg.width
+        for label, c in cfgs.items():
+            for fam, window in autotune.filter_families(c):
+                if fam in families:
+                    continue
+                entry = cache.get(family_key(fam, p, h, w, in_dtype="uint16",
+                                             acc_dtype="float32", backend=backend,
+                                             device=dev, window=window))
+                winner = (entry["row_tile"], entry["pair_tile"])
+                row = dict(candidates_us={g: s * 1e6 for g, s in entry["candidates"].items()},
+                           heuristic_us=entry["heuristic_s"] * 1e6,
+                           winner=autotune.candidate_label(winner),
+                           winner_us=entry["measured_s"] * 1e6)
+                heur = autotune.tile_candidates(fam, p, h, w, vector=autotune.vector_path(c),
+                                                limits=tune.budget.device_limits(dev))[0]
+                if winner != heur:  # the gain again, with time_ms, in this call
+                    step, init = autotune.family_step(fam, c, backend, dev)
+                    for geom, key in ((heur, "heuristic_time_ms_us"), (winner, "winner_time_ms_us"),
+                                      (heur, "heuristic_again_time_ms_us")):
+                        state = init()
+                        row[key] = time_ms(lambda g=geom, s=state: step(s, *g)) * 1e3
+                families[fam] = row
+        for label, plan in plans.items():
+            record[label] = dict(plan=plan.describe(), num_slots=plan.num_slots,
+                                 frames_per_chunk=plan.frames_per_chunk)
+        heur_out = {label: streaming.run_pipelined(c, iter(groups), device=device)[0]
+                    for label, c in cfgs.items()}
+        reset_counters()
+        tuned_out = {label: streaming.run_pipelined(dataclasses.replace(c, tile_plan="auto"),
+                                                    iter(groups), device=device)
+                     for label, c in cfgs.items()}
+        launches = read_counters(TUNED_PATH, "tuned path")
+    finally:
+        tune.clear_plan_memo()
+        if old is None:
+            os.environ.pop("REPRO_TUNE_CACHE_PATH", None)
+        else:
+            os.environ["REPRO_TUNE_CACHE_PATH"] = old
+        shutil.rmtree(root, ignore_errors=True)
+    for label, (out, rep) in tuned_out.items():
+        if not torch.equal(out, heur_out[label]):
+            raise AssertionError(f"phase 11: {label} under its tuned plan is not bitwise equal "
+                                 "to the heuristic's")
+        if rep.num_slots != (plans[label].num_slots or cfg.num_slots):
+            raise AssertionError(f"phase 11: {label} ran at ring depth {rep.num_slots}, its "
+                                 f"plan says {plans[label].num_slots}")
+    for fam, row in families.items():
+        cands = ", ".join(f"{g} {us:.2f}" for g, us in row["candidates_us"].items())
+        again = "" if "winner_time_ms_us" not in row else (
+            f"; time_ms heuristic {row['heuristic_time_ms_us']:.2f}, winner "
+            f"{row['winner_time_ms_us']:.2f}, heuristic {row['heuristic_again_time_ms_us']:.2f}")
+        print(f"phase 11: {fam}: candidates (device us a step) {cands}; heuristic "
+              f"{row['heuristic_us']:.2f}, winner {row['winner']} {row['winner_us']:.2f}{again}")
+    print(f"phase 11: tile_plan='auto' for {', '.join(cfgs)} at G={cfg.num_groups} "
+          f"N={cfg.frames_per_group} {cfg.height}x{cfg.width}: tuned num_slots "
+          f"{ {k: v['num_slots'] for k, v in record.items()} }, frames_per_chunk "
+          f"{ {k: v['frames_per_chunk'] for k, v in record.items()} }; a second resolution from "
+          f"the cache measured nothing; run_pipelined under each tuned plan bitwise equal to the "
+          f"heuristic's; launches {json.dumps(launches)} ({time.perf_counter() - t11:.1f} s)")
+    return launches, dict(plans=record, families=families, launches=launches)
 
 
 def main() -> int:
@@ -1804,6 +2126,12 @@ def main() -> int:
         cfg, groups, reset_counters, read_counters, one_card, smi, serve_record["timing"])
     record["fleet"] = fleet_record
     for k, n in fleet_launches.items():
+        launches[k] = launches.get(k, 0) + n
+
+    elastic_launches, record["elastic"] = elastic_phase(cfg, groups, reset_counters,
+                                                        read_counters)
+    tuned_launches, record["tune"] = tune_phase(cfg, groups, reset_counters, read_counters)
+    for k, n in list(elastic_launches.items()) + list(tuned_launches.items()):
         launches[k] = launches.get(k, 0) + n
 
     main_rows = {r["kernel"]: r for r in rows if r["main"]}

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of the step kernels (B2, B4), the EMA kernel (B8) and the
-3x3 spatial kernel (B9, box and bilateral) at the paper's shape, for the
-port of a given source tree.
+"""Device time of every kernel of the port (B2-B10: each row of the
+kernel table in PERF.md section 6, the integer sums and the step's scalar
+path among them) at the paper's shape, at each kernel's default launch
+geometry, for the port of a given source tree.
 
 Run on the machine with the card, from the root of a checkout::
 
@@ -124,9 +125,11 @@ def main() -> int:
     from repro_torch.kernels import (
         _build,
         denoise_ema,
+        denoise_median,
         denoise_multibank,
         denoise_spatial,
         denoise_stream,
+        denoise_tmpframe,
         quant,
     )
     sys.path.insert(1, str(ROOT))
@@ -163,6 +166,57 @@ def main() -> int:
     rows.append(dict(kernel="ema_welford_step", label="u16 pair_tile=5",
                      us=time_ms(call) * 1e3, host_us=host_us(call)))
     del state, group, frames, s
+
+    def timed(kernel, label, call):
+        rows.append(dict(kernel=kernel, label=label, us=time_ms(call) * 1e3))
+
+    # the step's scalar path (an unaligned view) and the integer sums (B2-B5, B10)
+    buf = torch.empty(N * H * W + 1, dtype=torch.uint16, device=dev)
+    fv = buf[1:].view(N, H, W)
+    fv.copy_(wire((N, H), "u16"))
+    sbuf = torch.zeros(P * H * W + 1, device=dev)
+    sv = sbuf[1:].view(P, H, W)
+    timed("alg3_stream_step", "u16 v1 scalar (unaligned)", lambda: denoise_stream.alg3_stream_step(
+        fv, sv, num_groups=G, offset=offset))
+    del buf, fv, sbuf, sv
+    frames8 = wire((G, N, H), "u16")
+    frames2 = wire((2, G, N, H), "u16")
+    for acc in (torch.float32, torch.int32, torch.uint16):
+        name = str(acc).split(".")[-1]
+        one, two = frames8[0], frames2[:, 0].contiguous()
+        s1 = torch.zeros(P, H, W, dtype=acc, device=dev)
+        s2 = torch.zeros(2, P, H, W, dtype=acc, device=dev)
+        if acc != torch.float32:
+            timed("alg3_stream_step", f"u16 v1 {name}", lambda: denoise_stream.alg3_stream_step(
+                one, s1, num_groups=G, offset=offset))
+            timed("multibank_stream_step", f"u16 v1 B=2 {name}",
+                  lambda: denoise_multibank.multibank_stream_step(two, s2, num_groups=G,
+                                                                  offset=offset))
+        timed("alg3_subtract_average", f"u16 v1 {name}",
+              lambda: denoise_stream.alg3_subtract_average(frames8, offset=offset,
+                                                           accum_dtype=acc))
+        timed("multibank_subtract_average", f"u16 v1 B=2 {name}",
+              lambda: denoise_multibank.multibank_subtract_average(frames2, offset=offset,
+                                                                   accum_dtype=acc))
+        for alg in ("alg1", "alg2"):
+            fn = getattr(denoise_tmpframe, f"{alg}_subtract_average")
+            timed(f"{alg}_subtract_average", f"u16 {name}",
+                  lambda: fn(frames8, offset=offset, accum_dtype=acc))
+        del s1, s2
+    tmp = denoise_tmpframe.subtract_pass(frames8, offset=offset, burst=True)
+    timed("alg1_subtract_average", "pass B", lambda: denoise_tmpframe.reduce_pass(tmp))
+    for burst in (False, True):
+        timed("alg2_subtract_average" if burst else "alg1_subtract_average", "pass A",
+              lambda: denoise_tmpframe.subtract_pass(frames8, offset=offset, burst=burst))
+    del frames2, tmp
+    # the median window (B6) and its combine (B7, K = 5)
+    window = torch.zeros(5, P, H, W, device=dev)
+    for k in range(5):
+        denoise_median.median_window_insert(window, frames8[k], slot=k, offset=offset)
+    timed("median_window_insert", "u16", lambda: denoise_median.median_window_insert(
+        window, frames8[5], slot=2, offset=offset))
+    timed("median_combine", "K=5", lambda: denoise_median.median_combine(window))
+    del window, frames8
     b9rng = np.random.default_rng(9)
     x = (4096 + 40 * b9rng.standard_normal((P, H, W))).astype(np.float32)
     x[b9rng.random(x.shape) < 0.01] += 900.0  # 1 % hot pixels

@@ -128,7 +128,7 @@ def banked_subtract_average(frames, mesh: BankMesh, *, config: DenoiseConfig) ->
     Pure data parallelism over banks: each shard runs the fused
     multi-bank kernel over its own banks, then one gather.
     """
-    tiles = tune.tile_args(config, "stream")
+    tiles = tune.tile_args(config, "stream", device=mesh.devices[0])
     outs = [
         ops.multibank_subtract_average(
             local, offset=config.offset, algorithm=config.algorithm,
@@ -146,7 +146,7 @@ def banked_stream_step(sum_frames: list, group_frames, mesh: BankMesh, *, config
     each updated in place; ``group_frames`` is (B, N, H, W) or a list of
     per-shard chunks. Returns ``sum_frames``.
     """
-    tiles = tune.tile_args(config, "stream")
+    tiles = tune.tile_args(config, "stream", device=mesh.devices[0])
     for s, f in zip(sum_frames, _shards(group_frames, mesh)):
         ops.multibank_stream_step(
             s, f, num_groups=config.num_groups, offset=config.offset,

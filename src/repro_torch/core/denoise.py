@@ -51,9 +51,11 @@ class DenoiseConfig:
     # ingest wire format (repro_torch.kernels.quant.STREAM_DTYPES)
     stream_dtype: str = "u16"
     num_banks: int = 1           # B  (paper: one FPGA per 256x80 bank)
-    row_tile: int | None = None  # accepted for parity; the CUDA kernels ignore it
-    pair_tile: int | None = None
-    tile_plan: str = "heuristic"  # only "heuristic" is ported (repro_torch.tune)
+    row_tile: int | None = None  # image rows a block covers (None = the plan's)
+    pair_tile: int | None = None  # frame pairs a block covers
+    # heuristic (the kernels' default layouts) | auto (measured on the card,
+    # cached) | a path to a pre-built plan file (repro_torch.tune)
+    tile_plan: str = "heuristic"
     num_slots: int = 2           # ring depth for run_pipelined (2 = ping-pong)
     overflow_policy: str = "block"  # block (lossless) | drop_oldest (real-time)
     # -- streaming-filter subsystem ------------------------------------------

@@ -55,6 +55,9 @@ __all__ = [
     "DownloadConsumer",
 ]
 
+#: the config's default ring depth; a plan's depth replaces only this one
+_DEFAULT_NUM_SLOTS = DenoiseConfig.__dataclass_fields__["num_slots"].default
+
 
 @dataclasses.dataclass
 class StreamReport:
@@ -200,6 +203,8 @@ class _Stager:
         )
 
     def stage(self, chunk: np.ndarray):
+        if isinstance(chunk, torch.Tensor) and _on(chunk, self.device):
+            return chunk, None  # already landed: the reference's device_put of a device array
         host = torch.from_numpy(np.ascontiguousarray(chunk))
         if self.copy_stream is None:
             return host.clone(), None
@@ -219,6 +224,15 @@ class _Stager:
             compute.wait_event(landed)
             dev.record_stream(compute)
         return dev
+
+
+def _on(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t`` lies on ``device`` (``cuda`` names the current card)."""
+    if t.device.type != device.type:
+        return False
+    if device.type != "cuda" or device.index is None:
+        return device.type != "cuda" or t.device.index == torch.cuda.current_device()
+    return t.device.index == device.index
 
 
 def _stage_next(source: Iterator, stager: _Stager) -> object:
@@ -269,16 +283,24 @@ def run_pipelined(
         acquire/stage ──ring(num_slots)──> denoise ──ring──> consumer
 
     ``num_slots``/``policy`` default to ``config.num_slots`` /
-    ``config.overflow_policy``. Under ``drop_oldest`` the output averages
-    the surviving groups (``drops`` in the report counts the loss). Output
-    is bit-identical for any depth and consumer under ``block``.
-    Telemetry accumulates into ``metrics`` (or a run-local registry) and
-    the report is derived from it; stage spans go to ``repro_torch.obs``.
+    ``config.overflow_policy``, except under a resolved tile plan
+    (``tile_plan`` ``"auto"`` or a plan-file path) whose executor knobs
+    carry a ring depth: then, when the config leaves the depth at its
+    dataclass default, the plan's ``num_slots`` applies. An explicit
+    ``num_slots=`` beats the plan, and the plan beats ``config.num_slots``
+    only at its default, as in the reference. Under ``drop_oldest`` the
+    output averages the surviving groups (``drops`` in the report counts
+    the loss). Output is bit-identical for any depth and consumer under
+    ``block``. Telemetry accumulates into ``metrics`` (or a run-local
+    registry) and the report is derived from it; stage spans go to
+    ``repro_torch.obs``.
     """
+    den = StreamingDenoiser(config, device=device)  # resolves the plan, once
     if num_slots is None:
         num_slots = config.num_slots
+        if config.tile_plan != "heuristic" and num_slots == _DEFAULT_NUM_SLOTS:
+            num_slots = den.plan.num_slots or num_slots
     policy = config.overflow_policy if policy is None else policy
-    den = StreamingDenoiser(config, device=device)
     stager = _Stager(den.device)
     if interval_us is not None:
         source = rate_limited(source, interval_us, config.frames_per_group)

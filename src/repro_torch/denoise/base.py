@@ -26,8 +26,10 @@ Contract rules the executors rely on:
   surviving groups (the ``drop_oldest`` executor path).
 * **Backend dispatch.** All device math goes through
   ``repro_torch.kernels.ops``; filters never import kernel modules.
-* **Tile plans** are resolved once, at construction, and passed to
-  ``ops`` as static kwargs (the CUDA kernels ignore them).
+* **Tile plans** are resolved once, at construction, for the filter's
+  device, and passed to ``ops`` as plain kwargs: the kernels' launch
+  geometry, which never changes a bit of the output (the EMA kernel's
+  ``pair_tile`` aside, which the reference pins too).
 
 * **Bank layout.** ``state_pspec`` names each banked tensor's bank axis
   with a tuple spec such as ``("bank", None, None, None)``, in the
@@ -97,8 +99,9 @@ class StreamingFilter:
         self.config = config
         #: where ``init`` allocates state: CUDA unless the caller names another
         self.device = ops.resolve_device(device)
-        # plan resolution is config time, not step time
-        self.plan = tune.resolve_plan(config)
+        # plan resolution is config time, not step time; "auto" times on
+        # the device this filter runs on
+        self.plan = tune.resolve_plan(config, self.device)
 
     def tile_args(self, family: str) -> dict:
         """Static ``row_tile``/``pair_tile``/``placement`` kwargs for one

@@ -45,15 +45,16 @@ _F = ctypes.c_float
 #: are ``c_void_p``: ctypes would cut them to 32 bits else.
 ARGTYPES = {
     "alg3_stream_step_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _I, _I64, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _I, _I64, _I64, _I64, _P),
     "multibank_stream_step_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _I, _I64, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _I, _I64, _I64, _I64,
+         _P),
     "alg3_subtract_average_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _I, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _I, _I64, _I64, _P),
     "multibank_subtract_average_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _I, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _I, _I64, _I64, _P),
     "median_window_insert_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I, _F, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I, _F, _F, _I64, _I64, _P),
     "median_combine_launch":
         (_P, _P, _I64, _I64, _P),
     "ema_welford_step_launch":
@@ -61,9 +62,9 @@ ARGTYPES = {
     "spatial_filter_3x3_launch":
         (_P, _P, _I64, _I64, _I64, _I, _I, _F, _P),
     "tmpframe_subtract_launch":
-        (_P, _P, _I64, _I64, _I64, _I, _F, _I, _P),
+        (_P, _P, _I64, _I64, _I64, _I, _F, _I, _I64, _I64, _P),
     "tmpframe_reduce_launch":
-        (_P, _P, _I64, _I64, _I64, _F, _I, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _F, _I, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()

@@ -13,7 +13,9 @@
 //
 // Design (the simple one):
 //   * insert: one thread per output pixel (two for p12), one block per
-//     (pair, image row), threads along W; `slot` is a runtime argument and
+//     (pair, image row) by default, threads along W (a tuning plan's
+//     row_tile x pair_tile rows a block, the kernel's tiled form, give the
+//     same bits); `slot` is a runtime argument and
 //     only that slot's (N/2, H, W) frame is written, the other K-1 are never
 //     touched (the TPU kernel aliases the donated window for the same
 //     reason);
@@ -43,23 +45,39 @@ using namespace repro_quant;
 
 constexpr int kMaxWindow = 64;
 
-// B6: window slot = exc - ctl + offset of one group. Row r is (pair p, row h).
+// B6: window slot = exc - ctl + offset of one group, one row (pair p, image row
+// h). The kernel's untiled form (TILED = false) is one block per row; a plan's
+// geometry (TILED = true) is rt x pt rows a block (for_tile_rows, quant.cuh).
 template <int FMT>
-__global__ void insert_kernel(const uint8_t* __restrict__ frames,
-                              float* __restrict__ slot, int height, int items,
-                              int64_t row_bytes, float offset, float u8_scale) {
+__device__ __forceinline__ void insert_row(const uint8_t* __restrict__ frames,
+                                           float* __restrict__ slot, int64_t p, int64_t h,
+                                           int height, int items, int64_t row_bytes,
+                                           float offset, float u8_scale) {
   constexpr int P = Item<FMT>::kPixels;
-  const int64_t r = blockIdx.x;
-  const int64_t p = r / height;
-  const int64_t h = r - p * height;
   const uint8_t* ctl = frames + ((2 * p) * height + h) * row_bytes;
   const uint8_t* exc = ctl + height * row_bytes;
-  float* out = slot + r * static_cast<int64_t>(items) * P;
+  float* out = slot + (p * height + h) * static_cast<int64_t>(items) * P;
   for (int x = threadIdx.x; x < items; x += blockDim.x) {
     float d[P];
     pair_diff<FMT>(ctl, exc, x, offset, u8_scale, d);
 #pragma unroll
     for (int k = 0; k < P; ++k) out[x * P + k] = d[k];
+  }
+}
+
+template <int FMT, bool TILED>
+__global__ void insert_kernel(const uint8_t* __restrict__ frames,
+                              float* __restrict__ slot, int64_t pairs, int height, int items,
+                              int64_t row_bytes, int rt, int pt, float offset, float u8_scale) {
+  if constexpr (TILED) {
+    for_tile_rows(pairs, height, rt, pt, [=](int64_t p, int64_t h) {
+      insert_row<FMT>(frames, slot, p, h, height, items, row_bytes, offset, u8_scale);
+    });
+  } else {
+    const int64_t r = blockIdx.x;
+    const int64_t p = r / height;
+    insert_row<FMT>(frames, slot, p, r - p * height, height, items, row_bytes, offset,
+                    u8_scale);
   }
 }
 
@@ -124,13 +142,15 @@ __global__ void combine_select_kernel(const float* __restrict__ window,
 }
 
 template <int FMT>
-cudaError_t launch_insert(const void* frames, void* slot, int64_t rows,
-                          int height, int items, int64_t row_bytes,
+cudaError_t launch_insert(const void* frames, void* slot, int64_t pairs,
+                          int height, int items, int64_t row_bytes, int rt, int pt, bool tiled,
                           float offset, float u8_scale, cudaStream_t stream) {
-  insert_kernel<FMT><<<static_cast<unsigned>(rows), threads_for(items), 0, stream>>>(
-      static_cast<const uint8_t*>(frames), static_cast<float*>(slot), height,
-      items, row_bytes, offset, u8_scale);
-  return cudaGetLastError();
+  return in_form(tiled, [&](auto form) {
+    insert_kernel<FMT, decltype(form)::value>
+        <<<static_cast<unsigned>(row_tile_blocks(pairs, height, rt, pt)), threads_for(items), 0,
+           stream>>>(static_cast<const uint8_t*>(frames), static_cast<float*>(slot), pairs,
+                     height, items, row_bytes, rt, pt, offset, u8_scale);
+  });
 }
 
 template <int K>
@@ -150,21 +170,31 @@ cudaError_t launch_combine(const void* window, void* out, int64_t plane,
 extern "C" {
 
 // `frames` is one group (N, H, wire_W); `slot` points at window[slot], an
-// (N/2, H, W) float32 frame. `items` is W, or W/2 for p12.
+// (N/2, H, W) float32 frame. `items` is W, or W/2 for p12. `row_tile` and
+// `pair_tile` (0 = 1) are the image rows and pairs a block covers.
 int median_window_insert_launch(const void* frames, void* slot, int64_t pairs,
                                 int64_t height, int64_t items,
                                 int64_t row_bytes, int fmt, float offset,
-                                float u8_scale, void* stream) {
+                                float u8_scale, int64_t row_tile, int64_t pair_tile,
+                                void* stream) {
   const int64_t rows = pairs * height;
   if (rows == 0 || items == 0) return cudaSuccess;
   if (rows > 0x7fffffff || items > 0x7fffffff) return cudaErrorInvalidValue;
+  const int64_t rt = row_tile ? row_tile : 1, pt = pair_tile ? pair_tile : 1;
+  if (row_tile < 0 || pair_tile < 0 || !row_tiles_ok(pairs, height, rt, pt))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int h = static_cast<int>(height), it = static_cast<int>(items);
+  const int r = static_cast<int>(rt), q = static_cast<int>(pt);
+  const bool tiled = row_tile != 0 || pair_tile != 0;
+#define INSERT(F) launch_insert<F>(frames, slot, pairs, h, it, row_bytes, r, q, tiled, offset, \
+                                   u8_scale, s)
   switch (fmt) {
-    case kU16: return launch_insert<kU16>(frames, slot, rows, h, it, row_bytes, offset, u8_scale, s);
-    case kU8: return launch_insert<kU8>(frames, slot, rows, h, it, row_bytes, offset, u8_scale, s);
-    case kP12: return launch_insert<kP12>(frames, slot, rows, h, it, row_bytes, offset, u8_scale, s);
+    case kU16: return INSERT(kU16);
+    case kU8: return INSERT(kU8);
+    case kP12: return INSERT(kP12);
   }
+#undef INSERT
   return cudaErrorInvalidValue;
 }
 

@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace repro_quant {
 
 enum WireFormat : int { kU16 = 0, kU8 = 1, kP12 = 2 };
@@ -150,6 +152,49 @@ enum AccumCode : int { kAccF32 = 0, kAccI32 = 1, kAccU16 = 2 };
 inline int threads_for(int items) {
   const int t = ((items + 31) / 32) * 32;
   return t < 256 ? t : 256;
+}
+
+// Launch geometry of the row-gridded kernels (the B2/B4 scalar and integer
+// steps, B3/B5, B6 and B10): a block covers `rt` consecutive image rows of
+// `pt` consecutive pairs, over a 1-D grid of ceil(pairs / pt) x
+// ceil(height / rt) blocks. rt = pt = 1, the default, is one block per
+// (pair, image row). The geometry changes which block computes an output
+// row, never how: every row is computed as in any other geometry.
+inline int64_t row_tile_blocks(int64_t pairs, int64_t height, int64_t rt, int64_t pt) {
+  return ((pairs + pt - 1) / pt) * ((height + rt - 1) / rt);
+}
+
+// Whether a row-tiled launch is valid: 1 <= rt <= height, 1 <= pt <= pairs,
+// and at most 2^31 - 1 blocks.
+inline bool row_tiles_ok(int64_t pairs, int64_t height, int64_t rt, int64_t pt) {
+  return rt >= 1 && pt >= 1 && rt <= height && pt <= pairs &&
+         row_tile_blocks(pairs, height, rt, pt) <= 0x7fffffff;
+}
+
+// Call f(pair, image row) for each row this block covers, rows innermost (a
+// pair's rows are contiguous in memory).
+template <typename F>
+__device__ __forceinline__ void for_tile_rows(int64_t pairs, int height, int rt, int pt, F&& f) {
+  const int64_t row_blocks = (height + rt - 1) / rt;
+  const int64_t pb = blockIdx.x / row_blocks;
+  const int64_t hb = blockIdx.x - pb * row_blocks;
+  const int64_t p_end = (pb + 1) * pt < pairs ? (pb + 1) * pt : pairs;
+  const int64_t h_end = (hb + 1) * rt < height ? (hb + 1) * rt : height;
+  for (int64_t p = pb * pt; p < p_end; ++p)
+    for (int64_t h = hb * rt; h < h_end; ++h) f(p, h);
+}
+
+// Run launch(std::true_type{}) for a plan's geometry (tiled), else
+// launch(std::false_type{}), so that the launch site names its kernel's form
+// as kernel<..., decltype(form)::value>; returns the launch's error.
+template <typename F>
+inline cudaError_t in_form(bool tiled, F&& launch) {
+  if (tiled) {
+    launch(std::true_type{});
+  } else {
+    launch(std::false_type{});
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace repro_quant

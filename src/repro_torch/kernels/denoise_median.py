@@ -13,7 +13,10 @@
   with the reference's network or its ``jnp.sort``.
 
 Dispatch, checks and launch counters are as in
-:mod:`repro_torch.kernels.denoise_stream`. The CUDA combine runs the
+:mod:`repro_torch.kernels.denoise_stream`, and so is the insert's launch
+geometry (``row_tile`` rows of ``pair_tile`` pairs a block). The combine
+has one geometry, a flat grid of 256-thread blocks: it validates the
+tiles a plan gives it, as the reference does, and launches that one. The CUDA combine runs the
 network for K <= :data:`NETWORK_WINDOW` and, above it, an exact selection
 of the middle ranks by counting, which gives the same values (its
 launches also count in ``median_combine.select_launches``).
@@ -30,6 +33,7 @@ from repro_torch.kernels.denoise_stream import (
     check_launch,
     on_cuda,
 )
+from repro_torch.tune.budget import launch_tiles
 
 __all__ = [
     "NETWORK_WINDOW",
@@ -79,9 +83,12 @@ def median_window_insert(
     slot: int,
     offset: float = 0.0,
     stream_dtype: str = "u16",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
 ) -> torch.Tensor:
     """Write the group's diff frames into ``window[slot]``; returns ``window``."""
     _check_insert(window, group_frames, slot, stream_dtype)
+    tiles = launch_tiles(window.shape[1], window.shape[2], row_tile, pair_tile)
     if not on_cuda(window, group_frames):
         return median_window_insert_plain(
             window, group_frames, slot=slot, offset=offset, stream_dtype=stream_dtype
@@ -93,7 +100,7 @@ def median_window_insert(
     with torch.cuda.device(window.device):
         rc = lib.median_window_insert_launch(
             group_frames.data_ptr(), dst.data_ptr(), n // 2, h, items, row_bytes,
-            fmt, float(offset), U8_SCALE_F32, torch.cuda.current_stream().cuda_stream,
+            fmt, float(offset), U8_SCALE_F32, *tiles, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "median_window_insert")
     median_window_insert.launches += 1
@@ -118,10 +125,13 @@ def median_combine_plain(window: torch.Tensor) -> torch.Tensor:
     return (vals[count // 2 - 1] + vals[count // 2]) * torch.tensor(0.5, dtype=window.dtype)
 
 
-def median_combine(window: torch.Tensor) -> torch.Tensor:
+def median_combine(
+    window: torch.Tensor, *, row_tile: int | None = None, pair_tile: int | None = None,
+) -> torch.Tensor:
     """(K, N/2, H, W) filled window prefix -> (N/2, H, W) per-pixel median."""
     if window.ndim != 4 or window.shape[0] < 1:
         raise ValueError(f"expected a (K >= 1, N/2, H, W) window, got {tuple(window.shape)}")
+    launch_tiles(window.shape[1], window.shape[2], row_tile, pair_tile)
     if not on_cuda(window):
         return median_combine_plain(window)
     k = window.shape[0]

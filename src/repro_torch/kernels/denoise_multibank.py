@@ -34,6 +34,7 @@ from repro_torch.kernels.denoise_stream import (
     launch_step,
     on_cuda,
 )
+from repro_torch.tune.budget import launch_tiles
 
 __all__ = [
     "multibank_stream_step",
@@ -56,9 +57,14 @@ def multibank_stream_step(
     divide_first: bool = False,
     final: bool = False,
     stream_dtype: str = "u16",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
 ) -> torch.Tensor:
-    """Fold one group per bank (B, N, H, wire_W) into sums (B, N/2, H, W), in place."""
+    """Fold one group per bank (B, N, H, wire_W) into sums (B, N/2, H, W), in
+    place; ``row_tile`` / ``pair_tile`` as for the single-bank step."""
     check_step_shapes(group_frames, sum_frames, stream_dtype, banked=True)
+    b, n, h, _ = group_frames.shape
+    tiles = launch_tiles(n // 2, h, row_tile, pair_tile)
     if not on_cuda(group_frames, sum_frames):
         return sum_frames.copy_(multibank_stream_step_plain(
             group_frames, sum_frames, num_groups=num_groups, offset=offset,
@@ -66,11 +72,10 @@ def multibank_stream_step(
         ))
     fmt, items, row_bytes = check_kernel_operands(group_frames, sum_frames, stream_dtype,
                                                   integer_sums=True)
-    b, n, h, _ = group_frames.shape
     launch_step(multibank_stream_step, "multibank_stream_step_launch", group_frames,
                 sum_frames, (b, n // 2, h, items, row_bytes), fmt=fmt,
                 divide_first=divide_first, final=final, offset=offset,
-                num_groups=num_groups, stream_dtype=stream_dtype)
+                num_groups=num_groups, stream_dtype=stream_dtype, tiles=tiles)
     return sum_frames
 
 
@@ -86,12 +91,15 @@ def multibank_subtract_average(
     divide_first: bool = False,
     accum_dtype=torch.float32,
     stream_dtype: str = "u16",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
 ) -> torch.Tensor:
     """frames (B, G, N, H, wire_W) -> (B, N/2, H, W), one launch."""
     if frames.ndim != 5 or frames.shape[2] % 2:
         raise ValueError(
             f"expected (B, G, N, H, wire_W) with N even, got {tuple(frames.shape)}"
         )
+    tiles = launch_tiles(frames.shape[2] // 2, frames.shape[3], row_tile, pair_tile)
     if not on_cuda(frames):
         return multibank_subtract_average_plain(
             frames, offset=offset, divide_first=divide_first,
@@ -108,7 +116,8 @@ def multibank_subtract_average(
         rc = lib.multibank_subtract_average_launch(
             frames.data_ptr(), out.data_ptr(), b, g, n // 2, h, items,
             row_bytes, fmt, int(divide_first), float(offset), U8_SCALE_F32,
-            ref.reciprocal(g), ACCUM_CODES[out.dtype], torch.cuda.current_stream().cuda_stream,
+            ref.reciprocal(g), ACCUM_CODES[out.dtype], *tiles,
+            torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "multibank_subtract_average")
     multibank_subtract_average.launches += 1

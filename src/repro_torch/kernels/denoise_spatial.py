@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.denoise_stream import check_launch, on_cuda
+from repro_torch.tune.budget import launch_tiles
 
 __all__ = ["BILATERAL_RTOL", "spatial_filter_3x3", "spatial_filter_3x3_plain", "tile_path"]
 
@@ -94,11 +95,17 @@ def spatial_filter_3x3_plain(
 
 
 def spatial_filter_3x3(
-    frames: torch.Tensor, *, mode: str = "box", range_sigma: float = 50.0
+    frames: torch.Tensor, *, mode: str = "box", range_sigma: float = 50.0,
+    row_tile: int | None = None, pair_tile: int | None = None,
 ) -> torch.Tensor:
-    """(P, H, W) -> (P, H, W): 3×3 box or bilateral-lite smoothing per frame."""
+    """(P, H, W) -> (P, H, W): 3×3 box or bilateral-lite smoothing per frame.
+
+    The kernel has one geometry, its 16 x 128 tile: ``row_tile`` /
+    ``pair_tile`` from a plan are validated as the reference does, and that
+    one geometry runs."""
     if frames.ndim != 3:
         raise ValueError(f"expected (P, H, W) frames, got {tuple(frames.shape)}")
+    launch_tiles(frames.shape[0], frames.shape[1], row_tile, pair_tile)
     if not on_cuda(frames):
         return spatial_filter_3x3_plain(frames, mode=mode, range_sigma=range_sigma)
     if frames.dtype != torch.float32:

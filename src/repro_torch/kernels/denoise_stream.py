@@ -27,10 +27,12 @@ of the reference's interpret mode. It never falls back from one to the
 other. Sums are float32, or, from u16 wire, int32 or uint16 (the paper's
 u16 container, which wraps at 16 bits): the integer kernels do the plain
 versions' integer arithmetic (``ref.fold``), floor divisions included.
-The wrappers take no tile arguments: the CUDA kernels choose their
-own launch geometry, and the numerics of this family do not depend on
-tiles (only :mod:`repro_torch.kernels.ops` keeps the reference's
-``row_tile`` / ``pair_tile`` / ``placement``, and ignores them).
+Every wrapper takes a launch geometry, ``row_tile`` image rows of
+``pair_tile`` pairs a block (on the step's vector path, a share of
+``row_tile * W`` pixels in whole vectors), from a tuning plan
+(:mod:`repro_torch.tune`); ``None`` keeps the kernel's default layout. An
+explicit tile must divide H or N/2 (``ValueError``, on every device, as
+the reference's). The geometry never changes a bit of the result.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, quant, ref
+from repro_torch.tune.budget import launch_tiles
 
 __all__ = [
     "alg3_stream_step",
@@ -124,11 +127,12 @@ def step_path(plane_px: int, stream_dtype: str, frames_ptr: int, sum_ptr: int) -
 
 def launch_step(fn, entry: str, group_frames, sum_frame, dims, *, fmt: int,
                 divide_first: bool, final: bool, offset: float, num_groups: int,
-                stream_dtype: str) -> None:
+                stream_dtype: str, tiles: tuple[int, int]) -> None:
     """Launch the step kernel through the C entry point ``entry`` on the path
     :func:`step_path` picks (the scalar one for an integer sum), and count
     the launch on the wrapper ``fn``. ``dims`` are the launcher's sizes,
-    from the bank or pair count to ``row_bytes``."""
+    from the bank or pair count to ``row_bytes``; ``tiles`` is the
+    launcher's ``(row_tile, pair_tile)`` (:func:`launch_tiles`)."""
     *_, h, w = sum_frame.shape
     acc = ACCUM_CODES[sum_frame.dtype]
     path = "scalar" if acc else step_path(
@@ -138,7 +142,7 @@ def launch_step(fn, entry: str, group_frames, sum_frame, dims, *, fmt: int,
         rc = getattr(lib, entry)(
             group_frames.data_ptr(), sum_frame.data_ptr(), *dims, fmt, int(divide_first),
             int(final and not divide_first), int(path == "vector"), float(offset),
-            U8_SCALE_F32, ref.reciprocal(num_groups), acc, num_groups,
+            U8_SCALE_F32, ref.reciprocal(num_groups), acc, num_groups, *tiles,
             torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, fn.__name__)
@@ -199,9 +203,13 @@ def alg3_stream_step(
     divide_first: bool = False,
     final: bool = False,
     stream_dtype: str = "u16",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
 ) -> torch.Tensor:
     """Fold one group (N, H, wire_W) into the running sum (N/2, H, W), in place."""
     check_step_shapes(group_frames, sum_frame, stream_dtype, banked=False)
+    n, h, _ = group_frames.shape
+    tiles = launch_tiles(n // 2, h, row_tile, pair_tile)
     if not on_cuda(group_frames, sum_frame):
         return sum_frame.copy_(alg3_stream_step_plain(
             group_frames, sum_frame, num_groups=num_groups, offset=offset,
@@ -209,10 +217,10 @@ def alg3_stream_step(
         ))
     fmt, items, row_bytes = check_kernel_operands(group_frames, sum_frame, stream_dtype,
                                                   integer_sums=True)
-    n, h, _ = group_frames.shape
     launch_step(alg3_stream_step, "alg3_stream_step_launch", group_frames, sum_frame,
                 (n // 2, h, items, row_bytes), fmt=fmt, divide_first=divide_first,
-                final=final, offset=offset, num_groups=num_groups, stream_dtype=stream_dtype)
+                final=final, offset=offset, num_groups=num_groups, stream_dtype=stream_dtype,
+                tiles=tiles)
     return sum_frame
 
 
@@ -253,10 +261,13 @@ def alg3_subtract_average(
     divide_first: bool = False,
     accum_dtype=torch.float32,
     stream_dtype: str = "u16",
+    row_tile: int | None = None,
+    pair_tile: int | None = None,
 ) -> torch.Tensor:
     """frames (G, N, H, wire_W) -> averaged difference frames (N/2, H, W)."""
     if frames.ndim != 4 or frames.shape[1] % 2:
         raise ValueError(f"expected (G, N, H, wire_W) with N even, got {tuple(frames.shape)}")
+    tiles = launch_tiles(frames.shape[1] // 2, frames.shape[2], row_tile, pair_tile)
     if not on_cuda(frames):
         return alg3_subtract_average_plain(
             frames, offset=offset, divide_first=divide_first,
@@ -273,7 +284,8 @@ def alg3_subtract_average(
         rc = lib.alg3_subtract_average_launch(
             frames.data_ptr(), out.data_ptr(), g, n // 2, h, items, row_bytes,
             fmt, int(divide_first), float(offset), U8_SCALE_F32,
-            ref.reciprocal(g), ACCUM_CODES[out.dtype], torch.cuda.current_stream().cuda_stream,
+            ref.reciprocal(g), ACCUM_CODES[out.dtype], *tiles,
+            torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "alg3_subtract_average")
     alg3_subtract_average.launches += 1

@@ -39,6 +39,7 @@ from repro_torch.kernels.denoise_stream import (
     check_launch,
     on_cuda,
 )
+from repro_torch.tune.budget import launch_tiles
 
 __all__ = [
     "alg1_subtract_average",
@@ -89,10 +90,11 @@ def reduce_pass_plain(tmp: torch.Tensor) -> torch.Tensor:
 
 
 def subtract_pass(frames: torch.Tensor, *, offset: float = 0.0, burst: bool,
-                  accum_dtype=torch.float32) -> torch.Tensor:
+                  accum_dtype=torch.float32, tiles: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Pass A on the card: a new (G, N/2, H, W) tmpFrame in HBM, of the
     accumulator's type. ``burst`` picks Alg 2's wide tiles over Alg 1's
-    single rows."""
+    single rows; ``tiles`` is the launcher's ``(row_tile, pair_tile)``
+    (``launch_tiles``; 0 = the default geometry)."""
     _check_frames(frames)
     _check_cuda_frames(frames, accum_dtype)
     g, n, h, w = frames.shape
@@ -101,14 +103,15 @@ def subtract_pass(frames: torch.Tensor, *, offset: float = 0.0, burst: bool,
     with torch.cuda.device(frames.device):
         rc = _build.library().tmpframe_subtract_launch(
             frames.data_ptr(), tmp.data_ptr(), g * (n // 2), h, w, int(burst),
-            float(offset), ACCUM_CODES[acc], torch.cuda.current_stream().cuda_stream,
+            float(offset), ACCUM_CODES[acc], *tiles, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "tmpframe_subtract")
     return tmp
 
 
-def reduce_pass(tmp: torch.Tensor) -> torch.Tensor:
-    """Pass B on the card: tmpFrame (G, P, H, W) -> (P, H, W) averaged."""
+def reduce_pass(tmp: torch.Tensor, *, tiles: tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Pass B on the card: tmpFrame (G, P, H, W) -> (P, H, W) averaged,
+    ``tiles`` as for :func:`subtract_pass`."""
     if tmp.ndim != 4 or tmp.dtype not in ACCUM_CODES or not tmp.is_contiguous():
         raise ValueError(
             f"expected a contiguous (G, P, H, W) float32, int32 or uint16 "
@@ -118,20 +121,22 @@ def reduce_pass(tmp: torch.Tensor) -> torch.Tensor:
     out = torch.empty((p, h, w), dtype=tmp.dtype, device=tmp.device)
     with torch.cuda.device(tmp.device):
         rc = _build.library().tmpframe_reduce_launch(
-            tmp.data_ptr(), out.data_ptr(), g, p * h, w, ref.reciprocal(g),
-            ACCUM_CODES[tmp.dtype], torch.cuda.current_stream().cuda_stream,
+            tmp.data_ptr(), out.data_ptr(), g, p, h, w, ref.reciprocal(g),
+            ACCUM_CODES[tmp.dtype], *tiles, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "tmpframe_reduce")
     return out
 
 
-def _two_pass(fn, frames, *, offset, accum_dtype, burst):
+def _two_pass(fn, frames, *, offset, accum_dtype, burst, row_tile, pair_tile):
     _check_frames(frames)
+    tiles = launch_tiles(frames.shape[1] // 2, frames.shape[2], row_tile, pair_tile)
     if not on_cuda(frames):
         return alg1_subtract_average_plain(frames, offset=offset, accum_dtype=accum_dtype)
-    tmp = subtract_pass(frames, offset=offset, burst=burst, accum_dtype=accum_dtype)
+    tmp = subtract_pass(frames, offset=offset, burst=burst, accum_dtype=accum_dtype,
+                        tiles=tiles)
     fn.launches += 1
-    out = reduce_pass(tmp)
+    out = reduce_pass(tmp, tiles=tiles)
     fn.launches += 1
     return out
 
@@ -150,11 +155,14 @@ alg2_subtract_average_plain = alg1_subtract_average_plain
 
 
 def alg1_subtract_average(
-    frames: torch.Tensor, *, offset: float = 0.0, accum_dtype=torch.float32
+    frames: torch.Tensor, *, offset: float = 0.0, accum_dtype=torch.float32,
+    row_tile: int | None = None, pair_tile: int | None = None,
 ) -> torch.Tensor:
-    """Algorithm 1: tmpFrame in HBM, single-row (non-burst) writes and reads."""
+    """Algorithm 1: tmpFrame in HBM, single-row (non-burst) writes and reads;
+    ``row_tile`` / ``pair_tile`` set both passes' launch geometry."""
     return _two_pass(
-        alg1_subtract_average, frames, offset=offset, accum_dtype=accum_dtype, burst=False
+        alg1_subtract_average, frames, offset=offset, accum_dtype=accum_dtype, burst=False,
+        row_tile=row_tile, pair_tile=pair_tile,
     )
 
 
@@ -162,11 +170,14 @@ alg1_subtract_average.launches = 0
 
 
 def alg2_subtract_average(
-    frames: torch.Tensor, *, offset: float = 0.0, accum_dtype=torch.float32
+    frames: torch.Tensor, *, offset: float = 0.0, accum_dtype=torch.float32,
+    row_tile: int | None = None, pair_tile: int | None = None,
 ) -> torch.Tensor:
-    """Algorithm 2: burst (wide-tile) writes of the tmpFrame, row reads."""
+    """Algorithm 2: burst (wide-tile) writes of the tmpFrame, row reads;
+    ``row_tile`` / ``pair_tile`` as for :func:`alg1_subtract_average`."""
     return _two_pass(
-        alg2_subtract_average, frames, offset=offset, accum_dtype=accum_dtype, burst=True
+        alg2_subtract_average, frames, offset=offset, accum_dtype=accum_dtype, burst=True,
+        row_tile=row_tile, pair_tile=pair_tile,
     )
 
 

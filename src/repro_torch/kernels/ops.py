@@ -21,10 +21,15 @@ failure to run something else. The running sums of
 are updated **in place**, where the reference donates them; each returns
 the updated tensors.
 
-``row_tile`` / ``pair_tile`` / ``placement`` are accepted here, and only
-here, for parity with the reference, and ignored (see
-:mod:`repro_torch.kernels.denoise_stream`), except ``ema_welford_step``'s
-tiles, which set its merge chunks (see :mod:`repro_torch.kernels.denoise_ema`).
+``row_tile`` / ``pair_tile`` are a tuning plan's launch geometry
+(:mod:`repro_torch.tune`): the kernels' wrappers check that an explicit
+tile divides H or N/2 (``ValueError``, as the reference's) and the
+row-gridded kernels launch it (:mod:`repro_torch.kernels.denoise_stream`);
+the geometry never changes a bit of a result, except ``ema_welford_step``'s
+``pair_tile``, which sets its merge chunks as the reference's does
+(:mod:`repro_torch.kernels.denoise_ema`). ``xla`` ignores them, as the
+reference's does. ``placement`` is accepted for parity and ignored: the
+port has one placement, the compiler's.
 Rounding follows the reference's jitted functions, except
 ``stream_finalize``, which like the reference (not jitted) divides truly
 on every device (:mod:`repro_torch.kernels.ref`).
@@ -157,15 +162,17 @@ def subtract_average(
             if algorithm == "alg1"
             else denoise_tmpframe.alg2_subtract_average
         )
-        return fn(frames, offset=offset, accum_dtype=accum_dtype)
-    fn = (
-        denoise_stream.alg3_subtract_average
-        if backend != "xla"
-        else denoise_stream.alg3_subtract_average_plain
-    )
-    return fn(
+        return fn(frames, offset=offset, accum_dtype=accum_dtype,
+                  row_tile=row_tile, pair_tile=pair_tile)
+    if backend == "xla":
+        return denoise_stream.alg3_subtract_average_plain(
+            frames, offset=offset, divide_first=(algorithm == "alg3_v2"),
+            accum_dtype=accum_dtype, stream_dtype=stream_dtype,
+        )
+    return denoise_stream.alg3_subtract_average(
         frames, offset=offset, divide_first=(algorithm == "alg3_v2"),
         accum_dtype=accum_dtype, stream_dtype=stream_dtype,
+        row_tile=row_tile, pair_tile=pair_tile,
     )
 
 
@@ -199,6 +206,7 @@ def stream_step(
         return denoise_stream.alg3_stream_step(
             group_frames, sum_frame, num_groups=num_groups, offset=offset,
             divide_first=(variant == "divide_first"), stream_dtype=stream_dtype,
+            row_tile=row_tile, pair_tile=pair_tile,
         )
     return sum_frame.copy_(ref.ref_stream_step(
         sum_frame, group_frames, offset=offset, variant=variant,
@@ -249,14 +257,15 @@ def multibank_subtract_average(
             frames, offset=offset, accum_dtype=accum_dtype,
             stream_dtype=stream_dtype, group_axis=1,
         )
-    fn = (
-        denoise_multibank.multibank_subtract_average
-        if backend != "xla"
-        else denoise_multibank.multibank_subtract_average_plain
-    )
-    return fn(
+    if backend == "xla":
+        return denoise_multibank.multibank_subtract_average_plain(
+            frames, offset=offset, divide_first=divide_first,
+            accum_dtype=accum_dtype, stream_dtype=stream_dtype,
+        )
+    return denoise_multibank.multibank_subtract_average(
         frames, offset=offset, divide_first=divide_first,
         accum_dtype=accum_dtype, stream_dtype=stream_dtype,
+        row_tile=row_tile, pair_tile=pair_tile,
     )
 
 
@@ -290,6 +299,7 @@ def multibank_stream_step(
         return denoise_multibank.multibank_stream_step(
             group_frames, sum_frames, num_groups=num_groups, offset=offset,
             divide_first=(variant == "divide_first"), stream_dtype=stream_dtype,
+            row_tile=row_tile, pair_tile=pair_tile,
         )
     return sum_frames.copy_(ref.ref_stream_step(
         sum_frames, group_frames, offset=offset, variant=variant,
@@ -318,12 +328,14 @@ def median_window_insert(
     """Fold one group's diffs into slot ``slot`` of the (K, N/2, H, W)
     window, in place; returns the window."""
     _check_backend(backend)
-    fn = (
-        denoise_median.median_window_insert
-        if backend != "xla"
-        else denoise_median.median_window_insert_plain
+    if backend == "xla":
+        return denoise_median.median_window_insert_plain(
+            window, group_frames, slot=slot, offset=offset, stream_dtype=stream_dtype
+        )
+    return denoise_median.median_window_insert(
+        window, group_frames, slot=slot, offset=offset, stream_dtype=stream_dtype,
+        row_tile=row_tile, pair_tile=pair_tile,
     )
-    return fn(window, group_frames, slot=slot, offset=offset, stream_dtype=stream_dtype)
 
 
 def median_combine(
@@ -342,7 +354,7 @@ def median_combine(
     """
     _check_backend(backend)
     if backend != "xla":
-        return denoise_median.median_combine(window)
+        return denoise_median.median_combine(window, row_tile=row_tile, pair_tile=pair_tile)
     return denoise_median.median_combine_plain(window)
 
 
@@ -395,5 +407,7 @@ def spatial_filter(
         raise ValueError(f"mode must be one of {SPATIAL_MODES}, got {mode}")
     _check_backend(backend)
     if backend != "xla":
-        return denoise_spatial.spatial_filter_3x3(frames, mode=mode, range_sigma=range_sigma)
+        return denoise_spatial.spatial_filter_3x3(
+            frames, mode=mode, range_sigma=range_sigma, row_tile=row_tile, pair_tile=pair_tile
+        )
     return denoise_spatial.spatial_filter_3x3_plain(frames, mode=mode, range_sigma=range_sigma)

@@ -18,14 +18,22 @@ graceful-degradation ladder (:data:`DEGRADE_LEVELS`).
 refusals, and :class:`FaultPlan` / :class:`FakeClock` script executor
 faults by cohort step index with no wall-clock sleeps.
 
+The elastic tier drives the fleet: :class:`Autoscaler` turns the
+``admission_pressure_slo`` burn-rate verdicts into ``scale_up``, ladder
+and ``scale_down`` actions (no threads: the operator's loop calls
+``evaluate``), and the load generator (:func:`build_trace`,
+:func:`replay_trace` over the Poisson, diurnal and flash-crowd schedules,
+:class:`TenantProfile`) replays a seeded overload on a ``FakeClock``.
+
 A 1-session run is bit-identical to ``repro_torch.core.streaming
 .run_pipelined`` for every registered filter.
-
-Not ported yet (they raise ``NotImplementedError``): the elastic tier
-that drives the fleet, ``Autoscaler`` and the load generator (ROADMAP.md
-queue A item 10(c)).
 """
 
+from repro_torch.serve.autoscale import (
+    AutoscaleDecision,
+    Autoscaler,
+    admission_pressure_slo,
+)
 from repro_torch.serve.faults import (
     Clock,
     FakeClock,
@@ -33,6 +41,16 @@ from repro_torch.serve.faults import (
     InjectedExecutorFailure,
 )
 from repro_torch.serve.fleet import DEGRADE_LEVELS, FleetScheduler
+from repro_torch.serve.loadgen import (
+    ArrivalEvent,
+    TenantProfile,
+    build_trace,
+    diurnal_schedule,
+    flash_crowd_schedule,
+    heavy_tail_groups,
+    poisson_schedule,
+    replay_trace,
+)
 from repro_torch.serve.recovery import CheckpointMismatch, SessionCheckpointer
 from repro_torch.serve.retry import BackoffPolicy, retry_with_backoff
 from repro_torch.serve.scheduler import SessionScheduler
@@ -45,6 +63,9 @@ from repro_torch.serve.session import (
 
 __all__ = [
     "AdmissionError",
+    "ArrivalEvent",
+    "AutoscaleDecision",
+    "Autoscaler",
     "BackoffPolicy",
     "CheckpointMismatch",
     "Clock",
@@ -58,22 +79,13 @@ __all__ = [
     "SessionHandle",
     "SessionReport",
     "SessionScheduler",
+    "TenantProfile",
+    "admission_pressure_slo",
+    "build_trace",
+    "diurnal_schedule",
+    "flash_crowd_schedule",
+    "heavy_tail_groups",
+    "poisson_schedule",
+    "replay_trace",
     "retry_with_backoff",
 ]
-
-#: the reference's other names -> the ROADMAP.md queue A item that ports them
-NOT_PORTED = dict.fromkeys(
-    ("Autoscaler", "AutoscaleDecision", "admission_pressure_slo", "ArrivalEvent",
-     "TenantProfile", "build_trace", "diurnal_schedule", "flash_crowd_schedule",
-     "heavy_tail_groups", "poisson_schedule", "replay_trace"),
-    "10(c)",
-)
-
-
-def __getattr__(name):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"repro_torch.serve.{name} is not ported yet (ROADMAP.md queue A "
-            f"item {NOT_PORTED[name]})"
-        )
-    raise AttributeError(f"module 'repro_torch.serve' has no attribute {name!r}")

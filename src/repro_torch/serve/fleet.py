@@ -87,9 +87,9 @@ __all__ = ["DEGRADE_LEVELS", "FleetScheduler"]
 #: graceful-degradation ladder, in escalation order: 0 nothing, 1 admit
 #: through jittered backoff, 2 downshift live sessions to cheaper modes
 #: (drop_oldest rings; u8 ingest for new arrivals), 3 shed lowest-QoS
-#: sessions. The reference's ``Autoscaler`` (not ported yet: ROADMAP.md
-#: queue A item 10(c)) climbs one rung per breached evaluation once the
-#: pool cannot grow, and restores (rung by rung) once the breach clears.
+#: sessions. The ``Autoscaler`` (``serve/autoscale.py``) climbs one rung
+#: per breached evaluation once the pool cannot grow, and restores (rung
+#: by rung) once the breach clears.
 DEGRADE_LEVELS = ("normal", "backoff", "downshift", "shed")
 
 

@@ -548,3 +548,88 @@ def test_elastic_reshard_on_the_card_is_bit_exact(cuda):
     shards = elastic_reshard(banked, state_spec_tree(banked, axes={0: "bank"}),
                              banks.BankMesh(("cuda:0", "cuda:0")))
     assert torch.equal(torch.cat(shards), banked)
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry: every tile a plan can give a row-tiled launcher.
+# ---------------------------------------------------------------------------
+
+#: kernel path -> (family in the launch model, wire format, vector path)
+GEOMETRY_CASES = {
+    "B2-vector-u16": ("stream", "u16", True),
+    "B2-scalar-p12": ("stream", "p12", False),
+    "B2-scalar-unaligned-u8": ("stream", "u8", False),
+    "B2-int32": ("stream", "u16", False),
+    "B4-vector-u8": ("stream", "u8", True),
+    "B3-u16": ("stream", "u16", False),
+    "B3-int32": ("stream", "u16", False),
+    "B5-p12": ("stream", "p12", False),
+    "B6-u16": ("median_insert", "u16", False),
+    "B6-p12": ("median_insert", "p12", False),
+    "B10-alg1": ("stream", "u16", False),
+    "B10-alg2": ("stream", "u16", False),
+}
+
+
+def _geometry_call(case, frames, device, tiles):
+    """Run ``case``'s kernel (``device`` = "cpu": its plain version) at
+    ``tiles`` on a fresh state; returns the result."""
+    kw = dict(offset=4096.0, stream_dtype=GEOMETRY_CASES[case][1], **tiles)
+    f = frames.to(device)
+    if case.startswith(("B2", "B4")):
+        one = f[0, 0] if case.startswith("B2") else f[:, 0].contiguous()
+        if case.endswith("unaligned-u8") and device != "cpu":
+            one = _shifted(one, device)
+        n, h, wp = one.shape[-3:]
+        acc = torch.int32 if case.endswith("int32") else torch.float32
+        s = torch.zeros(one.shape[:-3] + (n // 2, h, quant.logical_width(wp, kw["stream_dtype"])),
+                        dtype=acc, device=device)
+        fn = denoise_stream.alg3_stream_step if case.startswith("B2") else \
+            denoise_multibank.multibank_stream_step
+        return fn(one, s, num_groups=3, final=True, **kw)
+    if case.startswith("B3"):
+        acc = torch.int32 if case.endswith("int32") else torch.float32
+        return denoise_stream.alg3_subtract_average(f[0], accum_dtype=acc, **kw)
+    if case.startswith("B5"):
+        return denoise_multibank.multibank_subtract_average(f, **kw)
+    if case.startswith("B6"):
+        one = f[0, 0]
+        n, h, wp = one.shape
+        window = torch.zeros(2, n // 2, h, quant.logical_width(wp, kw["stream_dtype"]),
+                             device=device)
+        return denoise_median.median_window_insert(window, one, slot=1, **kw)
+    kw.pop("stream_dtype")
+    fn = denoise_tmpframe.alg1_subtract_average if case == "B10-alg1" else \
+        denoise_tmpframe.alg2_subtract_average
+    return fn(f[0], **kw)
+
+
+@pytest.mark.parametrize("case", sorted(GEOMETRY_CASES))
+@pytest.mark.parametrize("shape", [(1000, 80, 256), (14, 40, 132)], ids=["paper", "partial"])
+def test_every_admitted_geometry_bitwise_equal_plain(cuda, case, shape):
+    # At the paper's shape every geometry the launch model admits; on 40 x
+    # 132 (660 vectors a plane: a share of row_tile x 132 pixels leaves the
+    # last block of a plane partial, and 132 columns a partial warp) every
+    # pair of exact divisors, as a plan file may name them.
+    from repro_torch.tune import budget
+
+    family, fmt, vector = GEOMETRY_CASES[case]
+    n, h, w = shape
+    px = np.random.default_rng(n + h).integers(0, 4096, (2, 3, n, h, w)).astype(np.uint16)
+    frames = torch.from_numpy(np.ascontiguousarray(quant.encode(px, fmt)))
+    want = _geometry_call(case, frames, "cpu", {}).to(cuda)
+    if shape[0] == 1000:
+        geoms = budget.admitted_tiles(family, n // 2, h, w, stream_dtype=fmt, vector=vector,
+                                      limits=budget.device_limits(cuda))
+    else:
+        geoms = [(None, None)] + [(th, tp) for th in range(1, h + 1) if h % th == 0
+                                  for tp in range(1, n // 2 + 1) if (n // 2) % tp == 0]
+    assert len(geoms) > 1
+    b2 = denoise_stream.alg3_stream_step
+    paths = (b2.vector_launches, b2.scalar_launches)
+    for th, tp in geoms:
+        got = _geometry_call(case, frames, cuda, dict(row_tile=th, pair_tile=tp))
+        assert torch.equal(got, want), (case, shape, th, tp)
+    if case.startswith("B2"):  # every geometry on the path the case names
+        taken = (b2.vector_launches - paths[0], b2.scalar_launches - paths[1])
+        assert taken == ((len(geoms), 0) if vector else (0, len(geoms)))

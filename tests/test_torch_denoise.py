@@ -134,10 +134,28 @@ def test_phase_invariant_matches_reference(name):
 
 
 @pytest.mark.parametrize("plan", ["auto", "plans/denoise.json"])
-def test_unported_tile_plans_raise_not_implemented(plan):
+def test_unported_tile_plans_raise_not_implemented(plan, tmp_path, monkeypatch):
+    # both modes are ported now (queue A item 9): "auto" resolves to a
+    # measured Plan, and a plan-file path that does not exist raises
+    # ValueError at resolve time, as the reference's
+    from repro_torch import tune
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE_PATH", str(tmp_path / "plans.json"))
+    monkeypatch.chdir(tmp_path)  # "plans/denoise.json" names no file here
+    tune.clear_plan_memo()
     cfg = DenoiseConfig(**BASE, tile_plan=plan)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        StreamingDenoiser(cfg, device="cpu")
+    try:
+        if plan == "auto":
+            resolved = tune.resolve_plan(cfg, device="cpu")
+            assert isinstance(resolved, tune.Plan) and resolved.mode == "auto"
+            assert StreamingDenoiser(cfg, device="cpu").plan is resolved
+        else:
+            with pytest.raises(ValueError, match="does not exist"):
+                tune.resolve_plan(cfg, device="cpu")
+            with pytest.raises(ValueError, match="does not exist"):
+                StreamingDenoiser(cfg, device="cpu")
+    finally:
+        tune.clear_plan_memo()
 
 
 @pytest.mark.parametrize(
