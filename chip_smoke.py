@@ -22,8 +22,10 @@ then:
    B6 (median insert) and B8 (EMA step) bitwise for u16/u8/p12 and G in
    {5, 8}, B8 also at N = 1000 with the main path's 100 merge chunks, with
    500 chunks (63 rounds of 8, the last one short), with one chunk of 32
-   pairs (above the register cap), on a ragged 7 x 130 plane and with
-   pair_tile 2, 3, 6, 7 and 8 (each its own kernel); B7 (median combine)
+   pairs (above the register cap), on a ragged 7 x 130 plane, with
+   pair_tile 2, 3, 6, 7 and 8 (each its own kernel), with 24, 25 and 28
+   (the long tile's chain and its 8 lanes) and, at N = 1000, 50 and 500
+   (its windows of 32); B7 (median combine)
    bitwise for K in {1, 4, 5} and, on its selection path, K in {65, 100};
    B9 (3x3 spatial) bitwise in box mode and within its declared tolerance
    in bilateral mode, on the main path's planes and on planes that take
@@ -120,7 +122,21 @@ then:
    single measurement, and runs ``run_pipelined`` under each tuned plan,
    bitwise equal to the heuristic's; it prints each family's candidates'
    device time, the heuristic's, the winner (timed again beside the
-   heuristic with ``time_ms`` when it differs) and the tuned ``num_slots``.
+   heuristic with ``time_ms`` when it differs) and the tuned ``num_slots``;
+12. serves the model substrate's full-width models through
+   ``repro_torch.launch.serve.generate`` (random weights from a seeded
+   CUDA generator, greedy): 12a ``h2o-danube-1.8b`` (24 layers, d_model
+   2560, bfloat16) at batch 4, prompt 128, 32 tokens; 12b the same at
+   batch 1 with a 4160-token prompt (windowed q-chunked prefill, ring
+   cache rolled) and 12b+ with 8320 (banded prefill), 16 tokens each; 12c
+   ``gemma3-1b`` (26 layers, vocab 262144, tied) as 12a. It prints prefill
+   ms, decode ms per step beside the step's byte bound, tokens/s and
+   peak memory, and holds every decode step's logits to the port's own
+   forward over the same tokens (``BF16_CONSISTENCY``). 12d runs
+   ``h2o-danube-1.8b`` at full width and depth 2 in float32 (TF32 off) on
+   the card and on the CPU: logits within twice the CPU's own float32
+   error against float64 (``F32_CARD_VS_CPU_OF_F32_ERROR``), greedy tokens
+   equal wherever the top-2 margin exceeds that.
 
 Phases 2-3 are the ``pair_average`` path (B2-B5), phase 5 the other
 filters' path (B6-B9), phase 6 the baselines' path (B10), phase 7 the
@@ -128,7 +144,8 @@ banked path (B4-B9), phase 8 (8a-8d) the service's path (B2, B4, B6,
 B7), phase 9 (9a-9d) the fleet's path (B2, B4, B6-B9), phase 10 the
 elastic tier's (B2, B4, B6, B7) and phase 11 the tuned runs' (B2,
 B6-B9): every launch counter is set to 0 just before each and read just
-after; a kernel of the path launched no time there fails the run. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
+after; a kernel of the path launched no time there fails the run. Phase
+12's path (the model substrate) holds no kernel of the port. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
 its sum over those phases. The script prints the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -140,6 +157,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1197,6 +1215,183 @@ def tune_phase(cfg, groups, reset_counters, read_counters, device="cuda"):
     return launches, dict(plans=record, families=families, launches=launches)
 
 
+#: phase 12's serving runs at the published configs: (label, arch, batch,
+#: prompt tokens, generated tokens)
+SERVE_RUNS = (
+    ("12a", "h2o-danube-1.8b", 4, 128, 32),
+    # longer than the 4096-token window: the windowed q-chunked prefill (S <
+    # 2W) and the ring cache's roll
+    ("12b", "h2o-danube-1.8b", 1, 4160, 16),
+    # longer than twice the window: the banded prefill (S > 2W) and the roll
+    ("12b+", "h2o-danube-1.8b", 1, 8320, 16),
+    ("12c", "gemma3-1b", 4, 128, 32),
+)
+#: bfloat16 decode logits against the port's own forward over the same
+#: tokens, as a fraction of the forward's largest |logit| at that position:
+#: the cached decode and the full forward round in another order
+BF16_CONSISTENCY = 0.1
+#: 12d: the card's float32 logits (TF32 off) against the CPU's may differ by
+#: this many times the CPU's own float32 error against float64 on the same
+#: model: both round the same function, each in its own order
+F32_CARD_VS_CPU_OF_F32_ERROR = 2.0
+
+
+def _top2_margin(logits: torch.Tensor) -> torch.Tensor:
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in float64."""
+    want = want.double()
+    return float((got.double().to(want.device) - want).abs().max()) / float(want.abs().max())
+
+
+def serve_lm_phase(smi: str) -> dict:
+    """Phase 12: the model substrate serves full-width models on the card
+    through ``repro_torch.launch.serve.generate`` (random weights from a
+    seeded CUDA generator, the reference's prompt draws). Each decode
+    step's logits are held to the port's own forward over the prompt and
+    the chosen tokens, and beside them the forward's distance from its own
+    float32 run; 12d holds float32 logits on the card to the CPU's.
+    Returns the phase's record."""
+    from repro_torch.checkpoint.checkpoint import flat_leaves, map_tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import full_float32_matmul
+
+    dev = torch.device("cuda")
+    t12 = time.perf_counter()
+    peak_bw = card_peaks(torch.cuda.get_device_name(0))[0]
+    record, models = {}, {}
+    for label, arch, batch, prompt_len, gen in SERVE_RUNS:
+        cfg = get_config(arch)
+        if arch not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            model = build_model(cfg)
+            params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+            warm = make_train_batch(cfg, batch, 16, seed=2, device=dev)
+            serve.generate(model, params, {"tokens": warm["tokens"]}, prompt_len=16, gen=2)
+            models[arch] = (model, params)
+        model, params = models[arch]
+        prompt = make_train_batch(cfg, batch, prompt_len, seed=1, device=dev)
+        prompt.pop("labels")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = serve.generate(model, params, prompt, prompt_len=prompt_len, gen=gen)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        fed = torch.cat([prompt["tokens"], torch.from_numpy(out.first)[:, None].to(dev),
+                         torch.from_numpy(out.tokens[:, :-1]).to(dev)], dim=1)
+        f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        with torch.no_grad():
+            full = model.forward(params, {"tokens": fed})[:, prompt_len:].float()
+            with full_float32_matmul():
+                exact = f32.forward(params, {"tokens": fed})[:, prompt_len:]
+        worst, bf16_gap, checked = 0.0, 0.0, 0
+        for i, step in enumerate(out.logits):
+            want = full[:, i]
+            worst = max(worst, _rel(step, want))
+            bf16_gap = max(bf16_gap, _rel(want, exact[:, i]))
+            sure = _top2_margin(want) > BF16_CONSISTENCY * float(want.abs().max())
+            chose = torch.from_numpy(out.tokens[:, i]).to(dev)
+            if not torch.equal(chose[sure].long(), want.argmax(-1)[sure]):
+                raise AssertionError(f"phase {label}: step {i} chose another token than the "
+                                     f"forward where the top-2 margin exceeds the tolerance")
+            checked += int(sure.sum())
+        del full, exact
+        if not worst <= BF16_CONSISTENCY:
+            raise AssertionError(f"phase {label}: decode logits differ from the forward by "
+                                 f"{worst:.3g} of max |logit| > {BF16_CONSISTENCY}")
+        # one decode step's bound: every float32 parameter and the KV cache
+        # read once
+        cache_bytes = sum(math.prod(s.shape) * (2 if s.dtype == torch.bfloat16 else 4)
+                          for s in flat_leaves(model.cache_spec(batch, prompt_len + gen)))
+        param_bytes = model.param_count() * 4
+        step_ms = out.decode_s / gen * 1e3
+        bound_ms = (param_bytes + cache_bytes) / peak_bw * 1e3
+        row = dict(arch=arch, layers=cfg.num_layers, batch=batch, prompt=prompt_len, gen=gen,
+                   prefill_ms=out.prefill_s * 1e3, decode_ms_per_step=step_ms,
+                   tokens_per_s=batch * gen / out.decode_s, peak_gb=peak_gb,
+                   step_bound_ms=bound_ms, param_gb=param_bytes / 1e9,
+                   cache_gb=cache_bytes / 1e9, consistency_max_rel=worst,
+                   bf16_vs_f32_max_rel=bf16_gap, tokens_checked=checked, card=smi)
+        record[label] = row
+        print(f"phase {label}: {arch} full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"vocab {cfg.vocab_size}, {cfg.dtype}) batch {batch} prompt {prompt_len} gen {gen}: "
+              f"prefill {row['prefill_ms']:.2f} ms, decode {step_ms:.3f} ms/step "
+              f"(bound {bound_ms:.3f} ms: {param_bytes / 1e9:.2f} GB float32 params + "
+              f"{cache_bytes / 1e9:.3f} GB KV cache at {peak_bw / 1e12:.2f} TB/s; "
+              f"{step_ms / bound_ms:.2f}x the bound), {row['tokens_per_s']:.1f} tok/s aggregate, "
+              f"peak {peak_gb:.2f} GB; decode logits within {worst:.3g} of max |logit| of the "
+              f"forward (declared {BF16_CONSISTENCY}; the bfloat16 forward is {bf16_gap:.3g} "
+              f"from its float32 run), {checked} clear tokens equal ({smi})")
+    models.clear()
+    torch.cuda.empty_cache()
+
+    # 12d: full width at depth 2 in float32, the card against the CPU
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), num_layers=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    params_cpu = map_tree(lambda t: t.cpu(), params)
+    params_f64 = map_tree(lambda t: t.double() if t.is_floating_point() else t, params_cpu)
+    batch, prompt_len, gen = 2, 32, 8
+    prompt = make_train_batch(cfg, batch, prompt_len, seed=1, device=dev)
+    prompt.pop("labels")
+    card = serve.generate(model, params, prompt, prompt_len=prompt_len, gen=gen)
+    cpu = serve.generate(model, params_cpu, {"tokens": prompt["tokens"].cpu()},
+                         prompt_len=prompt_len, gen=gen)
+    fed = torch.cat([prompt["tokens"].cpu(), torch.from_numpy(card.first)[:, None],
+                     torch.from_numpy(card.tokens[:, :-1])], dim=1)
+    with full_float32_matmul(), torch.no_grad():
+        f_card = model.forward(params, {"tokens": fed.to(dev)}).cpu()
+        f_cpu = model.forward(params_cpu, {"tokens": fed})
+        f_64 = build_model(dataclasses.replace(cfg, dtype="float64")).forward(
+            params_f64, {"tokens": fed})
+    f32_err = _rel(f_cpu, f_64)  # the CPU's float32 against float64
+    tol = F32_CARD_VS_CPU_OF_F32_ERROR * f32_err
+    fwd_rel, card_err = _rel(f_card, f_cpu), _rel(f_card, f_64)
+    scale = float(f_cpu.abs().max())
+    sure = _top2_margin(f_cpu) > tol * scale
+    if not torch.equal(f_card.argmax(-1)[sure], f_cpu.argmax(-1)[sure]):
+        raise AssertionError("phase 12d: the card's forward chose another token than the CPU's "
+                             "where the top-2 margin exceeds the tolerance")
+    own = max(_rel(card.logits[i], f_card[:, prompt_len + i]) for i in range(gen))
+    step_rel, compared = 0.0, 0
+    same = np.array_equal(card.first, cpu.first)
+    for i in range(gen):
+        if not same:
+            break  # a near tie sent the two runs down different sequences
+        a, b = card.logits[i].cpu(), cpu.logits[i]
+        step_rel = max(step_rel, _rel(a, b))
+        clear = (_top2_margin(b) > tol * float(b.abs().max())).numpy()
+        if not np.array_equal(card.tokens[:, i][clear], cpu.tokens[:, i][clear]):
+            raise AssertionError(f"phase 12d: decode step {i} chose another token on the card")
+        compared += 1
+        same = np.array_equal(card.tokens[:, i], cpu.tokens[:, i])
+    worst = max(fwd_rel, step_rel, own)
+    if not worst <= tol:
+        raise AssertionError(f"phase 12d: card against CPU {worst:.3g} of max |logit| > {tol:.3g} "
+                             f"({F32_CARD_VS_CPU_OF_F32_ERROR} x the CPU's float32 error "
+                             f"{f32_err:.3g})")
+    record["12d"] = dict(forward_max_rel=fwd_rel, decode_max_rel=step_rel,
+                         card_decode_vs_forward=own, cpu_f32_vs_f64=f32_err,
+                         card_f32_vs_f64=card_err, tolerance=tol, steps_compared=compared,
+                         clear_positions=int(sure.sum()), positions=int(sure.numel()),
+                         tokens_equal=bool(np.array_equal(card.tokens, cpu.tokens)), card=smi)
+    print(f"phase 12d: h2o-danube-1.8b full width at depth 2, float32 (TF32 off), batch {batch} "
+          f"prompt {prompt_len} gen {gen}: card against CPU forward {fwd_rel:.3g}, decode "
+          f"{step_rel:.3g} over {compared} steps, the card's decode against its forward "
+          f"{own:.3g} of max |logit| (declared {tol:.3g}: {F32_CARD_VS_CPU_OF_F32_ERROR} x the "
+          f"CPU's float32 error {f32_err:.3g} against float64; the card's {card_err:.3g}); "
+          f"argmax equal at {int(sure.sum())}/{sure.numel()} clear positions; greedy tokens "
+          f"{'equal' if record['12d']['tokens_equal'] else 'diverge after a near tie'}")
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -1457,7 +1652,12 @@ def main() -> int:
         for tp in (2, 3, 6, 7, 8):  # the register tiles no other case launches
             ema_case(wire((2, 336, 16), fmt), fmt, tp, f"G=2 N=336 16x256 {fmt} pair_tile={tp}",
                      hw=(16, W))
-        new_cases += 8
+        for tp in (24, 25, 28):  # the long tile's chain and its 8 lanes (with a rest)
+            ema_case(wire((2, 4 * tp, 16), fmt), fmt, tp, f"G=2 N={4 * tp} 16x256 {fmt} "
+                     f"pair_tile={tp}", hw=(16, W))
+        for tp in (50, 500):  # windows of 32 at the paper's shape: 10 chunks, one chunk
+            ema_case(wire((g, 1000, H), fmt), fmt, tp, f"G={g} N=1000 {fmt} pair_tile={tp}")
+        new_cases += 13
     combine = denoise_median.median_combine
     for k in (65, 100):  # B7 above its network's 64 slots: the selection path, even and odd K
         win = rng.integers(4000, 4040, (k, 4, 16, W)) + (rng.random((k, 4, 16, W)) < 0.5) * 0.75
@@ -1503,7 +1703,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"phase 1: B6/B7/B8 bitwise equal to the CPU plain versions in {new_cases} cases "
           f"(u16/u8/p12, G=5/8, K=1/4/5; B8 also with 500 chunks, one chunk of 32 pairs, "
-          f"a ragged 7x130 plane and pair_tile 2/3/6/7/8) and B8 at N=1000 with 100 chunks; B7 "
+          f"a ragged 7x130 plane, pair_tile 2/3/6/7/8, 24/25/28 and, at N=1000, 50 and 500) "
+          f"and B8 at N=1000 with 100 chunks; B7 "
           f"at K=65/100 (selection path); B9 on {len(b9_planes)} planes (both tile paths) box bitwise, "
           f"bilateral max relative diff {bilateral_rel:.3g} (declared "
           f"{denoise_spatial.BILATERAL_RTOL:g}); B10 Alg 1 and Alg 2 (u16, G=5/8) bitwise "
@@ -2133,6 +2334,8 @@ def main() -> int:
     tuned_launches, record["tune"] = tune_phase(cfg, groups, reset_counters, read_counters)
     for k, n in list(elastic_launches.items()) + list(tuned_launches.items()):
         launches[k] = launches.get(k, 0) + n
+
+    record["serve_lm"] = serve_lm_phase(smi)
 
     main_rows = {r["kernel"]: r for r in rows if r["main"]}
     kernels = [

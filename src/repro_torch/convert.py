@@ -16,6 +16,14 @@ running sum, a median window, or the EMA dict of ``ema``/``wmean``/
 Because both packages round every step alike, a stream started in one
 package and finished in the other is bit-identical to a stream run in
 either alone.
+
+The model substrate has weights, drawn by ``jax.random`` in the reference
+and by a ``torch.Generator`` here (different numbers from one seed). To
+run both on the same model, :func:`params_from_reference` carries the
+reference's parameter tree (host copies, ``np.asarray`` of each leaf:
+nested dicts and lists in JAX's leaf order) into the port's tree of the
+same structure, and :func:`caches_from_reference` its decode caches;
+float32, bfloat16 (``ml_dtypes``) and int32 leaves carry exactly.
 """
 
 from __future__ import annotations
@@ -25,10 +33,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import map_tree
 from repro_torch.core.denoise import DenoiseConfig
 from repro_torch.kernels.ops import resolve_device
 
-__all__ = ["config_from_reference", "state_from_reference", "state_to_reference"]
+__all__ = ["config_from_reference", "state_from_reference", "state_to_reference",
+           "params_from_reference", "caches_from_reference"]
 
 
 def config_from_reference(fields: dict) -> DenoiseConfig:
@@ -56,3 +66,24 @@ def state_to_reference(state):
     if isinstance(state, dict):
         return {k: state_to_reference(v) for k, v in state.items()}
     return state.detach().cpu().numpy().copy()
+
+
+def _leaf_from_reference(a, dev) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: carry the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def params_from_reference(tree, device=None):
+    """The reference's parameter tree (numpy leaves) as the port's, leaf for
+    leaf, on ``device`` (CUDA unless the caller names another;
+    ``RuntimeError`` when CUDA is absent)."""
+    dev = resolve_device(device)
+    return map_tree(lambda a: _leaf_from_reference(a, dev), tree)
+
+
+def caches_from_reference(tree, device=None):
+    """The reference's decode caches (a list of segments of stacked
+    ``{k, v, pos}`` dicts, numpy leaves) as the port's, on ``device``."""
+    return params_from_reference(tree, device)

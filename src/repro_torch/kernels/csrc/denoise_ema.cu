@@ -49,7 +49,17 @@
 //   mean'  = fma(fma(s, 1/m, -mean), r, mean)
 //   M2'    = M2 + fma((cm - mean)^2, c, chunk)
 // with m = pair_tile and k the chunk's index. The host passes 1 - a, a and
-// 1/m already rounded to float32.
+// 1/m already rounded to float32. That is the order up to kChainMax pairs a
+// chunk. Longer chunks take XLA's CPU orders for the two sums (the plain
+// version's chunk_sums in kernels/denoise_ema.py says why):
+//   up to kLanesMax: 8 lanes, lane l summing (or fma-chaining the squares
+//     of) pairs l, l + 8, ... below 8 * (m / 8); the lanes folded l + l+4,
+//     then + 2, then + 1; the remaining pairs chained on in order;
+//   above: windows of kWindow pairs over the chunk padded with zeros to a
+//     multiple of kWindow (low pad (padded - m) / 2), each summed in order,
+//     then the partials in order; the centred value is fma(-s, 1/m, d), its
+//     square rounded on its own, and the merge's cm - mean is
+//     fma(s, 1/m, -mean).
 
 #include "quant.cuh"
 
@@ -60,6 +70,9 @@ using namespace repro_quant;
 constexpr int kLanes = 32;      // thread items per block, one per thread of a warp
 constexpr int kChunkLanes = 8;  // chunks per round, one warp each
 constexpr int kCap = 8;         // chunks of up to kCap pairs keep their diffs in registers
+constexpr int kChainMax = 24;   // the sums' order by chunk length (see above)
+constexpr int kLanesMax = 32;
+constexpr int kWindow = 32;
 
 // Blocks per SM the registers must allow: 5 hold the paper's 640 tiles of 32
 // pixels (u16, u8) on 132 SMs at once; p12 has half as many tiles. A tile
@@ -67,12 +80,159 @@ constexpr int kCap = 8;         // chunks of up to kCap pairs keep their diffs i
 template <int FMT>
 constexpr int kMinBlocks = FMT == kP12 ? 3 : 5;
 
+// The 8-lane vector loop's fold: lanes l + l+4, then + 2, then + 1.
+template <int P>
+__device__ __forceinline__ void fold_lanes(float (&lane)[8][P], float (&out)[P]) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const float a0 = __fadd_rn(lane[0][k], lane[4][k]), a1 = __fadd_rn(lane[1][k], lane[5][k]);
+    const float a2 = __fadd_rn(lane[2][k], lane[6][k]), a3 = __fadd_rn(lane[3][k], lane[7][k]);
+    out[k] = __fadd_rn(__fadd_rn(a0, a2), __fadd_rn(a1, a3));
+  }
+}
+
+// A chunk longer than kCap pairs (TILE 0) at thread item t, s and sq zeroed:
+// the first pass updates the EMA and forms s, the second re-reads the wire
+// pairs for the centred squares, each pass in the chunk length's order.
+template <int FMT>
+__device__ __forceinline__ void chunk_stats_long(
+    float* __restrict__ ema_px, const uint8_t* __restrict__ ctl0, int t, int tile,
+    int64_t frame_bytes, int64_t plane_px, float offset, float u8_scale, float alpha,
+    float one_minus_alpha, float rcp_tile, float (&s)[Item<FMT>::kPixels],
+    float (&sq)[Item<FMT>::kPixels]) {
+  constexpr int P = Item<FMT>::kPixels;
+  auto diff = [&](int i, float (&d)[P]) {
+    const uint8_t* ctl = ctl0 + 2 * i * frame_bytes;
+    pair_diff<FMT>(ctl, ctl + frame_bytes, t, offset, u8_scale, d);
+  };
+  auto ema_diff = [&](int i, float (&d)[P]) {
+    diff(i, d);
+    float* e = ema_px + i * plane_px;
+#pragma unroll
+    for (int k = 0; k < P; ++k) e[k] = __fmaf_rn(e[k], one_minus_alpha, __fmul_rn(alpha, d[k]));
+  };
+  if (tile <= kChainMax) {
+    for (int i = 0; i < tile; ++i) {
+      float d[P];
+      ema_diff(i, d);
+#pragma unroll
+      for (int k = 0; k < P; ++k) s[k] = __fadd_rn(s[k], d[k]);
+    }
+    for (int i = 0; i < tile; ++i) {
+      float d[P];
+      diff(i, d);
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const float dc = __fsub_rn(d[k], __fmul_rn(s[k], rcp_tile));
+        sq[k] = __fmaf_rn(dc, dc, sq[k]);
+      }
+    }
+    return;
+  }
+  if (tile <= kLanesMax) {
+    const int full = tile / 8 * 8;
+    float lane[8][P];
+#pragma unroll
+    for (int l = 0; l < 8; ++l)
+#pragma unroll
+      for (int k = 0; k < P; ++k) lane[l][k] = 0.0f;
+    for (int i0 = 0; i0 < full; i0 += 8) {
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        float d[P];
+        ema_diff(i0 + l, d);
+#pragma unroll
+        for (int k = 0; k < P; ++k) lane[l][k] = __fadd_rn(lane[l][k], d[k]);
+      }
+    }
+    fold_lanes<P>(lane, s);
+    for (int i = full; i < tile; ++i) {
+      float d[P];
+      ema_diff(i, d);
+#pragma unroll
+      for (int k = 0; k < P; ++k) s[k] = __fadd_rn(s[k], d[k]);
+    }
+    float cm[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) cm[k] = __fmul_rn(s[k], rcp_tile);
+#pragma unroll
+    for (int l = 0; l < 8; ++l)
+#pragma unroll
+      for (int k = 0; k < P; ++k) lane[l][k] = 0.0f;
+    for (int i0 = 0; i0 < full; i0 += 8) {
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        float d[P];
+        diff(i0 + l, d);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const float dc = __fsub_rn(d[k], cm[k]);
+          lane[l][k] = __fmaf_rn(dc, dc, lane[l][k]);
+        }
+      }
+    }
+    fold_lanes<P>(lane, sq);
+    for (int i = full; i < tile; ++i) {
+      float d[P];
+      diff(i, d);
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const float dc = __fsub_rn(d[k], cm[k]);
+        sq[k] = __fmaf_rn(dc, dc, sq[k]);
+      }
+    }
+    return;
+  }
+  const int padded = (tile + kWindow - 1) / kWindow * kWindow;
+  const int low = (padded - tile) / 2;
+  float part[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) part[k] = 0.0f;
+  for (int i = 0; i < tile; ++i) {
+    if (i > 0 && (i + low) % kWindow == 0) {
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        s[k] = __fadd_rn(s[k], part[k]);
+        part[k] = 0.0f;
+      }
+    }
+    float d[P];
+    ema_diff(i, d);
+#pragma unroll
+    for (int k = 0; k < P; ++k) part[k] = __fadd_rn(part[k], d[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    s[k] = __fadd_rn(s[k], part[k]);
+    part[k] = 0.0f;
+  }
+  for (int i = 0; i < tile; ++i) {
+    if (i > 0 && (i + low) % kWindow == 0) {
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        sq[k] = __fadd_rn(sq[k], part[k]);
+        part[k] = 0.0f;
+      }
+    }
+    float d[P];
+    diff(i, d);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float dc = __fmaf_rn(-s[k], rcp_tile, d[k]);
+      part[k] = __fadd_rn(part[k], __fmul_rn(dc, dc));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) sq[k] = __fadd_rn(sq[k], part[k]);
+}
+
 // One chunk of pairs [p0, p0 + tile) at thread item t: update the EMA in
 // place and return the chunk's sequential sum s and centred sum of squares
 // sq, rounded as the contract says. The wire frame of pair p is 2p (control)
 // and 2p + 1 (excitation); every plane is (H * W) contiguous pixels. TILE is
 // the chunk's pair count when it is at most kCap (its diffs stay in
-// registers), and 0 for a longer chunk (its wire pairs are read twice).
+// registers), and 0 for a longer chunk (its wire pairs are read twice, and
+// its sums take the order of its length).
 template <int FMT, int TILE>
 __device__ __forceinline__ void chunk_stats(
     const uint8_t* __restrict__ frames, float* __restrict__ ema, int t, int64_t p0,
@@ -109,28 +269,9 @@ __device__ __forceinline__ void chunk_stats(
         sq[k] = __fmaf_rn(dc, dc, sq[k]);
       }
     }
-    return;
-  }
-  for (int i = 0; i < tile; ++i) {
-    const uint8_t* ctl = ctl0 + 2 * i * frame_bytes;
-    float d[P];
-    pair_diff<FMT>(ctl, ctl + frame_bytes, t, offset, u8_scale, d);
-    float* e = ema_px + i * plane_px;
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      e[k] = __fmaf_rn(e[k], one_minus_alpha, __fmul_rn(alpha, d[k]));
-      s[k] = __fadd_rn(s[k], d[k]);
-    }
-  }
-  for (int i = 0; i < tile; ++i) {  // the second pass re-reads the wire pairs
-    const uint8_t* ctl = ctl0 + 2 * i * frame_bytes;
-    float d[P];
-    pair_diff<FMT>(ctl, ctl + frame_bytes, t, offset, u8_scale, d);
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const float dc = __fsub_rn(d[k], __fmul_rn(s[k], rcp_tile));
-      sq[k] = __fmaf_rn(dc, dc, sq[k]);
-    }
+  } else {
+    chunk_stats_long<FMT>(ema_px, ctl0, t, tile, frame_bytes, plane_px, offset, u8_scale,
+                          alpha, one_minus_alpha, rcp_tile, s, sq);
   }
 }
 
@@ -152,6 +293,7 @@ __global__ void __launch_bounds__(kLanes * kChunkLanes, kMinBlocks<FMT>)
   const bool merger = r == 0 && live;
   const int64_t plane_px = static_cast<int64_t>(plane_items) * P;
   const float m = static_cast<float>(pair_tile);
+  const bool windowed = pair_tile > kLanesMax;
   float mu[P], var[P];
   if (merger) {
 #pragma unroll
@@ -192,7 +334,8 @@ __global__ void __launch_bounds__(kLanes * kChunkLanes, kMinBlocks<FMT>)
 #pragma unroll
           for (int k = 0; k < P; ++k) {
             const float2 st = stats[buf][j][k][lane];
-            const float dp = __fsub_rn(__fmul_rn(st.x, rcp_tile), mu[k]);
+            const float dp = windowed ? __fmaf_rn(st.x, rcp_tile, -mu[k])
+                                      : __fsub_rn(__fmul_rn(st.x, rcp_tile), mu[k]);
             var[k] = __fadd_rn(var[k], __fmaf_rn(__fmul_rn(dp, dp), w.y, st.y));
             mu[k] = __fmaf_rn(__fmaf_rn(st.x, rcp_tile, -mu[k]), w.x, mu[k]);
           }

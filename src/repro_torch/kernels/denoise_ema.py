@@ -23,6 +23,28 @@ kernel, the plain version and the reference's interpret mode agree bit
 for bit. :func:`ema_welford_step_xla` is the reference's one-pass XLA
 composite (``backend="xla"``), a different function in its last bits.
 
+**The order of a chunk's sums** depends on its length ``m`` (pairs), as
+XLA's CPU compiler lays out ``diff.mean(0)`` and
+``((diff - mean) ** 2).sum(0)``:
+
+* ``m <= CHAIN_MAX`` (24): one sequential chain, the squares fused into
+  it (``fma(dc, dc, acc)``);
+* ``m <= LANES_MAX`` (32): LLVM vectorizes the loop over the chunk,
+  8 lanes wide: lane ``l`` chains elements ``l, l + 8, ...`` below
+  ``8 * (m // 8)``, the lanes are folded pairwise (``l + l+4``, then
+  ``+2``, then ``+1``), and the rest follow in order;
+* ``m > LANES_MAX``: XLA rewrites the reduction as windows of
+  ``WINDOW`` (32) over the chunk padded with zeros to a multiple of 32
+  (the low pad ``(padded - m) // 2``), each window summed in order, then
+  the partials in order. The squares are rounded on their own, and the
+  centring ``x - s / m`` and the merge's ``s / m - mean`` are contracted
+  into FMAs.
+
+Between 22 and 27 pairs XLA's choice between the first two also depends
+on the size of the fused loop body (the wire format, and Pallas against
+the XLA composite); there the port keeps the rule above and differs from
+the reference by the tolerance ``ROADMAP.md`` declares for B8.
+
 Dispatch, checks and the launch counter are as in
 :mod:`repro_torch.kernels.denoise_stream`.
 """
@@ -54,6 +76,11 @@ def _ema_update(ema, diff, alpha):
     return ref.fma_f32(ema, float(np.float32(1) - a), diff * _f32(a).to(diff.device))
 
 
+CHAIN_MAX = 24   # a chunk of up to this many pairs: one sequential chain
+LANES_MAX = 32   # up to this many: 8 vector lanes, a pairwise fold, the rest
+WINDOW = 32      # longer: zero-padded windows of 32, then their partials
+
+
 def _seq_sum(d: torch.Tensor) -> torch.Tensor:
     """``((0 + d[0]) + d[1]) + ...`` over the leading axis, in float32."""
     s = torch.zeros_like(d[0])
@@ -62,12 +89,62 @@ def _seq_sum(d: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def _sum_squares(d: torch.Tensor) -> torch.Tensor:
-    """``fma(d[m-1], d[m-1], ... fma(d[0], d[0], 0))`` over the leading axis."""
-    acc = torch.zeros_like(d[0])
-    for i in range(d.shape[0]):
-        acc = ref.fma_f32(d[i], d[i], acc)
+def _lanes(d: torch.Tensor, step) -> torch.Tensor:
+    """The 8-lane vector loop: ``step(acc, x)`` down each lane, the lanes
+    folded pairwise (``l + l+4``, ``+2``, ``+1``), then the rest in order."""
+    full = d.shape[0] // 8 * 8
+    acc = torch.zeros_like(d[:8])
+    for k in range(0, full, 8):
+        acc = step(acc, d[k:k + 8])
+    acc = acc[:4] + acc[4:]
+    acc = acc[:2] + acc[2:]
+    acc = acc[0] + acc[1]
+    for i in range(full, d.shape[0]):
+        acc = step(acc, d[i])
     return acc
+
+
+def _windows(d: torch.Tensor) -> torch.Tensor:
+    """XLA's windowed sum: pad to a multiple of ``WINDOW`` (low pad
+    ``(padded - m) // 2``), sum each window in order, then the partials."""
+    m = d.shape[0]
+    padded = -(-m // WINDOW) * WINDOW
+    low = (padded - m) // 2
+    x = torch.cat([d.new_zeros((low,) + d.shape[1:]), d,
+                   d.new_zeros((padded - m - low,) + d.shape[1:])])
+    return _seq_sum(_seq_sum(x.reshape((-1, WINDOW) + d.shape[1:]).transpose(0, 1)))
+
+
+def _add(acc, x):
+    return acc + x
+
+
+def _fma_square(acc, x):
+    return ref.fma_f32(x, x, acc)
+
+
+def chunk_sums(d: torch.Tensor, rcp: torch.Tensor):
+    """``(s, chunk_m2, windowed)`` of one chunk ``d`` ``(m, ...)`` in the
+    reference's order for its length; ``windowed`` says the merge
+    contracts ``s / m - mean`` (chunks above ``LANES_MAX``)."""
+    m = d.shape[0]
+    if m > LANES_MAX:
+        s = _windows(d)
+        dc = ref.fma_f32(-s.expand_as(d), float(rcp), d)
+        return s, _windows(dc * dc), True
+    if m > CHAIN_MAX:
+        s = _lanes(d, _add)
+        return s, _lanes(d - s * rcp, _fma_square), False
+    s = _seq_sum(d)
+    acc = torch.zeros_like(d[0])
+    for dc in d - s * rcp:
+        acc = _fma_square(acc, dc)
+    return s, acc, False
+
+
+def _centred_delta(s, rcp, mean, windowed):
+    """``s / m - mean``: contracted after a windowed sum, else rounded."""
+    return ref.fma_f32(s, float(rcp), -mean) if windowed else s * rcp - mean
 
 
 def _check(ema, wmean, wm2, group_frames, stream_dtype):
@@ -105,14 +182,11 @@ def ema_welford_step_plain(
     prior = _f32(prior_count).to(dev)
     mean, m2 = wmean, wm2
     for k in range(diff.shape[0] // pair_tile):
-        d = diff[k * pair_tile:(k + 1) * pair_tile]
-        s = _seq_sum(d)
-        cm = s * rcp
-        chunk = _sum_squares(d - cm)
+        s, chunk, windowed = chunk_sums(diff[k * pair_tile:(k + 1) * pair_tile], rcp)
         n = prior + _f32(k).to(dev) * m
         tot = n + m
         r, c = m / tot, (n * m) / tot
-        dp = cm - mean
+        dp = _centred_delta(s, rcp, mean, windowed)
         m2 = m2 + ref.fma_f32(dp * dp, c, chunk)
         mean = ref.fma_f32(ref.fma_f32(s, rcp, -mean), r, mean)
     return new_ema, mean, m2
@@ -132,12 +206,10 @@ def ema_welford_step_xla(
     p = diff.shape[0]
     m, n = _f32(p).to(dev), _f32(prior_count).to(dev)
     rcp = _f32(np.float32(1) / np.float32(p)).to(dev)
-    s = _seq_sum(diff)
-    cm = s * rcp
-    chunk = _sum_squares(diff - cm)
+    s, chunk, windowed = chunk_sums(diff, rcp)
     tot = n + m
     new_mean = ref.fma_f32(ref.fma_f32(s, rcp, -wmean), m / tot, wmean)
-    dp = cm - wmean
+    dp = _centred_delta(s, rcp, wmean, windowed)
     new_m2 = ref.fma_f32(dp * dp, (n * m) / tot, wm2 + chunk)
     return new_ema, new_mean, new_m2
 

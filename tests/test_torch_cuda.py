@@ -147,6 +147,30 @@ def test_ema_kernel_chunk_rounds_bitwise_equal_plain(cuda, fmt, pairs, pair_tile
     assert denoise_ema.ema_welford_step.launches - before == groups
 
 
+@pytest.mark.parametrize(
+    "pairs, pair_tile",
+    [(96, 24), (100, 25), (112, 28), (480, 32), (500, 50), (500, 100), (500, 250), (500, 500)],
+    ids=["chain-24", "lanes-25", "lanes-28", "lanes-32", "windows-50", "windows-100",
+         "windows-250", "windows-500"],
+)
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+def test_ema_kernel_long_chunks_bitwise_equal_plain(cuda, fmt, pairs, pair_tile):
+    # above the register cap the long tile sums a chunk in the reference's
+    # order for its length: one chain up to 24 pairs, 8 lanes up to 32,
+    # windows of 32 beyond (denoise_ema.chunk_sums)
+    frames = _wire((2, 2 * pairs, 16), fmt, seed=pair_tile)
+    gpu = [torch.zeros(pairs, 16, 256, device=cuda), torch.zeros(16, 256, device=cuda),
+           torch.zeros(16, 256, device=cuda)]
+    cpu = [t.cpu() for t in gpu]
+    for g in range(2):
+        kw = dict(alpha=0.3, offset=4096.0, prior_count=7 + pairs * g, pair_tile=pair_tile,
+                  stream_dtype=fmt)
+        denoise_ema.ema_welford_step(*gpu, frames[g].to(cuda), **kw)
+        cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[g], **kw))
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     s = torch.zeros(4, 8, 256, device=cuda)
     with pytest.raises(NotImplementedError, match="float32"):

@@ -48,7 +48,12 @@ def test_import_loads_neither_jax_nor_reference():
                 "obs.slo", "obs.health", "obs.regress", "core.latency_model", "core.egress",
                 "optim", "optim.compress", "checkpoint", "checkpoint.checkpoint", "runtime",
                 "runtime.fault_tolerance", "runtime.elastic", "serve.recovery", "serve.fleet",
-                "serve.autoscale", "serve.loadgen", "tune.autotune", "tune.cache", "tune.plan"):
+                "serve.autoscale", "serve.loadgen", "tune.autotune", "tune.cache", "tune.plan",
+                "configs", "configs.base", "configs.registry", "configs.h2o_danube_1_8b",
+                "configs.gemma3_1b", "configs.qwen2_5_32b", "configs.command_r_35b",
+                "distributed", "distributed.sharding", "distributed.context", "models",
+                "models.layers", "models.attention", "models.transformer", "models.model",
+                "launch", "launch.inputs", "launch.serve"):
         assert f"repro_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -237,6 +242,52 @@ REFERENCE_SERVE_NAMES = (
     "diurnal_schedule", "flash_crowd_schedule", "heavy_tail_groups", "poisson_schedule",
     "replay_trace", "retry_with_backoff",
 )
+
+
+@pytest.mark.parametrize("entry", ["serve_main", "model_init", "init_params", "params",
+                                   "caches", "batch"])
+def test_model_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import inputs, serve
+    from repro_torch.models import build_model
+
+    cfg = get_config("h2o-danube-1.8b", smoke=True)
+    spec = {"w": sharding.ParamSpec((2, 3), ("embed", "mlp"))}
+    calls = {
+        "serve_main": lambda: serve.main(["--smoke", "--gen", "1"]),
+        "model_init": lambda: build_model(cfg).init(),
+        "init_params": lambda: sharding.init_params(spec, generator=torch.Generator()),
+        "params": lambda: convert.params_from_reference({"w": np.zeros((2, 3), np.float32)}),
+        "caches": lambda: convert.caches_from_reference([[{"pos": np.zeros(4, np.int32)}]]),
+        "batch": lambda: inputs.make_train_batch(cfg, 2, 4),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+def test_unported_model_families_raise_naming_their_item():
+    # the dense family serves (queue A items 13(a), 13(b) in part); the
+    # other mixers and families, and placement over a device mesh, raise
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build_model
+
+    for arch, what in (("deepseek-v2-lite-16b", "'mla' mixer"), ("mixtral-8x7b", "'moe' block"),
+                       ("mamba2-780m", "'ssd' mixer"), ("recurrentgemma-9b", "'rec' mixer"),
+                       ("whisper-large-v3", "audio family"),
+                       ("llama-3.2-vision-11b", "vlm family")):
+        model = build_model(get_config(arch, smoke=True))
+        with pytest.raises(NotImplementedError, match=rf"{what}.*item 13\(b\)"):
+            model.spec()
+        if arch != "mixtral-8x7b":  # its caches are attention caches, ported
+            with pytest.raises(NotImplementedError, match=r"item 13\(b\)"):
+                model.cache_spec(2, 8)
+    spec = {"w": sharding.ParamSpec((2, 3), ("embed", "mlp"))}
+    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+        sharding.named_shardings(spec, None)
+    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+        sharding.logical_sharding((2, 3), ("embed", "mlp"), None)
 
 
 def test_unported_serve_names_raise_naming_their_item():
