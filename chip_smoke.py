@@ -136,7 +136,23 @@ then:
    ``h2o-danube-1.8b`` at full width and depth 2 in float32 (TF32 off) on
    the card and on the CPU: logits within twice the CPU's own float32
    error against float64 (``F32_CARD_VS_CPU_OF_F32_ERROR``), greedy tokens
-   equal wherever the top-2 margin exceeds that.
+   equal wherever the top-2 margin exceeds that. 12e-12j serve every other
+   family at its published widths (``FAMILY_RUNS``): 12e ``mixtral-8x7b``
+   cut to 8 of its 32 layers (its float32 parameters outgrow the card) and
+   12f ``deepseek-v2-lite-16b`` (27 layers, MLA and 64 experts) at batch 4,
+   prompt 128, 32 tokens; 12g ``recurrentgemma-9b`` and 12h
+   ``mamba2-780m`` at batch 1 with a 4160-token prompt (the scan past the
+   2048 window; 32.5 SSD chunks, the pad path), 16 tokens; 12i
+   ``llama-3.2-vision-11b`` at batch 4, prompt 128, 1601 image
+   embeddings, 32 tokens; 12j ``whisper-large-v3`` at batch 4 from 1500
+   encoder frames, 32 tokens decoded from token 0. Their weights follow the
+   reference's rules except that every ``fan_in`` weight is drawn
+   N(0, 1/d_model) (``scaled_init``; the vlm's gates seeded nonzero), and
+   each prints what 12a prints and its seconds. Every decode step is held
+   to the model's own forward within ``BF16_CONSISTENCY``; an MoE model is
+   timed at its published capacity factor and held at
+   ``MOE_CONSISTENCY_CAPACITY`` at the positions whose top-k sets agree
+   in every MoE layer, the flips counted.
 
 Phases 2-3 are the ``pair_average`` path (B2-B5), phase 5 the other
 filters' path (B6-B9), phase 6 the baselines' path (B10), phase 7 the
@@ -1234,6 +1250,24 @@ BF16_CONSISTENCY = 0.1
 #: this many times the CPU's own float32 error against float64 on the same
 #: model: both round the same function, each in its own order
 F32_CARD_VS_CPU_OF_F32_ERROR = 2.0
+#: phase 12's runs of the other families at their published widths:
+#: (label, arch, depth (None: the published depth), batch, prompt tokens,
+#: generated tokens). 12e cuts mixtral to 8 of its 32 layers: its float32
+#: parameters (187 GB) outgrow the card's 80 GB. 12j (audio) has no prompt:
+#: it encodes 1500 frames and decodes from token 0.
+FAMILY_RUNS = (
+    ("12e", "mixtral-8x7b", 8, 4, 128, 32),
+    ("12f", "deepseek-v2-lite-16b", None, 4, 128, 32),
+    # a long prompt through the scan and past the 2048-token window
+    ("12g", "recurrentgemma-9b", None, 1, 4160, 16),
+    # 4160 = 32.5 chunks of 128: the pad path
+    ("12h", "mamba2-780m", None, 1, 4160, 16),
+    ("12i", "llama-3.2-vision-11b", None, 4, 128, 32),
+    ("12j", "whisper-large-v3", None, 4, 0, 32),
+)
+#: the MoE runs' decode is held to the forward at this capacity factor, as
+#: the reference's own decode test does: no token is dropped at any length
+MOE_CONSISTENCY_CAPACITY = 64.0
 
 
 def _top2_margin(logits: torch.Tensor) -> torch.Tensor:
@@ -1388,8 +1422,192 @@ def serve_lm_phase(smi: str) -> dict:
           f"CPU's float32 error {f32_err:.3g} against float64; the card's {card_err:.3g}); "
           f"argmax equal at {int(sure.sum())}/{sure.numel()} clear positions; greedy tokens "
           f"{'equal' if record['12d']['tokens_equal'] else 'diverge after a near tie'}")
+    for run in FAMILY_RUNS:
+        record[run[0]] = serve_family_run(*run, smi=smi, peak_bw=peak_bw)
     print(f"phase 12: {time.perf_counter() - t12:.1f} s")
     return record
+
+
+def _moe_sets(routes, n_layers: int, batch: int):
+    """Per MoE layer, the sorted expert choices (B, T, k) of the calls in
+    ``routes`` (each call's (G, gs, k) choices over B x T tokens)."""
+    per_layer = [[] for _ in range(n_layers)]
+    for i, r in enumerate(routes):
+        per_layer[i % n_layers].append(r["expert_idx"].reshape(batch, -1, r["expert_idx"].shape[-1]))
+    return [torch.cat(calls, dim=1).sort(-1).values for calls in per_layer]
+
+
+def _step_param_bytes(model, decode_routes, gen: int) -> float:
+    """The float32 parameter bytes one decode step must read: every
+    parameter, less (audio) the encoder's, which decode never reads, and
+    all but one row of the learned decoder positions, and less (MoE) the
+    experts no token of the step chose, averaged over the steps."""
+    from repro_torch.distributed import sharding as sh
+
+    cfg, spec = model.cfg, model.spec()
+    n = sh.count_params(spec)
+    if cfg.family == "audio":
+        n -= (sh.count_params(spec["encoder"]) + sh.count_params(spec["enc_pos"])
+              + sh.count_params(spec["enc_norm"]) + (cfg.decoder_positions - 1) * cfg.d_model)
+    if cfg.num_experts:
+        if len(decode_routes) != (cfg.num_layers - cfg.first_dense_layers) * gen:
+            raise AssertionError(f"{len(decode_routes)} MoE routings recorded over {gen} steps")
+        per_expert = 3 * cfg.d_model * (cfg.moe_d_ff or cfg.d_ff)
+        unused = sum(cfg.num_experts - int(torch.unique(r["expert_idx"][r["kept"]]).numel())
+                     for r in decode_routes)
+        n -= unused * per_expert / gen
+    return n * 4
+
+
+def scaled_init(model, generator, device):
+    """Random parameters for 12e-12j: the reference's rules, except that
+    every ``fan_in`` weight is drawn N(0, 1/d_model). The reference's
+    ``fan_in`` divides by the square root of a leaf's first axis, which for
+    a stacked weight is its layer count (1/sqrt(8) for mixtral's experts,
+    not 1/sqrt(4096)): such a random model amplifies rounding until its
+    bfloat16 forward lies O(1) of max |logit| from its float32 one, and no
+    two orders of the same bfloat16 sums agree within ``BF16_CONSISTENCY``
+    (PERF.md §6)."""
+    from repro_torch.checkpoint.checkpoint import map_tree
+    from repro_torch.distributed import sharding as sh
+
+    scale = 1.0 / math.sqrt(model.cfg.d_model)
+    spec = map_tree(lambda s: dataclasses.replace(s, init="normal", scale=scale)
+                    if s.init == "fan_in" else s, model.spec())
+    return sh.init_params(spec, generator=generator, device=device)
+
+
+def serve_family_run(label, arch, depth, batch, prompt_len, gen, *, smi, peak_bw) -> dict:
+    """One of 12e-12j: ``arch`` at its published widths (``depth`` layers
+    where the card cannot hold them all), served through
+    ``serve.generate`` after a warm-up; every decode step held to the
+    port's own forward over the same tokens within ``BF16_CONSISTENCY``.
+    An MoE model is timed at its published capacity factor and held to its
+    forward at ``MOE_CONSISTENCY_CAPACITY``, at the (sequence, step)
+    positions whose top-k sets agree in every MoE layer; the flips are
+    counted and printed."""
+    from repro_torch.checkpoint.checkpoint import flat_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import full_float32_matmul
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    published = get_config(arch)
+    cfg = dataclasses.replace(published, num_layers=depth) if depth else published
+    model = build_model(cfg)
+    params = scaled_init(model, torch.Generator(device=dev).manual_seed(0), dev)
+    if cfg.family == "vlm":
+        # the gates start at zero, which skips every cross layer: seeded
+        # nonzero gates, so decode reads the image embeddings
+        gen_g = torch.Generator(device=dev).manual_seed(5)
+        for k in ("gate_attn", "gate_mlp"):
+            params["cross_layers"][k].uniform_(0.5, 1.5, generator=gen_g)
+    prompt = make_train_batch(cfg, batch, prompt_len, seed=1, device=dev)
+    prompt.pop("labels")
+    extras = {k: prompt[k] for k in ("image_embeds", "frames") if k in prompt}
+    warm = make_train_batch(cfg, batch, 0 if cfg.family == "audio" else 16, seed=2, device=dev)
+    warm.pop("labels")
+    serve.generate(model, params, warm, prompt_len=warm["tokens"].shape[1], gen=2)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with MOE.recording_routes() as routes:
+        out = serve.generate(model, params, prompt, prompt_len=prompt_len, gen=gen)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(bool(torch.isfinite(step).all()) for step in out.logits):
+        raise AssertionError(f"phase {label}: a decode step's logits are not finite")
+    moe_layers = cfg.num_layers - cfg.first_dense_layers if cfg.num_experts else 0
+    param_bytes = _step_param_bytes(model, routes[len(routes) - moe_layers * gen:], gen)
+    cache_bytes = sum(math.prod(s.shape) * (2 if s.dtype == torch.bfloat16 else 4)
+                      for s in flat_leaves(model.cache_spec(batch, prompt_len + gen)))
+    input_bytes = sum(t.numel() * t.element_size() for t in extras.values())
+    step_ms = out.decode_s / gen * 1e3
+    bound_ms = (param_bytes + cache_bytes + input_bytes) / peak_bw * 1e3
+    del routes
+
+    # consistency: decode against the model's own forward over the same tokens
+    held, held_cfg = out, cfg
+    if cfg.num_experts:
+        held_cfg = dataclasses.replace(cfg, capacity_factor=MOE_CONSISTENCY_CAPACITY)
+    held_model = build_model(held_cfg)
+    with MOE.recording_routes() as routes:
+        if cfg.num_experts:
+            held = serve.generate(held_model, params, prompt, prompt_len=prompt_len, gen=gen)
+        fed = torch.cat([prompt["tokens"], torch.from_numpy(held.first)[:, None].to(dev),
+                         torch.from_numpy(held.tokens[:, :-1]).to(dev)], dim=1)
+        n_run = len(routes)
+        with torch.no_grad():
+            full = held_model.forward(params, {"tokens": fed, **extras})[:, prompt_len:].float()
+    agree = torch.ones((batch, gen), dtype=torch.bool, device=dev)
+    flips = prompt_flips = 0
+    if cfg.num_experts:
+        run_sets = _moe_sets(routes[:moe_layers], moe_layers, batch)  # the prefill
+        step_sets = _moe_sets(routes[moe_layers:n_run], moe_layers, batch)
+        fwd_sets = _moe_sets(routes[n_run:], moe_layers, batch)
+        for pre, dec, fwd in zip(run_sets, step_sets, fwd_sets):
+            prompt_flips += int((pre != fwd[:, :prompt_len]).any(-1).sum())
+            differ = (dec != fwd[:, prompt_len:]).any(-1)
+            flips += int(differ.sum())
+            agree &= ~differ
+    del routes
+    with torch.no_grad(), full_float32_matmul():
+        exact = build_model(dataclasses.replace(held_cfg, dtype="float32")).forward(
+            params, {"tokens": fed, **extras})[:, prompt_len:]
+    worst, bf16_gap, checked = 0.0, 0.0, 0
+    for i, step in enumerate(held.logits):
+        want = full[:, i]
+        rows = agree[:, i]
+        scale = float(want.abs().max())
+        if bool(rows.any()):
+            diff = (step.double() - want.double()).abs().amax(-1)
+            worst = max(worst, float(diff[rows].max()) / scale)
+        bf16_gap = max(bf16_gap, _rel(want, exact[:, i]))
+        sure = rows & (_top2_margin(want) > BF16_CONSISTENCY * scale)
+        chose = torch.from_numpy(held.tokens[:, i]).to(dev)
+        if not torch.equal(chose[sure].long(), want.argmax(-1)[sure]):
+            raise AssertionError(f"phase {label}: step {i} chose another token than the "
+                                 f"forward where the top-2 margin exceeds the tolerance")
+        checked += int(sure.sum())
+    del full, exact, held
+    if not worst <= BF16_CONSISTENCY:
+        raise AssertionError(f"phase {label}: decode logits differ from the forward by "
+                             f"{worst:.3g} of max |logit| > {BF16_CONSISTENCY}")
+    row = dict(arch=arch, layers=cfg.num_layers, published_layers=published.num_layers,
+               batch=batch, prompt=prompt_len, gen=gen, prefill_ms=out.prefill_s * 1e3,
+               decode_ms_per_step=step_ms, tokens_per_s=batch * gen / out.decode_s,
+               peak_gb=peak_gb, step_bound_ms=bound_ms, step_param_gb=param_bytes / 1e9,
+               param_gb=model.param_count() * 4 / 1e9, cache_gb=cache_bytes / 1e9,
+               consistency_max_rel=worst, bf16_vs_f32_max_rel=bf16_gap,
+               tokens_checked=checked, positions_held=int(agree.sum()),
+               routing_flips=flips, prompt_routing_flips=prompt_flips,
+               consistency_capacity_factor=held_cfg.capacity_factor if cfg.num_experts else None,
+               seconds=0.0, card=smi)
+    del params, model, held_model, out
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    cut = (f"depth cut to {cfg.num_layers} of {published.num_layers} layers"
+           if depth else f"{cfg.num_layers} layers")
+    moe = (f"; held at capacity_factor {MOE_CONSISTENCY_CAPACITY} (timed at "
+           f"{cfg.capacity_factor}): {flips} of {batch * gen * moe_layers} decode (token, layer) "
+           f"top-k sets differ from the forward's, {prompt_flips} of the prefill's "
+           f"{batch * prompt_len * moe_layers}; held at the "
+           f"{int(agree.sum())} positions whose routing agrees" if cfg.num_experts else "")
+    print(f"phase {label}: {arch} full width ({cut}, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}) batch {batch} prompt {prompt_len} gen {gen}: "
+          f"prefill {row['prefill_ms']:.2f} ms, decode {step_ms:.3f} ms/step (bound "
+          f"{bound_ms:.3f} ms: {param_bytes / 1e9:.2f} GB of float32 params a step reads + "
+          f"{cache_bytes / 1e9:.3f} GB cache + {input_bytes / 1e9:.3f} GB inputs at "
+          f"{peak_bw / 1e12:.2f} TB/s; {step_ms / bound_ms:.2f}x the bound), "
+          f"{row['tokens_per_s']:.1f} tok/s aggregate, peak {peak_gb:.2f} GB; decode logits "
+          f"within {worst:.3g} of max |logit| of the forward (declared {BF16_CONSISTENCY}; the "
+          f"bfloat16 forward is {bf16_gap:.3g} from its float32 run){moe}, {checked} clear "
+          f"tokens equal; {row['seconds']:.1f} s ({smi})")
+    return row
 
 
 def main() -> int:

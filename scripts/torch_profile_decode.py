@@ -5,11 +5,13 @@ the card (``torch.profiler``).
 Run on the machine with the card, from the root of a checkout::
 
     python3 scripts/torch_profile_decode.py [--arch h2o-danube-1.8b]
-        [--batch 4] [--prompt 128] [--steps 8] [--out FILE]
+        [--layers N] [--batch 4] [--prompt 128] [--steps 8] [--out FILE]
 
-It builds the published config with random weights (a seeded CUDA
-generator, as ``chip_smoke.py`` phase 12 does), prefills ``--prompt``
-tokens, takes three decode steps to warm up, times ``--steps`` greedy
+It builds the published config (``--layers`` cuts its depth) with random
+weights (a seeded CUDA generator, as ``chip_smoke.py`` phase 12 does),
+prefills ``--prompt`` tokens (the audio family encodes its frames and
+decodes from token 0 instead, as ``serve.generate`` does; decode batches
+carry the image or frame embeddings), takes three decode steps to warm up, times ``--steps`` greedy
 decode steps on the host clock (synchronised, no profiler), then
 profiles as many more. It prints one JSON object: the card, the host
 time of a step, the device time its kernels take (the sum of the
@@ -21,6 +23,7 @@ parameter casts (``aten::to``/``aten::_to_copy``) among them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,6 +39,7 @@ import torch  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h2o-danube-1.8b")
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=128)
     ap.add_argument("--steps", type=int, default=8)
@@ -50,6 +54,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.launch.serve import _start_audio
     from repro_torch.models import build_model
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -57,19 +62,28 @@ def main() -> int:
                           check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
-    prompt = make_train_batch(cfg, args.batch, args.prompt, seed=1, device=dev)
+    audio = cfg.family == "audio"
+    prompt = make_train_batch(cfg, args.batch, 0 if audio else args.prompt, seed=1, device=dev)
+    extras = {k: prompt[k] for k in ("image_embeds", "frames") if k in prompt}
     total = args.prompt + 3 + 2 * args.steps
 
     with torch.no_grad():
-        logits, caches = model.prefill(params, prompt, max_len=total)
-        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
-        index = args.prompt
+        if audio:
+            caches = _start_audio(model, params, prompt, total)
+            tok = torch.zeros((args.batch, 1), dtype=torch.int32, device=dev)
+            index = 0
+        else:
+            logits, caches = model.prefill(params, prompt, max_len=total)
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+            index = args.prompt
 
         def step():
             nonlocal logits, caches, tok, index
-            logits, caches = model.decode_step(params, caches, {"token": tok}, index)
+            logits, caches = model.decode_step(params, caches, {"token": tok, **extras}, index)
             tok = logits.argmax(-1, keepdim=True).to(torch.int32)
             index += 1
 

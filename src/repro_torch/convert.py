@@ -21,8 +21,18 @@ The model substrate has weights, drawn by ``jax.random`` in the reference
 and by a ``torch.Generator`` here (different numbers from one seed). To
 run both on the same model, :func:`params_from_reference` carries the
 reference's parameter tree (host copies, ``np.asarray`` of each leaf:
-nested dicts and lists in JAX's leaf order) into the port's tree of the
-same structure, and :func:`caches_from_reference` its decode caches;
+nested dicts and lists in JAX's leaf order, 0-d leaves such as the vlm's
+gates included) into the port's tree of the same structure, and
+:func:`caches_from_reference` its decode caches, of every family:
+
+* decoder-only: a list of segments, each a list of per-position caches
+  stacked over the repeats: attention ``{k, v, pos}``, MLA
+  ``{c_kv, k_pe, pos}``, SSD ``{ssm, conv}`` and RG-LRU ``{lru, conv}``
+  states;
+* vlm: a list of the self-attention positions' stacked ``{k, v, pos}``;
+* audio: ``{"self": {k, v, pos}, "cross": {k, v}}``, each stacked over
+  the decoder layers.
+
 float32, bfloat16 (``ml_dtypes``) and int32 leaves carry exactly.
 """
 
@@ -84,6 +94,6 @@ def params_from_reference(tree, device=None):
 
 
 def caches_from_reference(tree, device=None):
-    """The reference's decode caches (a list of segments of stacked
-    ``{k, v, pos}`` dicts, numpy leaves) as the port's, on ``device``."""
+    """The reference's decode caches of any family (see the module
+    docstring; numpy leaves) as the port's, on ``device``."""
     return params_from_reference(tree, device)

@@ -128,11 +128,13 @@ def init_params(spec_tree, *, generator: torch.Generator, device=None, dtype=Non
             return torch.ones(s.shape, dtype=dt, device=dev)
         if s.init == "const":
             return torch.full(s.shape, s.scale, dtype=dt, device=dev)
+        # scaled in place: a second copy of the largest leaf (deepseek's
+        # stacked experts, 19 GB) would not fit beside the rest on the card
         x = torch.randn(s.shape, generator=generator, device=generator.device)
         if s.init == "fan_in":
-            x = x / math.sqrt(max(s.shape[0] if s.shape else 1, 1))
+            x.div_(math.sqrt(max(s.shape[0] if s.shape else 1, 1)))
         else:
-            x = x * s.scale
+            x.mul_(s.scale)
         return x.to(device=dev, dtype=dt)
 
     return map_tree(one, spec_tree)

@@ -9,8 +9,12 @@ It runs on the card unless ``--device`` names another device, and raises
 from a seeded generator on the device (not ``jax.random``'s numbers), the
 prompt is the reference's (``make_train_batch(..., seed=1)``), and
 :func:`generate` is the loop, so a caller can pass other parameters (for
-instance the reference's, through ``repro_torch.convert``). Only the dense
-family serves here (ROADMAP.md queue A item 13(b)).
+instance the reference's, through ``repro_torch.convert``). Every
+``ARCH_ID`` serves, as in the reference's ``main``: each decode batch
+carries the prompt batch's ``image_embeds`` or ``frames``, and the audio
+family does not prefill: it encodes the frames, starts from caches made
+by ``cache_spec`` with the precomputed cross K/V, and decodes from token 0
+at position 0.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch.inputs import make_train_batch
 from repro_torch.models import build_model
+from repro_torch.models import encdec as ED
 from repro_torch.models.layers import full_float32_matmul
 
 __all__ = ["Generation", "generate", "main"]
@@ -34,7 +40,8 @@ __all__ = ["Generation", "generate", "main"]
 @dataclasses.dataclass
 class Generation:
     tokens: np.ndarray           # (B, gen): the token each decode step chose
-    first: np.ndarray            # (B,): the token chosen from the prefill's logits
+    first: np.ndarray            # (B,): the first token fed to decode: chosen from the
+                                 # prefill's logits (audio: the start token 0)
     logits: list                 # each decode step's logits (B, V), on the device
     prefill_s: float             # host seconds, the device synchronised
     decode_s: float              # the whole decode loop, likewise
@@ -52,31 +59,56 @@ def _pick(logits, temperature: float, generator):
     return torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
 
 
+def _start_audio(model, params, batch, max_len: int):
+    """The reference's audio start: encode the frames, caches from
+    ``cache_spec`` (zeros, positions -1) with the cross K/V precomputed."""
+    cfg = model.cfg
+    device = batch["frames"].device
+    caches = sh.init_params(model.cache_spec(batch["frames"].shape[0], max_len),
+                            generator=torch.Generator(device=device).manual_seed(2),
+                            device=device)
+    enc = ED.encode(params, batch["frames"], cfg)
+    caches["cross"] = ED.precompute_cross_kv(params, enc, cfg)
+    return caches
+
+
 @torch.no_grad()
 def generate(model, params, batch, *, prompt_len: int, gen: int, temperature: float = 0.0,
              generator: torch.Generator | None = None) -> Generation:
     """Prefill ``batch["tokens"]`` (B, prompt_len) into caches sized for
     ``prompt_len + gen`` tokens, then take ``gen`` decode steps, each
     feeding the token chosen from the previous logits (greedy: the first
-    arg max, as ``jnp.argmax``). The caches are updated in place.
+    arg max, as ``jnp.argmax``) with the batch's ``image_embeds`` or
+    ``frames``. The caches are updated in place. The audio family encodes
+    ``batch["frames"]`` in place of the prefill and decodes from token 0
+    at position 0 (its ``prefill_s`` times the encoder and the cross K/V).
 
     ``temperature > 0`` samples from ``softmax(logits / temperature)``
     with ``generator``; those draws are not ``jax.random.categorical``'s
     and are not comparable with the reference's sampled tokens.
     """
     device = batch["tokens"].device
+    extras = {k: batch[k] for k in ("image_embeds", "frames") if k in batch}
+    max_len = prompt_len + gen
     with full_float32_matmul():
         _sync(device)
         t0 = time.perf_counter()
-        logits, caches = model.prefill(params, batch, max_len=prompt_len + gen)
-        tok = _pick(logits, temperature, generator)
+        if model.cfg.family == "audio":
+            caches = _start_audio(model, params, batch, max_len)
+            tok = torch.zeros((batch["frames"].shape[0], 1), dtype=torch.int32, device=device)
+            start = 0
+        else:
+            logits, caches = model.prefill(params, batch, max_len=max_len)
+            tok = _pick(logits, temperature, generator)
+            start = prompt_len
         first = tok[:, 0]
         _sync(device)
         prefill_s = time.perf_counter() - t0
         steps, chosen = [], []
         t0 = time.perf_counter()
         for i in range(gen):
-            logits, caches = model.decode_step(params, caches, {"token": tok}, prompt_len + i)
+            logits, caches = model.decode_step(params, caches, {"token": tok, **extras},
+                                               start + i)
             tok = _pick(logits, temperature, generator)
             steps.append(logits)
             chosen.append(tok[:, 0])

@@ -10,9 +10,20 @@
   prefill(params, batch, max_len=None)     (last logits, caches)
   decode_step(params, caches, batch, index)  (logits, caches), in place
 
-Batches are dicts of tensors: ``{tokens (B,S), labels (B,S)}``, and
-``{token (B,1)}`` for a decode step. The audio (encoder-decoder) and vlm
-families raise ``NotImplementedError`` (ROADMAP.md queue A item 13(b)).
+Batch dicts:
+
+  LM families:  {tokens (B,S), labels (B,S)}
+  audio:        {frames (B,T_enc,D), tokens, labels}   (frontend stub)
+  vlm:          {tokens, labels, image_embeds (B,T_img,D)}  (stub)
+
+Decode batches carry ``{token (B,1)}`` plus the modality stubs. Every
+family of the reference serves here (decoder-only with attention, MLA,
+MoE, RG-LRU and SSD blocks; the vlm and the encoder-decoder).
+
+As in the reference, ``prefill`` of the audio family returns the last
+logits of the teacher-forced decoder and ``{"cross": ...}`` alone, no
+self-attention caches: a server starts the decoder from token 0 over
+caches from ``cache_spec`` instead (``launch/serve.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +32,9 @@ import torch
 
 from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
+from repro_torch.models import vision as V
 
 __all__ = ["build_model", "Model", "cross_entropy"]
 
@@ -38,17 +51,14 @@ class Model:
     def __init__(self, cfg):
         self.cfg = cfg
 
-    def _check_family(self):
-        if self.cfg.family in ("audio", "vlm"):
-            raise NotImplementedError(
-                f"the {self.cfg.family} family ({self.cfg.name}) is not ported to "
-                "repro_torch yet: ROADMAP.md queue A item 13(b)"
-            )
-
     # ---- params ----
     def spec(self):
-        self._check_family()
-        return T.model_spec(self.cfg)
+        c = self.cfg
+        if c.family == "audio":
+            return ED.encdec_spec(c)
+        if c.family == "vlm":
+            return V.vlm_spec(c)
+        return T.model_spec(c)
 
     def init(self, generator: torch.Generator | None = None, *, device=None):
         """float32 parameters on ``device`` (CUDA unless the caller names
@@ -75,29 +85,51 @@ class Model:
 
     # ---- training ----
     def forward(self, params, batch):
-        self._check_family()
-        logits, _ = T.forward(params, batch["tokens"], self.cfg)
+        c = self.cfg
+        if c.family == "audio":
+            return ED.encdec_forward(params, batch["frames"], batch["tokens"], c)
+        if c.family == "vlm":
+            return V.vlm_forward(params, batch["tokens"], batch["image_embeds"], c)
+        logits, _ = T.forward(params, batch["tokens"], c)
         return logits
 
     def loss(self, params, batch):
-        self._check_family()
-        logits, aux = T.forward(params, batch["tokens"], self.cfg)
+        c = self.cfg
+        if c.family in ("audio", "vlm"):
+            return cross_entropy(self.forward(params, batch), batch["labels"])
+        logits, aux = T.forward(params, batch["tokens"], c)
         return cross_entropy(logits, batch["labels"]) + aux
 
     # ---- serving ----
     def cache_spec(self, batch: int, seq_len: int):
-        self._check_family()
-        return T.cache_spec_tree(self.cfg, batch, seq_len)
+        c = self.cfg
+        if c.family == "audio":
+            return ED.decoder_cache_spec(c, batch, seq_len)
+        if c.family == "vlm":
+            return V.vlm_cache_spec(c, batch, seq_len)
+        return T.cache_spec_tree(c, batch, seq_len)
 
     def prefill(self, params, batch, *, max_len=None):
-        self._check_family()
-        return T.prefill(params, batch["tokens"], self.cfg, max_len=max_len)
+        c = self.cfg
+        if c.family == "audio":
+            enc = ED.encode(params, batch["frames"], c)
+            logits = ED.decoder_forward(params, batch["tokens"], enc, c)
+            return logits[:, -1, :], {"cross": ED.precompute_cross_kv(params, enc, c)}
+        if c.family == "vlm":
+            return V.vlm_prefill(params, batch["tokens"], batch["image_embeds"], c,
+                                 max_len=max_len)
+        return T.prefill(params, batch["tokens"], c, max_len=max_len)
 
     def decode_step(self, params, caches, batch, index):
         """One token per sequence at position ``index``; ``caches`` are
         updated in place (consumed) and returned."""
-        self._check_family()
-        return T.decode_step(params, caches, batch["token"], index, self.cfg)
+        c = self.cfg
+        if c.family == "audio":
+            return ED.encdec_decode_step(params, caches, batch["token"], index, c)
+        if c.family == "vlm":
+            return V.vlm_decode_step(params, caches, batch["token"], batch["image_embeds"],
+                                     index, c)
+        return T.decode_step(params, caches, batch["token"], index, c)
 
 
 def build_model(cfg) -> Model:

@@ -8,17 +8,19 @@ blocks (pattern length 1 = a plain homogeneous stack):
   command-r-35b      [(40, [parallel attn+mlp])]
   h2o-danube-1.8b    [(24, [attn-swa + mlp])]
   gemma3-1b          [(4, [5x local, global])] + [(2, [local])]
+  deepseek-v2-lite   [(1, [mla + dense-mlp])] + [(26, [mla + moe])]
+  mixtral-8x7b       [(32, [attn-swa + moe])]
+  recurrentgemma-9b  [(12, [rec, rec, attn-local])] + [(2, [rec])]
+  mamba2-780m        [(48, [ssd])]
 
 The parameters of a pattern position are stacked over its repeats (a
 leading ``layers`` axis), caches likewise, as in the reference. The
 reference scans the stack (``jax.lax.scan``); here a loop walks the
-leading axis, each layer reading views of the stacked tensors.
-
-This slice runs the dense family (``attn`` mixers with a dense ``mlp``).
-The plans of the other families are kept, so their layouts can be read,
-but building or running an ``mla``, ``ssd`` or ``rec`` mixer or a
-``moe`` block raises ``NotImplementedError`` (ROADMAP.md queue A item
-13(b)). ``remat`` is a training concern and does not apply to serving.
+leading axis, each layer reading views of the stacked tensors, and decode
+updates the caller's caches (KV caches, MLA latents, SSD and RG-LRU
+states) in place. Every mixer (``attn``, ``mla``, ``ssd``, ``rec``) and
+block (``mlp``, ``moe``) serves; ``remat`` is a training concern and does
+not apply to serving.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ from repro_torch.distributed.context import constrain
 from repro_torch.distributed.sharding import stack_spec
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as M
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as R
+from repro_torch.models import ssd as S
 
 __all__ = ["BlockDesc", "stack_plan", "model_spec", "cache_spec_tree",
            "forward", "prefill", "decode_step"]
@@ -45,13 +51,6 @@ class BlockDesc:
     window: int = 0            # 0 = global attention
     d_ff: int | None = None    # per-block MLP width override
     parallel: bool = False     # command-r style parallel residual
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP.md queue A item 13(b) "
-        "(this slice serves the dense family)"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -109,50 +108,90 @@ def stack_plan(cfg) -> list[tuple[int, list[BlockDesc]]]:
 
 
 def block_spec(cfg, desc: BlockDesc):
-    if desc.mixer != "attn":
-        raise _unported(f"the {desc.mixer!r} mixer")
-    if desc.ffn not in ("mlp", None):
-        raise _unported(f"the {desc.ffn!r} block")
-    spec: dict[str, Any] = {"ln1": L.norm_spec(cfg), "mixer": A.attn_spec(cfg)}
+    spec: dict[str, Any] = {"ln1": L.norm_spec(cfg)}
+    if desc.mixer == "attn":
+        spec["mixer"] = A.attn_spec(cfg)
+    elif desc.mixer == "mla":
+        spec["mixer"] = M.mla_spec(cfg)
+    elif desc.mixer == "ssd":
+        spec["mixer"] = S.ssd_spec(cfg)
+    elif desc.mixer == "rec":
+        spec["mixer"] = R.rglru_spec(cfg)
+    else:
+        raise ValueError(desc.mixer)
     if desc.ffn == "mlp":
         spec["mlp"] = L.mlp_spec(cfg, d_ff=desc.d_ff)
         if not desc.parallel:
             spec["ln2"] = L.norm_spec(cfg)
+    elif desc.ffn == "moe":
+        spec["moe"] = MOE.moe_spec(cfg)
+        spec["ln2"] = L.norm_spec(cfg)
     return spec
 
 
 def block_cache_spec(cfg, desc: BlockDesc, batch: int, seq_len: int):
     """Decode-time cache for one block. Ring caches for windowed layers."""
-    if desc.mixer != "attn":
-        raise _unported(f"the {desc.mixer!r} mixer's cache")
-    cache_len = min(desc.window, seq_len) if desc.window else seq_len
-    return A.cache_spec(cfg, batch, cache_len, dtype=L.compute_dtype(cfg))
+    if desc.mixer == "attn":
+        cache_len = min(desc.window, seq_len) if desc.window else seq_len
+        return A.cache_spec(cfg, batch, cache_len, dtype=L.compute_dtype(cfg))
+    if desc.mixer == "mla":
+        return M.mla_cache_spec(cfg, batch, seq_len, dtype=L.compute_dtype(cfg))
+    if desc.mixer == "ssd":
+        return S.ssd_state_spec(cfg, batch)
+    if desc.mixer == "rec":
+        return R.rglru_state_spec(cfg, batch)
+    raise ValueError(desc.mixer)
+
+
+def _mixer(params, h, cfg, desc: BlockDesc, *, mode, cache, index, max_len):
+    """The block's mixer -> (output, cache)."""
+    target = max_len or h.shape[1]
+    if desc.mixer == "attn":
+        if mode == "decode":
+            return A.decode_attention(params, h, cache, index, cfg, window=desc.window)
+        if mode == "prefill":
+            cache_len = min(desc.window, target) if desc.window else target
+            return A.prefill_attention(params, h, cfg, window=desc.window, cache_len=cache_len)
+        return A.attention(params, h, cfg, window=desc.window), cache
+    if desc.mixer == "mla":
+        if mode == "decode":
+            return M.mla_decode(params, h, cache, index, cfg)
+        if mode == "prefill":
+            return M.mla_attention(params, h, cfg, return_cache=True, cache_len=target)
+        return M.mla_attention(params, h, cfg), cache
+    if desc.mixer == "ssd":
+        if mode == "decode":
+            return S.ssd_decode(params, h, cache, cfg)
+        if mode == "prefill":
+            return S.apply_ssd(params, h, cfg, return_state=True)
+        return S.apply_ssd(params, h, cfg), cache
+    if desc.mixer == "rec":
+        if mode == "decode":
+            return R.rglru_decode(params, h, cache, cfg)
+        if mode == "prefill":
+            return R.apply_rglru(params, h, cfg, return_state=True)
+        return R.apply_rglru(params, h, cfg), cache
+    raise ValueError(desc.mixer)
 
 
 def apply_block(params, x, cfg, desc: BlockDesc, *, mode: str, cache=None, index=None,
                 max_len=None):
-    """x -> (x, new_cache) for a block :func:`block_spec` built (an
-    ``attn`` mixer). ``decode`` updates ``cache`` in place."""
+    """x -> (x, new_cache, aux_loss). ``decode`` updates ``cache`` in place;
+    aux_loss is the MoE block's, else ``None`` (no loss)."""
     h = L.apply_norm(params["ln1"], x, cfg)
-    new_cache = cache
-    if mode == "decode":
-        att, new_cache = A.decode_attention(params["mixer"], h, cache, index, cfg,
-                                            window=desc.window)
-    elif mode == "prefill":
-        target = max_len or x.shape[1]
-        cache_len = min(desc.window, target) if desc.window else target
-        att, new_cache = A.prefill_attention(params["mixer"], h, cfg, window=desc.window,
-                                             cache_len=cache_len)
-    else:
-        att = A.attention(params["mixer"], h, cfg, window=desc.window)
-
+    att, new_cache = _mixer(params["mixer"], h, cfg, desc, mode=mode, cache=cache,
+                            index=index, max_len=max_len)
     if desc.parallel and desc.ffn == "mlp":
         # command-r: attn and mlp read the same norm, summed residual
-        return x + att + L.apply_mlp(params["mlp"], h, cfg), new_cache
+        return x + att + L.apply_mlp(params["mlp"], h, cfg), new_cache, None
     x = x + att
+    aux = None
     if desc.ffn == "mlp":
         x = x + L.apply_mlp(params["mlp"], L.apply_norm(params["ln2"], x, cfg), cfg)
-    return x, new_cache
+    elif desc.ffn == "moe":
+        out, aux = MOE.apply_moe(params["moe"], L.apply_norm(params["ln2"], x, cfg), cfg)
+        x = x + out
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -186,9 +225,11 @@ def _layer(tree, i: int):
 
 
 def _run_segments(params, x, cfg, *, mode, caches=None, index=None, max_len=None):
-    """Run every layer in order. ``prefill`` returns the caches it builds,
+    """Run every layer in order -> (x, aux, caches); aux sums the MoE
+    blocks' losses (float32). ``prefill`` returns the caches it builds,
     stacked as the reference's scan does; ``decode`` updates ``caches`` in
     place and returns them."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for seg_i, (repeat, pattern) in enumerate(stack_plan(cfg)):
         seg_params = params["segments"][seg_i]
@@ -197,9 +238,11 @@ def _run_segments(params, x, cfg, *, mode, caches=None, index=None, max_len=None
         for r in range(repeat):
             for j, desc in enumerate(pattern):
                 c = _layer(seg_caches[j], r) if seg_caches is not None else None
-                x, nc = apply_block(_layer(seg_params[j], r), x, cfg, desc, mode=mode,
-                                    cache=c, index=index, max_len=max_len)
+                x, nc, aux = apply_block(_layer(seg_params[j], r), x, cfg, desc, mode=mode,
+                                         cache=c, index=index, max_len=max_len)
                 x = constrain(x, ("act_batch", "act_seq", "act_embed"))
+                if aux is not None:
+                    aux_total = aux_total + aux
                 if mode == "prefill":
                     built[j].append(nc)
         if mode == "prefill":
@@ -209,18 +252,17 @@ def _run_segments(params, x, cfg, *, mode, caches=None, index=None, max_len=None
             ])
         elif seg_caches is not None:
             new_caches.append(seg_caches)
-    return x, (new_caches or None)
+    return x, aux_total, (new_caches or None)
 
 
 def forward(params, tokens, cfg, *, mode: str = "train"):
-    """tokens (B,S) -> (logits (B,S,V), aux). aux is the MoE loss, 0 for the
-    dense family."""
+    """tokens (B,S) -> (logits (B,S,V), aux). aux is the summed MoE loss
+    (float32), 0 without MoE blocks."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
     x = constrain(x, ("act_batch", "act_seq", "act_embed"))
-    x, _ = _run_segments(params, x, cfg, mode="train")
+    x, aux, _ = _run_segments(params, x, cfg, mode="train")
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return constrain(logits, ("act_batch", "act_seq", "act_vocab")), aux
 
 
@@ -228,7 +270,7 @@ def prefill(params, tokens, cfg, *, max_len=None):
     """tokens (B,S) -> (last-position logits (B,V), caches). ``max_len``
     sizes the caches for subsequent decode steps (defaults to S)."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
-    x, caches = _run_segments(params, x, cfg, mode="prefill", max_len=max_len)
+    x, _, caches = _run_segments(params, x, cfg, mode="prefill", max_len=max_len)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x[:, -1:, :], cfg)
     return logits[:, 0, :], caches
@@ -238,7 +280,8 @@ def decode_step(params, caches, token, index: int, cfg):
     """token (B,1) int; index: its position -> (logits (B,V), caches).
     ``caches`` are updated in place and returned (they are consumed)."""
     x = L.embed_tokens(params["embed"], token, cfg)
-    x, caches = _run_segments(params, x, cfg, mode="decode", caches=caches, index=int(index))
+    x, _, caches = _run_segments(params, x, cfg, mode="decode", caches=caches,
+                                 index=int(index))
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg)
     return logits[:, 0, :], caches

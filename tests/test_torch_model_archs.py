@@ -1,24 +1,35 @@
-"""The four dense architectures (smoke configs) through the port's
-``build_model`` against the JAX reference's, on the CPU, with the
-reference's parameters carried over (``convert.params_from_reference``)
-and the same token batches (``make_train_batch``, the same numpy draws).
+"""Every architecture (smoke configs) through the port's ``build_model``
+against the JAX reference's, on the CPU, with the reference's parameters
+carried over (``convert.params_from_reference``) and the same batches
+(``make_train_batch``, the same numpy draws). The vlm's gates start at
+zero in both packages, which would skip its cross-attention: the test
+sets both gates of every cross layer to seeded nonzero values in the
+numpy tree that both packages get.
 
 Tolerances, as fractions of the reference's largest |logit| (measured in
-brackets, over the four archs):
+brackets):
 
-* float32: ``F32_RTOL`` 3e-5 (1.6e-5, gemma3's 12 layers; 2e-6 to 9e-6
-  for the others). Each framework multiplies in its own order and
-  evaluates ``exp``/``rsqrt`` with its own libm. Loss: relative 1e-6
-  (1.5e-7).
-* bfloat16: ``BF16_RTOL`` 0.1 (8.7e-2 for gemma3, 3.3e-2 at most for the
-  others). XLA fuses each scanned layer and keeps float32 between fused
-  ops where eager PyTorch rounds after every op. That is smaller than
-  what bfloat16 itself costs: both packages' bfloat16 logits lie 8e-2 to
-  4e-1 of max |logit| from their float32 ones, and the test holds the
-  port's gap to the reference under the reference's own gap to float32.
-  Loss: relative 5e-3 (1.5e-3).
+* float32: ``F32_RTOL`` 3e-5 (1.6e-5, gemma3's 12 layers; 5.6e-7 to 8.7e-6
+  for the other archs), except two archs whose random weights amplify
+  float32 rounding itself: ``recurrentgemma-9b`` 1e-3 (5.7e-4) and
+  ``whisper-large-v3`` 1e-4 (5.1e-5). On those two, each package's
+  float32 forward lies as far from a float64 forward of the port (5.6e-4
+  and 5.2e-5; the reference's 5.0e-4 and 2.0e-5), so no float32 port can
+  come closer. Each framework multiplies in its own order and evaluates
+  ``exp``/``rsqrt`` with its own libm. Loss: relative 1e-6 (1.5e-7;
+  recurrentgemma 7.0e-6, held to 1e-5).
+* bfloat16: ``BF16_RTOL`` 0.1 and at most the reference's own bfloat16
+  gap to its float32 forward on the same model (measured: 4.8e-2 to
+  7.7e-2 for the new archs, against the reference's own 8.3e-2 to 0.35).
+  XLA fuses each scanned layer and keeps float32 between fused ops where
+  eager PyTorch rounds after every op. ``whisper-large-v3`` is held to 0.4
+  (0.29), under its own gap: both packages' bfloat16 forwards lie 0.49
+  from their float32 ones, and the port's as far from the reference's
+  float32 forward as the reference's own. Loss: relative 5e-3.
 * the port's prefill-then-decode against its own forward: ``TOL`` 2e-3,
-  the reference's limit in ``tests/test_decode_consistency.py``.
+  the reference's limit in ``tests/test_decode_consistency.py``, with
+  MoE at ``capacity_factor=64`` as there (no token is dropped, so a
+  decode step and the forward route alike).
 """
 
 import dataclasses
@@ -27,30 +38,68 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jget_config
+from repro.distributed import sharding as jsh
 from repro.launch.inputs import make_train_batch as jmake_train_batch
 from repro.models import build_model as jbuild_model
+from repro.models import encdec as JED
 from repro_torch import convert
+from repro_torch.checkpoint.checkpoint import flat_leaves
 from repro_torch.configs import get_config
+from repro_torch.distributed import sharding
 from repro_torch.launch.inputs import make_train_batch
 from repro_torch.models import build_model
+from repro_torch.models import encdec as ED
+from repro_torch.models import transformer as T
+from repro_torch.models.model import cross_entropy
 
 DENSE = ("h2o-danube-1.8b", "qwen2.5-32b", "command-r-35b", "gemma3-1b")
+NEW = ("mixtral-8x7b", "deepseek-v2-lite-16b", "recurrentgemma-9b", "mamba2-780m",
+       "llama-3.2-vision-11b", "whisper-large-v3")
+ALL = DENSE + NEW
 F32_RTOL, BF16_RTOL = 3e-5, 0.1
+#: the archs whose random weights amplify float32 rounding (module docstring)
+F32_RTOL_ARCH = {"recurrentgemma-9b": 1e-3, "whisper-large-v3": 1e-4}
+#: whisper's bfloat16 forward lies 0.49 of max |logit| from its float32 one
+#: in either package (module docstring)
+BF16_RTOL_ARCH = {"whisper-large-v3": 0.4}
 LOSS_RTOL = {"float32": 1e-6, "bfloat16": 5e-3}
+LOSS_RTOL_ARCH = {"recurrentgemma-9b": 1e-5}
 TOL = 2e-3
 B, S = 2, 10  # S % window != 0 for the ring caches (window 8)
+EXTRAS = ("image_embeds", "frames")
+
+
+class _Carried(dict):
+    """arch -> the reference's smoke parameters as numpy leaves, built on
+    first use; the vlm's gates set to seeded nonzero values."""
+
+    def __missing__(self, arch):
+        params = jbuild_model(jget_config(arch, smoke=True)).init(jax.random.PRNGKey(0))
+        tree = jax.tree_util.tree_map(np.asarray, params)
+        if "cross_layers" in tree:
+            rng = np.random.default_rng(23)
+            for k in ("gate_attn", "gate_mlp"):
+                gates = tree["cross_layers"][k]
+                tree["cross_layers"][k] = rng.uniform(0.5, 1.5, gates.shape).astype(gates.dtype)
+        self[arch] = tree
+        return tree
 
 
 @pytest.fixture(scope="module")
 def carried():
     """arch -> the reference's smoke parameters, as numpy leaves."""
-    out = {}
-    for arch in DENSE:
-        params = jbuild_model(jget_config(arch, smoke=True)).init(jax.random.PRNGKey(0))
-        out[arch] = jax.tree_util.tree_map(np.asarray, params)
-    return out
+    return _Carried()
+
+
+def _smoke(arch, **kw):
+    cfg = get_config(arch, smoke=True)
+    if cfg.num_experts:
+        # as the reference's decode test: no token dropped at any length
+        kw.setdefault("capacity_factor", 64.0)
+    return dataclasses.replace(cfg, **kw)
 
 
 def _models(arch, dtype):
@@ -64,60 +113,120 @@ def _rel(got, want, scale):
     return float(np.abs(got - np.asarray(want, np.float32)).max()) / scale
 
 
+def _np(t):
+    return t.float().numpy() if t.is_floating_point() else t.numpy()
+
+
+def _decode_batch(tb, i):
+    return {"token": tb["tokens"][:, i:i + 1], **{k: tb[k] for k in EXTRAS if k in tb}}
+
+
+def _prompt(tb, n):
+    return {k: (v[:, :n] if k in ("tokens", "labels") else v) for k, v in tb.items()}
+
+
+def _audio_caches(m, p, frames, max_len, cross=None):
+    """The serving start of the audio family: caches from ``cache_spec``
+    with the cross K/V of the encoded frames."""
+    caches = sharding.init_params(m.cache_spec(frames.shape[0], max_len),
+                                  generator=torch.Generator(), device="cpu")
+    caches["cross"] = cross if cross is not None else ED.precompute_cross_kv(
+        p, ED.encode(p, frames, m.cfg), m.cfg)
+    return caches
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_forward_loss_prefill_decode_match_the_reference(arch, dtype, carried):
     cfg, m, jcfg, jm = _models(arch, dtype)
     jp = carried[arch]
     p = convert.params_from_reference(jp, device="cpu")
     tb = make_train_batch(cfg, B, S + 1, device="cpu")
     jb = jmake_train_batch(jcfg, B, S + 1)
-    assert all(np.array_equal(tb[k].numpy(), np.asarray(jb[k])) for k in jb)
+    assert all(np.array_equal(_np(tb[k]), np.asarray(jb[k], _np(tb[k]).dtype)) for k in jb)
 
     want = np.asarray(jm.forward(jp, jb), np.float32)
     scale = float(np.abs(want).max())
     got = m.forward(p, tb)
-    assert got.dtype == getattr(__import__("torch"), dtype)
+    assert got.dtype == getattr(torch, dtype)
     err = _rel(got, want, scale)
+    f32_tol = F32_RTOL_ARCH.get(arch, F32_RTOL)
     if dtype == "float32":
-        assert err <= F32_RTOL, err
+        assert err <= f32_tol, err
     else:
         f32 = np.asarray(jbuild_model(dataclasses.replace(jcfg, dtype="float32")).forward(jp, jb))
-        assert err <= min(BF16_RTOL, float(np.abs(want - f32).max()) / scale), err
-    tol = F32_RTOL if dtype == "float32" else BF16_RTOL
+        bf16_tol = BF16_RTOL_ARCH.get(arch, BF16_RTOL)
+        assert err <= min(bf16_tol, float(np.abs(want - f32).max()) / scale), err
+    tol = f32_tol if dtype == "float32" else BF16_RTOL_ARCH.get(arch, BF16_RTOL)
 
     loss, jloss = float(m.loss(p, tb)), float(jm.loss(jp, jb))
-    assert abs(loss - jloss) <= LOSS_RTOL[dtype] * abs(jloss)
+    loss_tol = LOSS_RTOL_ARCH.get(arch, 0) if dtype == "float32" else 0
+    assert abs(loss - jloss) <= max(LOSS_RTOL[dtype], loss_tol) * abs(jloss)
 
-    pre = {k: v[:, :S] for k, v in tb.items()}
-    jpre = {k: v[:, :S] for k, v in jb.items()}
-    logits, caches = m.prefill(p, pre, max_len=S + 4)
-    jlogits, jcaches = jm.prefill(jp, jpre, max_len=S + 4)
+    logits, caches = m.prefill(p, _prompt(tb, S), max_len=S + 4)
+    jlogits, jcaches = jm.prefill(jp, _prompt(jb, S), max_len=S + 4)
     assert _rel(logits, jlogits, scale) <= tol
-    for seg, jseg in zip(caches, jcaches, strict=True):
-        for c, jc in zip(seg, jseg, strict=True):
-            assert np.array_equal(c["pos"].numpy(), np.asarray(jc["pos"]))
-            assert c["k"].shape == jc["k"].shape and c["k"].dtype == logits.dtype
+    leaves, jleaves = flat_leaves(caches), jax.tree_util.tree_leaves(jcaches)
+    assert len(leaves) == len(jleaves)
+    for c, jc in zip(leaves, jleaves):
+        jc = np.asarray(jc)
+        assert c.shape == jc.shape and str(c.dtype).replace("torch.", "") == jc.dtype.name
+        if jc.dtype.kind in "iu":  # cache positions
+            assert np.array_equal(c.numpy(), jc)
 
-    logits, _ = m.decode_step(p, caches, {"token": tb["tokens"][:, S:S + 1]}, S)
-    jlogits, _ = jm.decode_step(jp, jcaches, {"token": jb["tokens"][:, S:S + 1]},
-                                jnp.asarray(S, jnp.int32))
+    if cfg.family == "audio":
+        # the reference's prefill returns the cross K/V alone; decode from
+        # the serving start, as its ``main`` does
+        caches = _audio_caches(m, p, tb["frames"], S + 4, caches["cross"])
+        jcaches = dict(jsh.init_params(jax.random.PRNGKey(2), jm.cache_spec(B, S + 4)),
+                       cross=jcaches["cross"])
+        index = 0
+    else:
+        index = S
+    logits, _ = m.decode_step(p, caches, _decode_batch(tb, index), index)
+    jlogits, _ = jm.decode_step(jp, jcaches, _decode_batch(jb, index),
+                                jnp.asarray(index, jnp.int32))
     assert _rel(logits, jlogits, scale) <= tol
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", [a for a in ALL if a != "whisper-large-v3"])
 def test_prefill_then_decode_matches_forward(arch, carried):
-    cfg, m, _, _ = _models(arch, "float32")
+    cfg = _smoke(arch, dtype="float32")
+    m = build_model(cfg)
     p = convert.params_from_reference(carried[arch], device="cpu")
     tb = make_train_batch(cfg, B, S + 3, device="cpu")
     full = m.forward(p, tb).numpy()
-    logits, caches = m.prefill(p, {"tokens": tb["tokens"][:, :S]}, max_len=S + 4)
+    logits, caches = m.prefill(p, _prompt(tb, S), max_len=S + 4)
     rel = np.abs(logits.numpy() - full[:, S - 1]).max() / np.abs(full[:, S - 1]).max()
     assert rel < TOL, f"prefill mismatch {rel}"
     for i in range(S, S + 3):
-        logits, caches = m.decode_step(p, caches, {"token": tb["tokens"][:, i:i + 1]}, i)
+        logits, caches = m.decode_step(p, caches, _decode_batch(tb, i), i)
         rel = np.abs(logits.numpy() - full[:, i]).max() / np.abs(full[:, i]).max()
         assert rel < TOL, f"decode step {i}: {rel}"
+
+
+def test_whisper_decode_matches_teacher_forcing(carried):
+    cfg = _smoke("whisper-large-v3", dtype="float32")
+    m = build_model(cfg)
+    p = convert.params_from_reference(carried["whisper-large-v3"], device="cpu")
+    tb = make_train_batch(cfg, B, S + 1, device="cpu")
+    full = m.forward(p, tb).numpy()
+    caches = _audio_caches(m, p, tb["frames"], S + 4)
+    for i in range(S + 1):
+        logits, caches = m.decode_step(p, caches, _decode_batch(tb, i), i)
+        rel = np.abs(logits.numpy() - full[:, i]).max() / np.abs(full[:, i]).max()
+        assert rel < TOL, f"step {i}: {rel}"
+    # the same start, the same steps, in the reference: the logits agree
+    jcfg = jget_config("whisper-large-v3", smoke=True)
+    jm, jp = jbuild_model(jcfg), carried["whisper-large-v3"]
+    jb = jmake_train_batch(jcfg, B, S + 1)
+    jcaches = jsh.init_params(jax.random.PRNGKey(1), jm.cache_spec(B, S + 4))
+    jcaches["cross"] = JED.precompute_cross_kv(jp, JED.encode(jp, jb["frames"], jcfg), jcfg)
+    jlogits, _ = jm.decode_step(jp, jcaches, _decode_batch(jb, 0), jnp.asarray(0, jnp.int32))
+    caches = _audio_caches(m, p, tb["frames"], S + 4)
+    logits, _ = m.decode_step(p, caches, _decode_batch(tb, 0), 0)
+    scale = float(np.abs(np.asarray(jlogits)).max())
+    assert _rel(logits, jlogits, scale) <= F32_RTOL_ARCH["whisper-large-v3"]
 
 
 def test_ring_cache_long_decode(carried):
@@ -146,3 +255,32 @@ def test_decode_consumes_the_callers_caches(carried):
     _, out = m.decode_step(p, caches, {"token": tb["tokens"][:, S:S + 1]}, S)
     assert out[0][5]["k"] is caches[0][5]["k"]
     assert before[0, S] == -1 and caches[0][5]["pos"][0, S] == S
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_decode_updates_every_familys_caches_in_place(arch, carried):
+    """The MLA latents, SSD and RG-LRU states, the vlm's and the
+    decoder's self-attention caches are written in place too."""
+    cfg = _smoke(arch, dtype="float32")
+    m = build_model(cfg)
+    p = convert.params_from_reference(carried[arch], device="cpu")
+    tb = make_train_batch(cfg, B, S + 1, device="cpu")
+    if cfg.family == "audio":
+        caches = _audio_caches(m, p, tb["frames"], S + 4)
+    else:
+        _, caches = m.prefill(p, _prompt(tb, S), max_len=S + 4)
+    before = [t.clone() for t in flat_leaves(caches)]
+    _, out = m.decode_step(p, caches, _decode_batch(tb, S), S)
+    after = flat_leaves(out)
+    assert all(a is b for a, b in zip(after, flat_leaves(caches)))
+    assert any(not torch.equal(a, b) for a, b in zip(after, before))
+
+
+def test_moe_loss_adds_the_summed_aux(carried):
+    cfg = get_config("deepseek-v2-lite-16b", smoke=True)
+    m = build_model(cfg)
+    p = convert.params_from_reference(carried["deepseek-v2-lite-16b"], device="cpu")
+    tb = make_train_batch(cfg, B, S, device="cpu")
+    logits, aux = T.forward(p, tb["tokens"], cfg)
+    assert float(aux) > 0  # two MoE layers, each 0.01 * E * sum f p > 0
+    assert float(m.loss(p, tb)) == float(cross_entropy(logits, tb["labels"]) + aux)
