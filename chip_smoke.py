@@ -152,7 +152,25 @@ then:
    to the model's own forward within ``BF16_CONSISTENCY``; an MoE model is
    timed at its published capacity factor and held at
    ``MOE_CONSISTENCY_CAPACITY`` at the positions whose top-k sets agree
-   in every MoE layer, the flips counted.
+   in every MoE layer, the flips counted;
+13. trains the model substrate on the card: 13a ``gemma3-1b`` at full
+   width (26 layers, vocab 262144, tied, remat on) through
+   ``repro_torch.launch.train.main`` with the reference trainer's default
+   command line (batch 8, seq 128, the config's 4 microbatches, 20 steps,
+   checkpoints into a temporary directory), printing the median step ms
+   after the first and the first alone, tokens/s, peak GB and the step's
+   bound (6 * params * tokens * 4/3 over 989 TFLOP/s against one read of
+   float32 parameters, gradients and both moments at 3.35 TB/s), failing
+   unless every loss is finite and the last is below the first; 13b
+   ``h2o-danube-1.8b`` at full width, 3 steps at M = 1 and at M = 4 from
+   one init, the first step's loss and gradient norm held to each other
+   within ``TRAIN_BF16_OF_F32_GAP`` times the M = 1 run's bfloat16 gap to
+   the float32 step (at least ``BF16_ROUNDOFF``); 13c danube at depth 2 in
+   float32 (TF32 off, ``scaled_init``), 2 steps of ``launch.steps`` on the
+   card and on the CPU, within ``TRAIN_F32_OF_F32_ERROR`` times the CPU's
+   float32 error against float64 (at least ``TRAIN_F32_FLOOR``); 13d smoke
+   danube, 5 steps with a checkpoint every 2 resumed to 8, bitwise the
+   uninterrupted run (losses and final state).
 
 Phases 2-3 are the ``pair_average`` path (B2-B5), phase 5 the other
 filters' path (B6-B9), phase 6 the baselines' path (B10), phase 7 the
@@ -160,8 +178,9 @@ banked path (B4-B9), phase 8 (8a-8d) the service's path (B2, B4, B6,
 B7), phase 9 (9a-9d) the fleet's path (B2, B4, B6-B9), phase 10 the
 elastic tier's (B2, B4, B6, B7) and phase 11 the tuned runs' (B2,
 B6-B9): every launch counter is set to 0 just before each and read just
-after; a kernel of the path launched no time there fails the run. Phase
-12's path (the model substrate) holds no kernel of the port. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
+after; a kernel of the path launched no time there fails the run. Phases
+12 and 13 (the model substrate serving and training) hold no kernel of
+the port: phase 13 zeroes the counters before and fails if any moved. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
 its sum over those phases. The script prints the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -1610,6 +1629,219 @@ def serve_family_run(label, arch, depth, batch, prompt_len, gen, *, smi, peak_bw
     return row
 
 
+#: phase 13a: the reference trainer's default arch and command line at full
+#: width (remat on, as the config says), with the config's 4 microbatches
+TRAIN_13A = ["--arch", "gemma3-1b", "--batch", "8", "--seq", "128", "--microbatches", "4",
+             "--steps", "20"]
+#: 13b: h2o-danube-1.8b at full width, M = 1 against M = 4 (batch 8, seq 128)
+TRAIN_13B = ["--arch", "h2o-danube-1.8b", "--batch", "8", "--seq", "128", "--steps", "3"]
+#: 13b: M = 1 and M = 4 round the same step in bfloat16 in two shapes: their
+#: first losses (and gradient norms) may differ by this many times the M = 1
+#: run's own gap to the float32 step on the same parameters and batch, and
+#: at least by bfloat16's unit roundoff
+TRAIN_BF16_OF_F32_GAP = 2.0
+BF16_ROUNDOFF = 2.0 ** -8
+#: 13c: the card's float32 step (TF32 off) against the CPU's: losses and
+#: gradient norms within this many times the CPU's own float32 error against
+#: float64 on the first step, and at least ``TRAIN_F32_FLOOR`` (relative)
+TRAIN_F32_OF_F32_ERROR = 2.0
+TRAIN_F32_FLOOR = 1e-5
+#: 13d: smoke danube, the trainer's resume test on the card
+TRAIN_13D = ["--arch", "h2o-danube-1.8b", "--smoke", "--batch", "4", "--seq", "32",
+             "--lr", "1e-2", "--ckpt-every", "2"]
+
+
+def _grad_norm_and_loss(model, params, batch):
+    """One loss and the float32 norm of its gradients (no update)."""
+    from repro_torch.checkpoint.checkpoint import flat_leaves, map_tree
+
+    tracked = map_tree(lambda t: t.detach().requires_grad_(), params)
+    loss = model.loss(tracked, batch)
+    grads = torch.autograd.grad(loss, flat_leaves(tracked))
+    return float(loss.detach()), float(torch.sqrt(sum(torch.sum(torch.square(g.double()))
+                                             for g in grads)))
+
+
+def train_phase(smi: str, wrappers: dict) -> dict:
+    """Phase 13: the model substrate trains on the card through
+    ``repro_torch.launch.train.main`` and ``launch.steps``. 13a trains
+    full-width ``gemma3-1b`` for 20 steps (the reference trainer's default
+    command line, remat on, 4 microbatches, checkpoints into a temporary
+    directory) and prints step ms, tokens/s and peak GB against the step's
+    bound; 13b holds full-width ``h2o-danube-1.8b``'s first step at M = 1
+    and M = 4 to each other; 13c holds a float32 step of danube at depth 2
+    on the card to the CPU's; 13d resumes a smoke run from its checkpoint,
+    bitwise. No kernel of the port runs on this path: the counters are
+    zeroed before and read after. Returns the phase's record."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpoint import flat_leaves, map_tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import HW
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import full_float32_matmul
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    dev = torch.device("cuda")
+    t13 = time.perf_counter()
+    for fn in wrappers.values():
+        fn.launches = 0
+    record: dict = {"card": smi}
+
+    # 13a: gemma3-1b at full width, the reference trainer's command line
+    t = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    n_params = build_model(cfg).param_count()
+    batch, seq = 8, 128
+    with tempfile.TemporaryDirectory(prefix="train-ckpt-") as ckpt:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = train.main(TRAIN_13A + ["--ckpt-dir", ckpt])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ckpt_steps = CheckpointManager(ckpt).steps()
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 13a: losses not finite and falling: {list(losses)}")
+    step_ms = statistics.median(losses.step_s[1:]) * 1e3
+    tokens = batch * seq
+    flops = 6 * n_params * tokens * (4 / 3 if cfg.remat else 1)
+    state_bytes = 4 * 4 * n_params  # float32 params, grads, mu, nu, each read once
+    bound_ms = max(flops / HW.PEAK_BF16_FLOPS, state_bytes / HW.HBM_BW) * 1e3
+    bound_by = "operations" if flops / HW.PEAK_BF16_FLOPS > state_bytes / HW.HBM_BW else "bytes"
+    record["13a"] = dict(
+        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        params=n_params, batch=batch, seq=seq, microbatches=4, remat=cfg.remat,
+        remat_policy=cfg.remat_policy, steps=len(losses), losses=list(losses),
+        grad_norms=losses.grad_norms, step_ms=[x * 1e3 for x in losses.step_s],
+        first_step_ms=losses.step_s[0] * 1e3, median_step_ms=step_ms,
+        tokens_per_s=tokens / (step_ms / 1e3), peak_gb=peak_gb, bound_ms=bound_ms,
+        bound_by=bound_by, bound_flops=flops, bound_bytes=state_bytes,
+        checkpoints=ckpt_steps, seconds=time.perf_counter() - t)
+    print(f"phase 13a: {cfg.name} full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params, {cfg.dtype}, remat "
+          f"{cfg.remat_policy}) batch {batch} seq {seq} M 4, {len(losses)} steps through "
+          f"launch.train.main, checkpoints at steps {ckpt_steps}: step {step_ms:.2f} ms "
+          f"(median after the first; first {losses.step_s[0] * 1e3:.2f} ms), "
+          f"{record['13a']['tokens_per_s']:.1f} tokens/s, peak {peak_gb:.2f} GB; bound "
+          f"{bound_ms:.3f} ms by {bound_by} ({flops / 1e12:.2f} TFLOP at "
+          f"{HW.PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {state_bytes / 1e9:.2f} GB at "
+          f"{HW.HBM_BW / 1e12:.2f} TB/s; {step_ms / bound_ms:.1f}x); loss "
+          f"{[round(x, 4) for x in losses]} ({smi})")
+
+    # 13b: h2o-danube-1.8b at full width, M = 1 against M = 4 from one init
+    t = time.perf_counter()
+    runs = {m: train.main(TRAIN_13B + ["--microbatches", str(m)]) for m in (1, 4)}
+    cfg = get_config("h2o-danube-1.8b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    first = DataPipeline(cfg, batch=8, seq=128, cycle=4, device=dev).batch_at(0)
+    f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    with full_float32_matmul():
+        f32_loss, f32_gn = _grad_norm_and_loss(f32, params, first)
+    del params
+    torch.cuda.empty_cache()
+    one, four = runs[1], runs[4]
+    gaps, tols, diffs = {}, {}, {}
+    for key, a, b, ref in (("loss", one[0], four[0], f32_loss),
+                           ("grad_norm", one.grad_norms[0], four.grad_norms[0], f32_gn)):
+        gaps[key] = abs(a - ref) / abs(ref)
+        tols[key] = max(TRAIN_BF16_OF_F32_GAP * gaps[key], BF16_ROUNDOFF)
+        diffs[key] = abs(a - b) / abs(a)
+        if not (math.isfinite(a) and math.isfinite(b) and diffs[key] <= tols[key]):
+            raise AssertionError(f"phase 13b: M = 1 against M = 4 first-step {key} {a} vs {b}: "
+                                 f"{diffs[key]:.3g} > {tols[key]:.3g}")
+    record["13b"] = dict(arch=cfg.name, losses={m: list(r) for m, r in runs.items()},
+                         grad_norms={m: r.grad_norms for m, r in runs.items()},
+                         step_ms={m: [x * 1e3 for x in r.step_s] for m, r in runs.items()},
+                         f32_first_loss=f32_loss, f32_first_grad_norm=f32_gn,
+                         bf16_gap=gaps, tolerance=tols, m1_vs_m4=diffs,
+                         seconds=time.perf_counter() - t)
+    print(f"phase 13b: {cfg.name} full width, batch 8 seq 128, 3 steps at M = 1 and M = 4 from "
+          f"one init: first loss {one[0]:.6f} vs {four[0]:.6f} ({diffs['loss']:.3g}; declared "
+          f"{tols['loss']:.3g} from the bfloat16 gap {gaps['loss']:.3g} to the float32 step), "
+          f"grad_norm {one.grad_norms[0]:.6g} vs {four.grad_norms[0]:.6g} "
+          f"({diffs['grad_norm']:.3g}; declared {tols['grad_norm']:.3g}, gap "
+          f"{gaps['grad_norm']:.3g}); later losses M=1 {[round(x, 4) for x in one[1:]]}, M=4 "
+          f"{[round(x, 4) for x in four[1:]]}; step ms M=1 "
+          f"{[round(x * 1e3, 1) for x in one.step_s]}, M=4 "
+          f"{[round(x * 1e3, 1) for x in four.step_s]}")
+
+    # 13c: float32 (TF32 off) at full width and depth 2, the card against the
+    # CPU, from scaled_init's weights: under the reference's init the model
+    # amplifies float32 rounding of the loss's own float32 softmax until the
+    # card's float64 gradients lie 2e-3 of a leaf's max from the CPU's
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), num_layers=2, dtype="float32")
+    model = build_model(cfg)
+    cpu_params = scaled_init(model, torch.Generator().manual_seed(0), "cpu")
+    pipe = {d: DataPipeline(cfg, batch=2, seq=32, cycle=4, device=d) for d in ("cpu", "cuda")}
+    with full_float32_matmul():
+        f64 = map_tree(lambda x: x.double(), cpu_params)
+        f64_loss, f64_gn = _grad_norm_and_loss(
+            build_model(dataclasses.replace(cfg, dtype="float64")), f64, pipe["cpu"].batch_at(0))
+        del f64
+        got = {}
+        for d, p in (("cuda", map_tree(lambda x: x.to(dev), cpu_params)), ("cpu", cpu_params)):
+            opt = AdamW(learning_rate=cosine_schedule(3e-3, 5, 2))
+            step = steps.build_train_step(model, opt, microbatches=1)
+            state = opt.init(p)
+            got[d] = []
+            for i in range(2):
+                p, state, met = step(p, state, pipe[d].batch_at(i))
+                got[d].append((float(met["loss"]), float(met["grad_norm"])))
+    f32_err = {"loss": abs(got["cpu"][0][0] - f64_loss) / f64_loss,
+               "grad_norm": abs(got["cpu"][0][1] - f64_gn) / f64_gn}
+    tol = {k: max(TRAIN_F32_OF_F32_ERROR * e, TRAIN_F32_FLOOR) for k, e in f32_err.items()}
+    rel = {"loss": max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got["cuda"], got["cpu"])),
+           "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
+                            for a, b in zip(got["cuda"], got["cpu"]))}
+    for key in rel:
+        if not rel[key] <= tol[key]:
+            raise AssertionError(f"phase 13c: card against CPU {key} {rel[key]:.3g} > "
+                                 f"{tol[key]:.3g}: {got}")
+    record["13c"] = dict(card=got["cuda"], cpu=got["cpu"], f64_first=(f64_loss, f64_gn),
+                         cpu_f32_vs_f64=f32_err, tolerance=tol, card_vs_cpu=rel,
+                         seconds=time.perf_counter() - t)
+    print(f"phase 13c: h2o-danube-1.8b full width at depth 2, float32 (TF32 off), scaled_init, "
+          f"batch 2 seq 32, 2 steps through launch.steps: card against CPU loss {rel['loss']:.3g}, "
+          f"grad_norm {rel['grad_norm']:.3g} (declared {tol['loss']:.3g} and "
+          f"{tol['grad_norm']:.3g}: {TRAIN_F32_OF_F32_ERROR} x the CPU's float32 error against "
+          f"float64 on the first step, {f32_err['loss']:.3g} and {f32_err['grad_norm']:.3g}, "
+          f"at least {TRAIN_F32_FLOOR}); (loss, grad_norm) card {got['cuda']}")
+
+    # 13d: smoke danube on the card, checkpoint every 2, resume to 8: bitwise
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train-resume-") as root:
+        whole = train.main(TRAIN_13D + ["--steps", "8", "--ckpt-dir", f"{root}/whole"])
+        first = train.main(TRAIN_13D + ["--steps", "5", "--ckpt-dir", f"{root}/resumed"])
+        second = train.main(TRAIN_13D + ["--steps", "8", "--ckpt-dir", f"{root}/resumed"])
+        finals = [CheckpointManager(f"{root}/{n}").restore()[0] for n in ("whole", "resumed")]
+    same_params = all(np.array_equal(a, b) for a, b in
+                      zip(flat_leaves(finals[0]), flat_leaves(finals[1])))
+    if list(second) != list(whole[5:]) or list(first) != list(whole[:5]) or not same_params:
+        raise AssertionError(f"phase 13d: the resumed run is not bitwise the uninterrupted "
+                             f"one: {list(whole)} vs {list(first)} + {list(second)} "
+                             f"(final state equal: {same_params})")
+    record["13d"] = dict(losses=list(whole), resumed=list(second), bitwise=True,
+                         seconds=time.perf_counter() - t)
+    print(f"phase 13d: smoke h2o-danube-1.8b on the card, 5 steps with a checkpoint every 2, "
+          f"resumed to 8: steps 5-7 and the final state bitwise equal to the uninterrupted "
+          f"run (losses {[round(x, 4) for x in whole]})")
+
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"phase 13: a kernel of the port launched on the training path: "
+                             f"{launches}")
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - t13
+    print(f"phase 13: launches of the port's kernels {json.dumps(launches)} (none on this "
+          f"path); {record['seconds']:.1f} s")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -2554,6 +2786,7 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
 
     record["serve_lm"] = serve_lm_phase(smi)
+    record["train"] = train_phase(smi, wrappers)
 
     main_rows = {r["kernel"]: r for r in rows if r["main"]}
     kernels = [

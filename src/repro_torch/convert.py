@@ -34,6 +34,12 @@ gates included) into the port's tree of the same structure, and
   the decoder layers.
 
 float32, bfloat16 (``ml_dtypes``) and int32 leaves carry exactly.
+
+Training state carries likewise: :func:`opt_state_from_reference` takes
+the reference's AdamW state ``{"mu", "nu", "step"}`` (float32 moments in
+the parameters' structure, ``step`` an int32 0-d array) into the port's.
+A whole training state also crosses as a checkpoint
+(``repro_torch.checkpoint``), in either direction.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ from repro_torch.core.denoise import DenoiseConfig
 from repro_torch.kernels.ops import resolve_device
 
 __all__ = ["config_from_reference", "state_from_reference", "state_to_reference",
-           "params_from_reference", "caches_from_reference"]
+           "params_from_reference", "caches_from_reference", "opt_state_from_reference"]
 
 
 def config_from_reference(fields: dict) -> DenoiseConfig:
@@ -97,3 +103,15 @@ def caches_from_reference(tree, device=None):
     """The reference's decode caches of any family (see the module
     docstring; numpy leaves) as the port's, on ``device``."""
     return params_from_reference(tree, device)
+
+
+def opt_state_from_reference(state, device=None):
+    """The reference's AdamW state (numpy leaves: ``mu`` and ``nu`` float32
+    trees, ``step`` an int32 0-d array) as the port's, on ``device``."""
+    if set(state) != {"mu", "nu", "step"}:
+        raise ValueError(f"an AdamW state has keys mu, nu, step; got {sorted(state)}")
+    step = np.asarray(state["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step must be an int32 0-d array; got {step.dtype} {step.shape}")
+    return params_from_reference(state, device)
+

@@ -7,21 +7,23 @@ pre-LN layernorm blocks, non-gated GELU MLPs, learned positional
 embeddings, bidirectional encoder self-attention, causal decoder
 self-attention plus cross-attention to the encoder output.
 
-Serving: :func:`encode` runs once; the cross-attention K/V of every
-decoder layer are precomputed (they never change during decode), and the
-decoder's self-attention caches are updated in place.
+Training with ``cfg.remat`` recomputes each encoder and decoder layer in
+the backward (``minimal``: only its input kept), as the reference's
+``jax.checkpoint`` of its scan bodies. Serving: :func:`encode` runs once;
+the cross-attention K/V of every decoder layer are precomputed (they
+never change during decode), and the decoder's self-attention caches are
+updated in place.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.checkpoint.checkpoint import flat_leaves
 from repro_torch.distributed.context import constrain
 from repro_torch.distributed.sharding import ParamSpec, stack_spec
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _layer
+from repro_torch.models.transformer import _layer, _layers, remat, training_remat
 
 __all__ = [
     "encdec_spec",
@@ -63,20 +65,29 @@ def encdec_spec(cfg):
     }
 
 
-def _layers(stacked):
-    """The layers of a stacked tree, each a tree of views."""
-    return [_layer(stacked, i) for i in range(flat_leaves(stacked)[0].shape[0])]
+def _enc_layer(p, x, cfg):
+    h = L.apply_norm(p["ln1"], x, cfg)
+    x = x + A.attention(p["attn"], h, cfg, causal=False, use_rope=False)
+    h = L.apply_norm(p["ln2"], x, cfg)
+    return x + L.apply_mlp(p["mlp"], h, cfg)
+
+
+def _dec_layer(p, x, enc_out, cfg):
+    h = L.apply_norm(p["ln1"], x, cfg)
+    x = x + A.attention(p["self_attn"], h, cfg, causal=True, use_rope=False)
+    h = L.apply_norm(p["ln_cross"], x, cfg)
+    x = x + A.attention(p["cross_attn"], h, cfg, kv_x=enc_out, causal=False, use_rope=False)
+    h = L.apply_norm(p["ln2"], x, cfg)
+    return x + L.apply_mlp(p["mlp"], h, cfg)
 
 
 def encode(params, frames, cfg):
     """frames (B, T_enc, D) precomputed embeddings -> encoder states."""
     dt = L.compute_dtype(cfg)
     x = frames.to(dt) + params["enc_pos"][: frames.shape[1]].to(dt)
+    rematerialize = training_remat(cfg)
     for p in _layers(params["encoder"]):
-        h = L.apply_norm(p["ln1"], x, cfg)
-        x = x + A.attention(p["attn"], h, cfg, causal=False, use_rope=False)
-        h = L.apply_norm(p["ln2"], x, cfg)
-        x = x + L.apply_mlp(p["mlp"], h, cfg)
+        x = remat(_enc_layer, p, x, cfg) if rematerialize else _enc_layer(p, x, cfg)
         x = constrain(x, ("act_batch", "act_seq", "act_embed"))
     return L.apply_norm(params["enc_norm"], x, cfg)
 
@@ -86,13 +97,12 @@ def decoder_forward(params, tokens, enc_out, cfg):
     dt = L.compute_dtype(cfg)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     x = x + params["dec_pos"][: tokens.shape[1]].to(dt)
+    rematerialize = training_remat(cfg)
     for p in _layers(params["decoder"]):
-        h = L.apply_norm(p["ln1"], x, cfg)
-        x = x + A.attention(p["self_attn"], h, cfg, causal=True, use_rope=False)
-        h = L.apply_norm(p["ln_cross"], x, cfg)
-        x = x + A.attention(p["cross_attn"], h, cfg, kv_x=enc_out, causal=False, use_rope=False)
-        h = L.apply_norm(p["ln2"], x, cfg)
-        x = x + L.apply_mlp(p["mlp"], h, cfg)
+        if rematerialize:
+            x = remat(_dec_layer, p, x, enc_out, cfg)
+        else:
+            x = _dec_layer(p, x, enc_out, cfg)
         x = constrain(x, ("act_batch", "act_seq", "act_embed"))
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x, cfg)

@@ -16,21 +16,34 @@ blocks (pattern length 1 = a plain homogeneous stack):
 The parameters of a pattern position are stacked over its repeats (a
 leading ``layers`` axis), caches likewise, as in the reference. The
 reference scans the stack (``jax.lax.scan``); here a loop walks the
-leading axis, each layer reading views of the stacked tensors, and decode
-updates the caller's caches (KV caches, MLA latents, SSD and RG-LRU
-states) in place. Every mixer (``attn``, ``mla``, ``ssd``, ``rec``) and
-block (``mlp``, ``moe``) serves; ``remat`` is a training concern and does
-not apply to serving.
+leading axis, each layer reading views of the stacked tensors (one
+``unbind`` per stacked leaf, :func:`_layers`), and decode updates the
+caller's caches (KV caches, MLA latents, SSD and RG-LRU states) in place.
+Every mixer (``attn``, ``mla``, ``ssd``, ``rec``) and block (``mlp``,
+``moe``) serves and trains.
+
+Training with ``cfg.remat`` recomputes each layer's activations in the
+backward (:func:`remat`, the counterpart of the reference's
+``jax.checkpoint`` of its scan body): ``remat_policy="minimal"`` saves
+only the layer's input, ``"dots"`` also its products with no batch
+dimension. Serving (no autograd) never rematerializes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
-from repro_torch.checkpoint.checkpoint import map_tree
+from repro_torch.checkpoint.checkpoint import flat_leaves, map_tree
 from repro_torch.distributed.context import constrain
 from repro_torch.distributed.sharding import stack_spec
 from repro_torch.models import attention as A
@@ -194,6 +207,12 @@ def apply_block(params, x, cfg, desc: BlockDesc, *, mode: str, cache=None, index
     return x, new_cache, aux
 
 
+def _train_block(params, x, *, cfg, desc: BlockDesc):
+    """One block in training mode -> (x, aux): what :func:`remat` wraps."""
+    x, _, aux = apply_block(params, x, cfg, desc, mode="train")
+    return x, aux
+
+
 # ---------------------------------------------------------------------------
 # Whole-model spec
 # ---------------------------------------------------------------------------
@@ -220,8 +239,53 @@ def cache_spec_tree(cfg, batch: int, seq_len: int):
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree: views of its tensors."""
+    """Layer ``i`` of a stacked tree: views of its tensors (the caches,
+    which decode updates in place)."""
     return map_tree(lambda t: t[i], tree)
+
+
+def _layers(tree, n: int | None = None) -> list:
+    """The ``n`` layers of a stacked tree (default: its leading size), each
+    a tree of views. One ``unbind`` per leaf, so a backward stacks each
+    leaf's layer gradients once; ``t[i]`` per layer would write a
+    zero-filled gradient the size of the whole stack for every layer."""
+    if n is None:
+        n = flat_leaves(tree)[0].shape[0]
+    rows: dict[int, tuple] = {}
+
+    def row(t, i):
+        if id(t) not in rows:
+            rows[id(t)] = t.unbind(0)
+        return rows[id(t)][i]
+
+    return [map_tree(lambda t, i=i: row(t, i), tree) for i in range(n)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy, the counterpart of
+    ``dots_with_no_batch_dims_saveable``: keep the products with no batch
+    dimension (``einsum`` over a weight runs as ``bmm`` with a batch of 1,
+    or ``mm``), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, *args, policy: str = "minimal"):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``jax.checkpoint``): ``minimal`` keeps only the inputs, ``dots`` also
+    the products with no batch dimension (:func:`_save_dots`)."""
+    context_fn = noop_context_fn
+    if policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def training_remat(cfg, mode: str = "train") -> bool:
+    """Whether a forward rematerializes: ``cfg.remat`` in training mode,
+    while autograd records (never when serving)."""
+    return bool(cfg.remat) and mode == "train" and torch.is_grad_enabled()
 
 
 def _run_segments(params, x, cfg, *, mode, caches=None, index=None, max_len=None):
@@ -231,15 +295,21 @@ def _run_segments(params, x, cfg, *, mode, caches=None, index=None, max_len=None
     place and returns them."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
+    rematerialize = training_remat(cfg, mode)
     for seg_i, (repeat, pattern) in enumerate(stack_plan(cfg)):
-        seg_params = params["segments"][seg_i]
+        seg_params = [_layers(p, repeat) for p in params["segments"][seg_i]]
         seg_caches = caches[seg_i] if caches is not None else None
         built = [[] for _ in pattern]
         for r in range(repeat):
             for j, desc in enumerate(pattern):
                 c = _layer(seg_caches[j], r) if seg_caches is not None else None
-                x, nc, aux = apply_block(_layer(seg_params[j], r), x, cfg, desc, mode=mode,
-                                         cache=c, index=index, max_len=max_len)
+                if rematerialize:
+                    block = functools.partial(_train_block, seg_params[j][r], cfg=cfg, desc=desc)
+                    x, aux = remat(block, x, policy=cfg.remat_policy)
+                    nc = None
+                else:
+                    x, nc, aux = apply_block(seg_params[j][r], x, cfg, desc, mode=mode,
+                                             cache=c, index=index, max_len=max_len)
                 x = constrain(x, ("act_batch", "act_seq", "act_embed"))
                 if aux is not None:
                     aux_total = aux_total + aux

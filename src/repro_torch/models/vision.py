@@ -8,9 +8,15 @@ published structure: a cross-attention layer at every 5th position (8 of
 groups of [self, self, self, cross, self]. Each position's parameters are
 stacked over the groups, as the reference's scan takes them; a loop walks
 the groups here. Decode updates the self-attention caches in place.
+Training with ``cfg.remat`` recomputes each layer in the backward under
+the ``dots`` policy (products with no batch dimension kept), as the
+reference's ``jax.checkpoint`` of its group body does whatever
+``cfg.remat_policy`` says.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,7 +24,7 @@ from repro_torch.distributed.context import constrain
 from repro_torch.distributed.sharding import ParamSpec, stack_spec
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _layer
+from repro_torch.models.transformer import _layer, _layers, remat, training_remat
 
 __all__ = ["vlm_spec", "vlm_forward", "vlm_cache_spec", "vlm_prefill", "vlm_decode_step"]
 
@@ -66,6 +72,11 @@ def _apply_self(p, x, cfg, *, mode, cache=None, index=None, max_len=None):
     return x + L.apply_mlp(p["mlp"], h, cfg), new_cache
 
 
+def _train_self(p, x, *, cfg):
+    """A self-attention layer in training mode: what :func:`remat` wraps."""
+    return _apply_self(p, x, cfg, mode="train")[0]
+
+
 def _apply_cross(p, x, img, cfg):
     """Tanh-gated cross-attention into precomputed image embeddings."""
     dt = x.dtype
@@ -81,16 +92,28 @@ def _run(params, x, img, cfg, *, mode, caches=None, index=None, max_len=None):
     builds (one stack over the groups per self position); ``decode``
     updates ``caches`` in place and returns them."""
     groups = cfg.num_layers // GROUP
+    cross = _layers(params["cross_layers"], groups)
+    selfs = [_layers(p, groups) for p in params["self_layers"]]
+    rematerialize = training_remat(cfg, mode)
     built = [[] for _ in range(GROUP - 1)]
     for g in range(groups):
         si = 0
         for pos in range(GROUP):
             if pos == CROSS_POS:
-                x = _apply_cross(_layer(params["cross_layers"], g), x, img, cfg)
+                if rematerialize:
+                    x = remat(functools.partial(_apply_cross, cross[g], img=img, cfg=cfg), x,
+                              policy="dots")
+                else:
+                    x = _apply_cross(cross[g], x, img, cfg)
                 continue
             c = _layer(caches[si], g) if caches is not None else None
-            x, nc = _apply_self(_layer(params["self_layers"][si], g), x, cfg, mode=mode,
-                                cache=c, index=index, max_len=max_len)
+            if rematerialize:
+                x = remat(functools.partial(_train_self, selfs[si][g], cfg=cfg), x,
+                          policy="dots")
+                nc = None
+            else:
+                x, nc = _apply_self(selfs[si][g], x, cfg, mode=mode, cache=c, index=index,
+                                    max_len=max_len)
             if mode == "prefill":
                 built[si].append(nc)
             si += 1

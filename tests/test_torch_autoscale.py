@@ -302,6 +302,19 @@ def test_scale_up_replayed_from_loadgen_trace_matches_reference(fleets, cfg, chu
     ``evaluate`` per arrival: identical admit/reject outcomes, decisions,
     states and scale-up marks in both packages, and in two port runs."""
 
+    def _wait_retired(fleet, handles, names):
+        """Bounded wait until each of ``names`` (handles by session name) has
+        finished and the fleet no longer counts it in flight: a handle is done
+        just before its executor thread returns the session's admission slot."""
+        for name in names:
+            handles[name].result(timeout=WAIT)
+        deadline = time.monotonic() + WAIT
+        while time.monotonic() < deadline:
+            if fleet.stats()["in_flight"] == sum(not h.done() for h in handles.values()):
+                return
+            time.sleep(0.001)
+        raise AssertionError(f"shed sessions {names} still in flight after {WAIT} s")
+
     def run(pkg):
         clock = pkg.serve.FakeClock()
         fleet = fleets(pkg, clock=clock, max_executors=3, max_sessions=6)
@@ -312,7 +325,7 @@ def test_scale_up_replayed_from_loadgen_trace_matches_reference(fleets, cfg, chu
                                                   duration_s=6.0, rng=rng)
         trace = pkg.serve.build_trace([pkg.serve.TenantProfile("hold", pkg.cfg(cfg))],
                                       arrivals, rng=rng, min_groups=4, max_groups=4)
-        gates, handles, outcome, decisions, states = [], [], [], [], []
+        gates, handles, outcome, decisions, states = [], {}, [], [], []
 
         def submit(ev):
             g = Gate(chunks)
@@ -323,19 +336,23 @@ def test_scale_up_replayed_from_loadgen_trace_matches_reference(fleets, cfg, chu
                 outcome.append((ev.session, "rejected"))
                 return False
             gates.append(g)
-            handles.append(h)
+            handles[ev.session] = h
             outcome.append((ev.session, "admitted"))
             return True
 
         def tick(now):
-            decisions.append(scaler.evaluate().to_dict())
+            decision = scaler.evaluate().to_dict()
+            decisions.append(decision)
             states.append(scaler.state())
+            # a shed session leaves on an executor thread: let it retire
+            # before the next arrival asks for admission
+            _wait_retired(fleet, handles, decision["shed"])
 
         tick(clock.now())
         pkg.serve.replay_trace(trace, clock=clock, submit=submit, on_tick=tick)
         for g in gates:
             g.release()
-        outs = [h.result(timeout=WAIT) for h in handles]
+        outs = [h.result(timeout=WAIT) for h in handles.values()]
         marks = [(k, round(t, 6)) for k, _, t in fleet.timeline if k == "scale-up"]
         fleet.shutdown()
         return outcome, decisions, states, marks, fleet.autoscale_state(), outs

@@ -53,7 +53,8 @@ def test_import_loads_neither_jax_nor_reference():
                 "configs.gemma3_1b", "configs.qwen2_5_32b", "configs.command_r_35b",
                 "distributed", "distributed.sharding", "distributed.context", "models",
                 "models.layers", "models.attention", "models.transformer", "models.model",
-                "launch", "launch.inputs", "launch.serve"):
+                "launch", "launch.inputs", "launch.serve", "optim.adamw", "data.pipeline",
+                "launch.mesh", "launch.steps", "launch.train"):
         assert f"repro_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -245,11 +246,13 @@ REFERENCE_SERVE_NAMES = (
 
 
 @pytest.mark.parametrize("entry", ["serve_main", "model_init", "init_params", "params",
-                                   "caches", "batch"])
+                                   "caches", "batch", "train_main", "data_pipeline", "mesh",
+                                   "opt_state"])
 def test_model_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataPipeline
     from repro_torch.distributed import sharding
-    from repro_torch.launch import inputs, serve
+    from repro_torch.launch import inputs, mesh, serve, train
     from repro_torch.models import build_model
 
     cfg = get_config("h2o-danube-1.8b", smoke=True)
@@ -261,18 +264,28 @@ def test_model_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry)
         "params": lambda: convert.params_from_reference({"w": np.zeros((2, 3), np.float32)}),
         "caches": lambda: convert.caches_from_reference([[{"pos": np.zeros(4, np.int32)}]]),
         "batch": lambda: inputs.make_train_batch(cfg, 2, 4),
+        "train_main": lambda: train.main(["--arch", "h2o-danube-1.8b", "--smoke", "--steps", "1"]),
+        "data_pipeline": lambda: DataPipeline(cfg, batch=2, seq=4).batch_at(0),
+        "mesh": lambda: mesh.make_mesh((1, 1), ("data", "model")),
+        "opt_state": lambda: convert.opt_state_from_reference(
+            {"mu": {}, "nu": {}, "step": np.zeros((), np.int32)}),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
 
 
 def test_unported_model_families_raise_naming_their_item():
-    # every model family serves now (queue A items 13(a), 13(b)): each
-    # ARCH_ID builds its parameter and cache specs, and no code path names
-    # 13(b) as unported; placement over a device mesh still raises, 13(d)
+    # every model family serves and trains now (queue A items 13(a)-13(c)):
+    # each ARCH_ID builds its parameter and cache specs, and no code path
+    # names 13(b) or 13(c) as unported; placement over a device mesh, a
+    # mesh of more than one device and the steps over one still raise, 13(d)
+    import torch
+
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh, steps
     from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
 
     assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
@@ -281,12 +294,21 @@ def test_unported_model_families_raise_naming_their_item():
         assert sharding.count_params(model.cache_spec(2, 8)) > 0
     for path in PKG.rglob("*.py"):
         text = path.read_text()
-        assert "13(b)" not in text or "NotImplementedError" not in text, path
+        for item in ("13(b)", "13(c)"):
+            assert item not in text or "NotImplementedError" not in text, (path, item)
     spec = {"w": sharding.ParamSpec((2, 3), ("embed", "mlp"))}
     with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
         sharding.named_shardings(spec, None)
     with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
         sharding.logical_sharding((2, 3), ("embed", "mlp"), None)
+    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+        mesh.make_mesh((2, 2), ("data", "model"), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+        mesh.make_production_mesh()
+    model = build_model(get_config("h2o-danube-1.8b", smoke=True))
+    two = mesh.Mesh((2, 1), ("data", "model"), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+        steps.jit_train_step(model, AdamW(), two, steps.resolve_rules(model.cfg, two))
 
 
 def test_unported_serve_names_raise_naming_their_item():
