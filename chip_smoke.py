@@ -170,7 +170,22 @@ then:
    card and on the CPU, within ``TRAIN_F32_OF_F32_ERROR`` times the CPU's
    float32 error against float64 (at least ``TRAIN_F32_FLOOR``); 13d smoke
    danube, 5 steps with a checkpoint every 2 resumed to 8, bitwise the
-   uninterrupted run (losses and final state).
+   uninterrupted run (losses and final state);
+14. runs the pipeline schedule, the roofline counter and the dry run on
+   the card: 14a ``pipeline_forward`` over ``StageMesh(("cuda:0",) * 4)``
+   at the reference test's shape (M = 8, mb = 2, D = 16, float32) and at
+   an LLM's width (mb = 256, D = 4096, bfloat16), each bitwise equal to
+   the stages composed one microbatch at a time on the card (the small one
+   within ``PIPE_CPU_ATOL`` of the CPU run), with both ms and the bubble
+   fraction; 14b phase 13a's step (``gemma3-1b``, batch 8 x 128, M = 4,
+   remat) read by ``roofline.op_costs.analyze`` on the card's tensors and
+   on ``meta``: equal FLOPs, the meta peak within ``PEAK_BAND`` of the
+   bare step's ``max_memory_allocated``, the counted bound (the larger of
+   the products at 989 TFLOP/s and the bytes the step must move at 3.35
+   TB/s; the eager operator traffic printed beside it, as no bound) next
+   to ``HAND_BOUND_MS`` and the step's measured ms; 14c
+   ``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` (one cell of each kind),
+   printing ``fits_hbm``, the bound and ``trace_s``.
 
 Phases 2-3 are the ``pair_average`` path (B2-B5), phase 5 the other
 filters' path (B6-B9), phase 6 the baselines' path (B10), phase 7 the
@@ -179,8 +194,10 @@ B7), phase 9 (9a-9d) the fleet's path (B2, B4, B6-B9), phase 10 the
 elastic tier's (B2, B4, B6, B7) and phase 11 the tuned runs' (B2,
 B6-B9): every launch counter is set to 0 just before each and read just
 after; a kernel of the path launched no time there fails the run. Phases
-12 and 13 (the model substrate serving and training) hold no kernel of
-the port: phase 13 zeroes the counters before and fails if any moved. A kernel's ``launches`` in the ``{"kernels": [...]}`` line is
+12-14 (the model substrate serving and training, the pipeline, the
+counter and the dry run) hold no kernel of the port: phases 13 and 14
+zero the counters before and fail if any moved. A kernel's ``launches``
+in the ``{"kernels": [...]}`` line is
 its sum over those phases. The script prints the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -1842,6 +1859,223 @@ def train_phase(smi: str, wrappers: dict) -> dict:
     return record
 
 
+#: phase 14a: the reference test's pipeline (P stages, M microbatches, mb, D,
+#: dtype) and one at an LLM's width
+PIPE_RUNS = (("small", 4, 8, 2, 16, torch.float32), ("wide", 4, 8, 256, 4096, torch.bfloat16))
+#: 14a: the card's small pipeline against the port's CPU run
+PIPE_CPU_ATOL = 1e-5
+#: 14b: the counter's peak of phase 13a's step, traced on meta, over the
+#: card's ``max_memory_allocated`` of that step run bare: declared before the
+#: first run on the card (the counter cannot see workspaces an operator
+#: allocates inside itself, nor the allocator's rounding)
+PEAK_BAND = (0.8, 1.05)
+#: 14b: PERF.md's hand-worked bound of phase 13a's step (6 * params * tokens
+#: * 4/3 at 989 TFLOP/s)
+HAND_BOUND_MS = 8.282
+#: 14c: one dry-run cell of each kind on a small arch
+DRYRUN_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "prefill_32k"),
+                ("gemma3-1b", "decode_32k"))
+
+
+def roofline_phase(smi: str, wrappers: dict) -> dict:
+    """Phase 14: the pipeline schedule, the roofline counter and the dry run
+    on the card. 14a runs ``pipeline_forward`` over ``StageMesh(("cuda:0",)
+    * 4)`` at the reference test's shape and at an LLM's width, each bitwise
+    equal to the stages composed one microbatch at a time on the card (the
+    small one also within ``PIPE_CPU_ATOL`` of the port's CPU run); 14b
+    reads phase 13a's step (``gemma3-1b``, batch 8 x 128, M = 4, remat) with
+    ``roofline.op_costs.analyze`` once on the card's tensors and once on
+    ``meta``: equal FLOPs, the meta peak within ``PEAK_BAND`` of the card's
+    measured peak of the bare step, and the counted bound (products, or the
+    bytes the step must move: ``analysis.step_bound``) beside the
+    hand-worked one and the step's measured ms; 14c runs
+    ``launch.dryrun.run_cell`` on one cell of each kind. No kernel of the
+    port runs on this path: the counters are zeroed before and read after.
+    Returns the phase's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline_parallel import (
+        StageMesh,
+        bubble_fraction,
+        pipeline_forward,
+    )
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.launch.mesh import HW, make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.roofline import analysis, op_costs
+
+    dev = torch.device("cuda")
+    t14 = time.perf_counter()
+    for fn in wrappers.values():
+        fn.launches = 0
+    record: dict = {"card": smi}
+
+    # 14a: the GPipe schedule over four stages on one card
+    def stage_fn(params, x):
+        return torch.tanh(x @ params["w"])
+
+    def sequential(ws, xs):
+        outs = []
+        for x in xs:
+            for s in range(ws.shape[0]):
+                x = stage_fn({"w": ws[s]}, x)
+            outs.append(x)
+        return torch.stack(outs)
+
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    record["14a"] = {}
+    for label, p, m, mb, d, dtype in PIPE_RUNS:
+        gen = torch.Generator().manual_seed(p * 1000 + d)
+        ws = (torch.randn((p, d, d), generator=gen) / math.sqrt(d)).to(dtype)
+        xs = torch.randn((m, mb, d), generator=gen).to(dtype)
+        mesh = StageMesh(("cuda:0",) * p)
+        ws_c, xs_c = ws.to(dev), xs.to(dev)
+        out = pipeline_forward({"w": ws_c}, xs_c, mesh, stage_fn)
+        want = sequential(ws_c, xs_c)
+        if out.shape != (m, mb, d) or not torch.equal(out, want):
+            raise AssertionError(f"phase 14a {label}: the pipeline is not bitwise the sequential "
+                                 f"run on the card")
+        run = dict(stages=p, microbatches=m, mb=mb, d=d, dtype=str(dtype).replace("torch.", ""),
+                   bubble_fraction=bubble_fraction(p, m))
+        if label == "small":
+            cpu = pipeline_forward({"w": ws}, xs, StageMesh(("cpu",) * p), stage_fn)
+            run["card_vs_cpu"] = float((out.cpu() - cpu).abs().max())
+            if not run["card_vs_cpu"] <= PIPE_CPU_ATOL:
+                raise AssertionError(f"phase 14a: card against CPU {run['card_vs_cpu']:.3g} > "
+                                     f"{PIPE_CPU_ATOL}")
+        run["pipeline_ms"] = host_ms(lambda: pipeline_forward({"w": ws_c}, xs_c, mesh, stage_fn))
+        run["sequential_ms"] = host_ms(lambda: sequential(ws_c, xs_c))
+        record["14a"][label] = run
+        print(f"phase 14a: pipeline_forward over StageMesh(cuda:0 x {p}) {label}: M {m} mb {mb} "
+              f"D {d} {run['dtype']}, tanh(x @ w), bitwise equal to the sequential run on the "
+              f"card" + (f", {run['card_vs_cpu']:.3g} from the CPU run (declared "
+                         f"{PIPE_CPU_ATOL})" if "card_vs_cpu" in run else "")
+              + f"; pipeline {run['pipeline_ms']:.3f} ms, sequential {run['sequential_ms']:.3f} "
+              f"ms (host clock, median of 5), bubble fraction {run['bubble_fraction']:.4f}")
+        del ws_c, xs_c, out, want
+
+    # 14b: phase 13a's step read by the counter on the card and on meta
+    t = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    model = build_model(cfg)
+    batch, seq, micro = 8, 128, 4
+    meta_mesh = make_mesh((1, 1), ("data", "model"), device="meta")
+    meta_step, abstract = steps.jit_train_step(
+        model, AdamW(), meta_mesh, steps.resolve_rules(cfg, meta_mesh), microbatches=micro,
+        batch=batch, seq=seq)
+    t_meta = time.perf_counter()
+    meta = op_costs.analyze(meta_step, *abstract)
+    t_meta = time.perf_counter() - t_meta
+    del meta["result"]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    card_mesh = make_mesh((1, 1), ("data", "model"))
+    step, _ = steps.jit_train_step(model, AdamW(), card_mesh,
+                                   steps.resolve_rules(cfg, card_mesh), microbatches=micro,
+                                   batch=batch, seq=seq)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt_state = AdamW().init(params)
+    data = make_train_batch(cfg, batch, seq, microbatches=micro, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_card = time.perf_counter()
+    card = op_costs.analyze(step, params, opt_state, data)
+    float(card["result"][2]["loss"])
+    t_card = time.perf_counter() - t_card
+    counted_run_peak = torch.cuda.max_memory_allocated() - base
+    del card["result"]
+    step_ms, bare_peaks = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s0 = time.perf_counter()
+        _, _, met = step(params, opt_state, data)
+        float(met["loss"])
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        bare_peaks.append(torch.cuda.max_memory_allocated() - base)
+    del params, opt_state, data, met
+    torch.cuda.empty_cache()
+    measured_peak = max(bare_peaks)
+    ratio = meta["peak_bytes"] / measured_peak
+    if card["flops"] != meta["flops"]:
+        raise AssertionError(f"phase 14b: the counter read {card['flops']} FLOPs on the card "
+                             f"and {meta['flops']} on meta")
+    if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+        raise AssertionError(f"phase 14b: the counted peak {meta['peak_bytes']} is {ratio:.4f} "
+                             f"of the measured {measured_peak}, outside {PEAK_BAND}")
+    terms = analysis.roofline_terms(meta)
+    bound_s, bound_by = analysis.step_bound(meta)
+    bound_ms = bound_s * 1e3
+    median_ms = statistics.median(step_ms)
+    hand_flops = 6 * model.param_count() * batch * seq * (4 / 3 if cfg.remat else 1)
+    record["14b"] = dict(
+        arch=cfg.name, batch=batch, seq=seq, microbatches=micro, remat=cfg.remat,
+        flops=meta["flops"], card_flops=card["flops"], bytes=meta["bytes"],
+        card_bytes=card["bytes"], peak_bytes=meta["peak_bytes"],
+        card_counted_peak_bytes=card["peak_bytes"], argument_bytes=meta["argument_bytes"],
+        temp_bytes=meta["temp_bytes"], measured_peak_bytes=measured_peak,
+        bare_peaks=bare_peaks, counted_run_measured_peak_bytes=counted_run_peak,
+        peak_ratio=ratio, peak_band=PEAK_BAND, roofline=terms.asdict(), bound_ms=bound_ms,
+        bound_by=bound_by, io_bytes=meta["io_bytes"], traffic_ms=terms.memory_s * 1e3,
+        hand_bound_ms=HAND_BOUND_MS, hand_flops=hand_flops, step_ms=step_ms,
+        median_step_ms=median_ms, meta_trace_s=t_meta, card_trace_s=t_card,
+        seconds=time.perf_counter() - t)
+    print(f"phase 14b: {cfg.name} batch {batch} seq {seq} M {micro} remat {cfg.remat_policy} "
+          f"(phase 13a's step) read by op_costs.analyze on the card ({t_card:.1f} s) and on meta "
+          f"({t_meta:.1f} s): {meta['flops']:.6e} FLOPs on both (6ND x 4/3 {hand_flops:.6e}), "
+          f"{meta['bytes']:.6e} bytes on meta ({card['bytes']:.6e} on the card); peak "
+          f"{meta['peak_bytes'] / 1e9:.3f} GB counted on meta ({card['peak_bytes'] / 1e9:.3f} on "
+          f"the card) against {measured_peak / 1e9:.3f} GB measured for the bare step "
+          f"(max_memory_allocated, steps {[round(x / 1e9, 3) for x in bare_peaks]}): ratio "
+          f"{ratio:.4f} (declared {PEAK_BAND[0]}-{PEAK_BAND[1]}); the counted run itself "
+          f"peaked at {counted_run_peak / 1e9:.3f} GB; counted bound {bound_ms:.3f} ms by "
+          f"{bound_by} (compute {terms.compute_s * 1e3:.3f} ms at "
+          f"{HW.PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {meta['io_bytes'] / 1e9:.3f} GB to move "
+          f"{meta['io_bytes'] / HW.HBM_BW * 1e3:.3f} ms at {HW.HBM_BW / 1e12:.2f} TB/s) beside "
+          f"the hand-worked {HAND_BOUND_MS} ms; the eager operator traffic (no bound) "
+          f"{terms.memory_s * 1e3:.3f} ms; the bare step {median_ms:.2f} ms (median of {[round(x, 1) for x in step_ms]}), "
+          f"{median_ms / bound_ms:.2f}x the counted bound, {median_ms / HAND_BOUND_MS:.1f}x "
+          f"the hand-worked ({smi})")
+
+    # 14c: the dry run, one cell of each kind
+    record["14c"] = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, verbose=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"phase 14c: {arch} {shape}: {rec['status']}")
+        record["14c"].append(rec)
+        roof = rec["roofline"]
+        print(f"phase 14c: dryrun.run_cell({arch}, {shape}) on the {rec['mesh']} mesh: trace "
+              f"{rec['trace_s']} s, {rec['hlo_flops_per_device']:.4e} FLOPs (useful "
+              f"{rec['useful_flops_ratio']:.3f}), hbm {rec['hbm_needed_gib']} GiB, fits_hbm "
+              f"{rec['fits_hbm']}, bound {rec['bound']['bound_s'] * 1e3:.4g} ms by "
+              f"{rec['bound']['bound_by']}, operator traffic {roof['memory_s'] * 1e3:.4g} ms "
+              f"(dominant term {roof['dominant']})")
+
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"phase 14: a kernel of the port launched on this path: "
+                             f"{launches}")
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - t14
+    print(f"phase 14: launches of the port's kernels {json.dumps(launches)} (none on this "
+          f"path); {record['seconds']:.1f} s")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -2787,6 +3021,7 @@ def main() -> int:
 
     record["serve_lm"] = serve_lm_phase(smi)
     record["train"] = train_phase(smi, wrappers)
+    record["roofline"] = roofline_phase(smi, wrappers)
 
     main_rows = {r["kernel"]: r for r in rows if r["main"]}
     kernels = [

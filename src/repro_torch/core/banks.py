@@ -82,7 +82,7 @@ class BankMesh:
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"bank": len(self.devices)}
+        return {self.axis_names[0]: len(self.devices)}
 
     @property
     def size(self) -> int:
