@@ -31,7 +31,12 @@ then:
    in bilateral mode, on the main path's planes and on planes that take
    each tile path at its edges (partial row and column tiles, H = 1 and 2
    on the float4 path; W % 4 != 0, an unaligned view and W = 1 on the
-   scalar path). Then (1b) runs the executors on
+   scalar path); every kernel B2-B10 with float16 and bfloat16
+   accumulators (each a scalar path) bitwise against its plain version,
+   for u16/u8/p12, G in {5, 8}, both variants, on the 80 x 256 plane and a
+   ragged 7 x 130 one (B9 bilateral within its declared ulps), and B2-B5
+   with p12 wire into int32 and uint16 sums at G = 10, their uint16 sums
+   wrapping. Then (1b) runs the executors on
    the card at G = 5, where 1/G is inexact, for ``pair_average`` and the
    three other filters, so the eager true divisions (finalize, a
    consumer's partials, a ``drop_oldest`` stream made to drop one group
@@ -39,7 +44,10 @@ then:
    are held bitwise against the same runs on the CPU; and the
    ``pair_average`` executors with a uint16 sum at G = 10 (Alg 3, Alg 3 v2,
    Alg 1), whose plain steps (init, the floor division of finalize and of
-   the partials) run on a CUDA uint16 tensor;
+   the partials) run on a CUDA uint16 tensor; and every filter with
+   float16 and bfloat16 accumulators at G = 5 (``run_pipelined``, the
+   one-shot call and ``run_pipelined_banked`` over
+   ``BankMesh(("cuda:0", "cuda:0"))``) against the same runs on the CPU;
 2. drives the main path at the paper's size (G = 8, N = 1000, 80 x 256,
    u16): ``PrismSource`` -> ``run_pipelined`` (ring depth 2 and 3),
    ``run_inline(prefetch=False)`` and the one-shot ``StreamingDenoiser``
@@ -53,8 +61,10 @@ then:
    against the least time the card needs for its bytes or operations,
    times its plain version and, where one PyTorch call computes the same
    function, that call (B2 and B4 also on their scalar path, u16 and u8,
-   in the same run, B2-B5 and B10 with int32 and uint16 sums, and the host
-   time per call of the B2, B4 and B8 wrappers); and times the pipelined
+   in the same run, B2-B5 and B10 with int32 and uint16 sums, B2-B10 with
+   float16 and bfloat16 accumulators, B2 and B3 with p12 wire into int32
+   and uint16 sums, and the host time per call of the B2, B4 and B8
+   wrappers); and times the pipelined
    executor per group against the
    camera's 57 ms inter-group interval;
 5. drives the other filters at the paper's size (``temporal_median``
@@ -254,6 +264,9 @@ PAIR_AVERAGE_PATH = ("alg3_stream_step", "alg3_subtract_average", "multibank_str
 FILTER_PATH = ("median_window_insert", "median_combine", "ema_welford_step", "spatial_filter_3x3")
 BASELINE_PATH = ("alg1_subtract_average", "alg2_subtract_average")
 BANKED_PATH = ("multibank_stream_step", "multibank_subtract_average") + FILTER_PATH
+#: the half-precision accumulators every kernel takes (phase 1, 1b and 4)
+HALF_TYPES = (torch.float16, torch.bfloat16)
+
 #: the session service's path (phase 8): the lone-slot step (B2), the cohort
 #: and gang steps (B4) and ``temporal_median``'s window (B6, B7)
 SERVE_PATH = ("alg3_stream_step", "multibank_stream_step", "median_window_insert",
@@ -2395,6 +2408,137 @@ def main() -> int:
           f"equal to the CPU plain version and to each other ({time.perf_counter() - t1:.1f} s)")
     record["bilateral_max_rel"] = bilateral_rel
 
+    # B2-B10 with float16 and bfloat16 accumulators (the scalar paths), and
+    # B2-B5 with p12 wire into int32/uint16 sums, against their plain versions
+    # on the CPU: bitwise, output dtype included; a float16 M2 of 12-bit
+    # differences overflows to inf and its merges make NaN in the same places
+    # on both (as in the reference), so NaN is held to NaN
+    t1 = time.perf_counter()
+
+    def same_nan(kernel: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+        got = got.cpu()
+        nan = torch.isnan(want)
+        if (got.shape != want.shape or got.dtype != want.dtype
+                or not torch.equal(torch.isnan(got), nan) or not torch.equal(got[~nan], want[~nan])):
+            err = diff_max(got[~nan], want[~nan]) if got.shape == want.shape else float("nan")
+            raise AssertionError(f"{kernel} {what}: not bitwise equal to its plain version "
+                                 f"(max |diff| {err}, {got.dtype} against {want.dtype})")
+        max_err[kernel] = max(max_err[kernel], diff_max(got[~nan], want[~nan]))
+
+    half_cases, half_ulps = 0, {}
+    for acc in HALF_TYPES:
+        tag = str(acc).replace("torch.", "")
+        for g, fmt, df in [(g, f, d) for g in (5, 8) for f in quant.STREAM_DTYPES for d in (False, True)]:
+            for n, (h, w) in ((64, (H, W)), (12, (7, 130))):  # the paper's plane and a ragged one
+                what = f"{tag} G={g} N={n} {h}x{w} {fmt} {'divide_first' if df else 'divide_last'}"
+                kw = dict(offset=offset, divide_first=df, stream_dtype=fmt)
+                banked = wire((2, g, n, h), fmt, width=w)
+                s1 = torch.zeros(n // 2, h, w, dtype=acc, device=dev)
+                s2 = torch.zeros(2, n // 2, h, w, dtype=acc, device=dev)
+                c1, c2 = s1.cpu().clone(), s2.cpu().clone()
+                for k in range(g):
+                    chunk, fin = banked[:, k].contiguous(), k == g - 1
+                    denoise_stream.alg3_stream_step(chunk[0].to(dev), s1, num_groups=g, final=fin, **kw)
+                    c1 = denoise_stream.alg3_stream_step_plain(chunk[0], c1, num_groups=g, final=fin, **kw)
+                    denoise_multibank.multibank_stream_step(chunk.to(dev), s2, num_groups=g, **kw)
+                    c2 = denoise_multibank.multibank_stream_step_plain(chunk, c2, num_groups=g, **kw)
+                same_nan("alg3_stream_step", s1, c1, what)
+                same_nan("multibank_stream_step", s2, c2, what)
+                kw["accum_dtype"] = acc
+                same_nan("alg3_subtract_average",
+                         denoise_stream.alg3_subtract_average(banked[0].to(dev), **kw),
+                         denoise_stream.alg3_subtract_average_plain(banked[0], **kw), what)
+                same_nan("multibank_subtract_average",
+                         denoise_multibank.multibank_subtract_average(banked.to(dev), **kw),
+                         denoise_multibank.multibank_subtract_average_plain(banked, **kw), what)
+                half_cases += 1
+        for g in (5, 8):
+            for fmt in quant.STREAM_DTYPES:
+                for n, (h, w) in ((64, (H, W)), (12, (7, 130))):
+                    what = f"{tag} G={g} N={n} {h}x{w} {fmt}"
+                    frames = wire((g, n, h), fmt, width=w)
+                    w_gpu = torch.zeros(5, n // 2, h, w, dtype=acc, device=dev)
+                    w_cpu = w_gpu.cpu().clone()
+                    for k in range(g):  # B6: the 5-slot ring wraps at G = 8
+                        kw = dict(slot=k % 5, offset=offset, stream_dtype=fmt)
+                        denoise_median.median_window_insert(w_gpu, frames[k].to(dev), **kw)
+                        denoise_median.median_window_insert_plain(w_cpu, frames[k], **kw)
+                    same_nan("median_window_insert", w_gpu, w_cpu, what)
+                    for k in (1, 4, 5):  # B7, even and odd K
+                        same_nan("median_combine", denoise_median.median_combine(w_gpu[:k]),
+                                 denoise_median.median_combine_plain(w_cpu[:k]), f"{what} K={k}")
+                    for tp in ((2, 8) if n == 64 else (3,)):  # B8: 16 and 4 chunks a group
+                        gpu = [torch.zeros(n // 2, h, w, dtype=acc, device=dev),
+                               torch.zeros(h, w, dtype=acc, device=dev),
+                               torch.zeros(h, w, dtype=acc, device=dev)]
+                        cpu = [t.cpu().clone() for t in gpu]
+                        for k in range(g):
+                            kw = dict(alpha=0.3, offset=offset, prior_count=k * (n // 2),
+                                      pair_tile=tp, stream_dtype=fmt)
+                            denoise_ema.ema_welford_step(*gpu, frames[k].to(dev), **kw)
+                            cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[k], **kw))
+                        for a, b in zip(gpu, cpu):
+                            same_nan("ema_welford_step", a, b, f"{what} pair_tile={tp}")
+                    half_cases += 1
+            frames = wire((g, 64, H), "u16")  # B10, Alg 1 and Alg 2
+            want = denoise_tmpframe.alg1_subtract_average_plain(frames, offset=offset, accum_dtype=acc)
+            for k in BASELINE_PATH:
+                same_nan(k, wrappers[k](frames.to(dev), offset=offset, accum_dtype=acc), want,
+                         f"{tag} G={g} N=64 u16")
+        for shape in ((32, H, W), (4, 7, 130)):  # B9: box bitwise, bilateral in ulps
+            x = (4096 + 40 * torch.from_numpy(rng.standard_normal(shape))).to(acc)
+            x[:, 3, 5] += 900.0  # a hot pixel
+            what = f"{tag} " + "x".join(map(str, shape))
+            same_nan("spatial_filter_3x3", spatial(x.to(dev), mode="box"),
+                     denoise_spatial.spatial_filter_3x3_plain(x, mode="box"), f"{what} box")
+            for sigma in (10.0, 60.0):
+                kw = dict(mode="bilateral", range_sigma=sigma)
+                got = spatial(x.to(dev), **kw).cpu()
+                want = denoise_spatial.spatial_filter_3x3_plain(x, **kw)
+                ulps = denoise_spatial.half_ulps(got, want)
+                max_err["spatial_filter_3x3"] = max(max_err["spatial_filter_3x3"], diff_max(got, want))
+                half_ulps[tag] = max(half_ulps.get(tag, 0.0), ulps)
+                if got.dtype != acc or not ulps <= denoise_spatial.BILATERAL_ULPS[acc]:
+                    raise AssertionError(f"spatial_filter_3x3 {what} bilateral sigma {sigma}: "
+                                         f"{ulps} ulps > {denoise_spatial.BILATERAL_ULPS[acc]}")
+            half_cases += 1
+    p12_cases = 0
+    for off in (0.0, offset):  # p12 wire into integer sums, G = 10, the uint16 sums wrapping
+        banked = torch.from_numpy(np.ascontiguousarray(quant.encode(int_wire((2, 10, 64, H)).numpy(),
+                                                                     "p12")))
+        for acc in (torch.int32, torch.uint16):
+            for df in (False, True):
+                what = f"G=10 N=64 p12 {acc} offset={off:g} {'divide_first' if df else 'divide_last'}"
+                kw = dict(offset=off, divide_first=df, stream_dtype="p12")
+                s1 = torch.zeros(32, H, W, dtype=acc, device=dev)
+                s2 = torch.zeros(2, 32, H, W, dtype=acc, device=dev)
+                c1, c2 = s1.cpu().clone(), s2.cpu().clone()
+                for k in range(10):
+                    chunk, fin = banked[:, k].contiguous(), k == 9
+                    denoise_stream.alg3_stream_step(chunk[0].to(dev), s1, num_groups=10, final=fin, **kw)
+                    c1 = denoise_stream.alg3_stream_step_plain(chunk[0], c1, num_groups=10, final=fin, **kw)
+                    denoise_multibank.multibank_stream_step(chunk.to(dev), s2, num_groups=10, **kw)
+                    c2 = denoise_multibank.multibank_stream_step_plain(chunk, c2, num_groups=10, **kw)
+                same("alg3_stream_step", s1, c1, what)
+                same("multibank_stream_step", s2, c2, what)
+                kw["accum_dtype"] = acc
+                same("alg3_subtract_average", denoise_stream.alg3_subtract_average(banked[0].to(dev), **kw),
+                     denoise_stream.alg3_subtract_average_plain(banked[0], **kw), what)
+                same("multibank_subtract_average",
+                     denoise_multibank.multibank_subtract_average(banked.to(dev), **kw),
+                     denoise_multibank.multibank_subtract_average_plain(banked, **kw), what)
+                p12_cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 1: float16/bfloat16 accumulators bitwise equal to the CPU plain versions in "
+          f"{half_cases} cases (B2-B5 at G=5/8 u16/u8/p12 both variants on 80x256 and a ragged "
+          f"7x130 plane; B6/B7 K=1/4/5; B8 pair_tile 2/8 and 3; B9 box; B10 Alg 1/2), B9 "
+          f"bilateral within {json.dumps({k: round(v, 3) for k, v in half_ulps.items()})} ulps "
+          f"(declared {json.dumps({str(k).replace('torch.', ''): v for k, v in denoise_spatial.BILATERAL_ULPS.items()})}); "
+          f"B2-B5 with p12 wire into int32/uint16 sums in {p12_cases} cases (G=10, offset 0 "
+          f"and 4096) ({time.perf_counter() - t1:.1f} s)")
+    record.update(bilateral_half_max_ulps=half_ulps, half_cases=half_cases, p12_int_cases=p12_cases,
+                  half_phase1_s=time.perf_counter() - t1)
+
     # -- phase 1b: the executors at G = 5, card against CPU ----------------
     def forced_drop(cfg5, groups5, device):
         """``run_pipelined`` under ``drop_oldest`` with one stage slot, made
@@ -2526,6 +2670,53 @@ def main() -> int:
           f"alg3/alg3_v2, u16 x alg1/alg2) and {filter_runs} runs of temporal_median/ema_variance/spatial_box "
           f"on the card bitwise equal to the CPU; G=10 uint16 sums: {u16_runs} runs (alg3/alg3_v2/"
           f"alg1) bitwise equal to the CPU ({time.perf_counter() - t1:.1f} s)")
+
+    # every filter with float16 and bfloat16 accumulators at G = 5:
+    # run_pipelined, the one-shot call, and run_pipelined_banked over
+    # BankMesh(cuda:0, cuda:0) against the same runs on the CPU (bitwise, NaN
+    # to NaN; bilateral within its declared ulps)
+    t1 = time.perf_counter()
+    half_filters = {
+        "pair_average": {}, "pair_average v2 u8": dict(algorithm="alg3_v2", stream_dtype="u8"),
+        "pair_average p12": dict(stream_dtype="p12"),
+        "temporal_median": dict(filter_name="temporal_median", median_window=3),
+        "ema_variance": dict(filter_name="ema_variance"),
+        "spatial_box box": dict(filter_name="spatial_box", spatial_mode="box"),
+        "spatial_box bilateral": dict(filter_name="spatial_box"),
+    }
+    meshes = {"cuda": BankMesh(("cuda:0", "cuda:0")), "cpu": BankMesh(("cpu", "cpu"))}
+    half_runs = 0
+    for acc in HALF_TYPES:
+        tag = str(acc).replace("torch.", "")
+        for label, extra in half_filters.items():
+            cfg5 = DenoiseConfig(num_groups=5, frames_per_group=64, accum_dtype=tag, **extra)
+            cfg5b = dataclasses.replace(cfg5, num_banks=2)
+            groups5 = list(PrismSource(cfg5, seed=9).groups())
+            per_bank = [list(src) for src in PrismSource(cfg5b, seed=10).bank_sources(2)]
+            runs5 = {
+                "run_pipelined": lambda d: streaming.run_pipelined(cfg5, iter(groups5), device=d)[0],
+                "one-shot": lambda d: StreamingDenoiser(cfg5, device=d)(np.stack(groups5)),
+                "run_pipelined_banked": lambda d: run_pipelined_banked(
+                    cfg5b, [iter(g) for g in per_bank], meshes[d])[0],
+            }
+            for run, call in runs5.items():
+                got, want = call("cuda").cpu(), call("cpu")
+                what = f"G=5 {tag} {label} {run}"
+                if got.dtype != acc or want.dtype != acc:
+                    raise AssertionError(f"{what}: outputs {got.dtype} and {want.dtype}")
+                if label.endswith("bilateral"):
+                    if not denoise_spatial.half_ulps(got, want) <= denoise_spatial.BILATERAL_ULPS[acc]:
+                        raise AssertionError(f"{what}: card and CPU differ beyond the declared ulps")
+                elif not torch.equal(torch.isnan(got), torch.isnan(want)) or not torch.equal(
+                        got.nan_to_num(0.0), want.nan_to_num(0.0)):
+                    raise AssertionError(f"{what}: card and CPU differ")
+                half_runs += 1
+    torch.cuda.synchronize()
+    print(f"phase 1b: float16/bfloat16 accumulators at G=5 N=64 80x256: {half_runs} runs of "
+          f"{', '.join(half_filters)} (run_pipelined, one-shot, run_pipelined_banked over "
+          f"BankMesh(cuda:0, cuda:0)) on the card equal to the same runs on the CPU "
+          f"({time.perf_counter() - t1:.1f} s)")
+    record.update(half_executor_runs=half_runs, half_phase1b_s=time.perf_counter() - t1)
 
     # -- phases 2 + 3: the main path at the paper's size -----------------
     cfg = DenoiseConfig()  # G=8, N=1000, 80x256, u16, pair_average, alg3
@@ -2803,6 +2994,102 @@ def main() -> int:
         flops_b, library=time_ms(lambda: torch.sum(tmp, dim=0)), library_call="torch.sum(tmp, 0)",
         library_max_abs_diff=sum_err)
     del frames8, tmp, lib_sum
+    # float16 and bfloat16 accumulators (the scalar paths) at the same shapes:
+    # every sum, window, state and frame moves 2 bytes a pixel; and p12 wire
+    # into int32/uint16 sums on the steps
+    half_rows = []
+    for acc in HALF_TYPES:
+        tag = str(acc).replace("torch.", "")
+        first = len(rows)
+        frames1, frames2 = wire((1, N, H), "u16")[0].to(dev), wire((2, N, H), "u16").to(dev)
+        s1 = torch.zeros(P, H, W, dtype=acc, device=dev)
+        s2 = torch.zeros(2, P, H, W, dtype=acc, device=dev)
+        for df in (False, True):
+            kw = dict(num_groups=G, offset=offset, divide_first=df)
+            row("alg3_stream_step", f"u16 {'v2' if df else 'v1'} {tag}",
+                time_ms(lambda: denoise_stream.alg3_stream_step(frames1, s1, **kw)),
+                plain_ms(lambda: denoise_stream.alg3_stream_step_plain(frames1, s1, **kw),
+                         reps=3, inner=1),
+                N * H * W * 2 + 2 * out_px * 2, out_px * step_flops("u16", df))
+        kw = dict(num_groups=G, offset=offset)
+        row("multibank_stream_step", f"u16 v1 B=2 {tag}",
+            time_ms(lambda: denoise_multibank.multibank_stream_step(frames2, s2, **kw)),
+            plain_ms(lambda: denoise_multibank.multibank_stream_step_plain(frames2, s2, **kw),
+                     reps=3, inner=1),
+            2 * (N * H * W * 2 + 2 * out_px * 2), 2 * out_px * step_flops("u16", False))
+        del frames1, frames2, s1, s2
+        kw = dict(offset=offset, accum_dtype=acc)
+        for kernel, banks, fn, plain_fn in (
+                ("alg3_subtract_average", (), denoise_stream.alg3_subtract_average,
+                 denoise_stream.alg3_subtract_average_plain),
+                ("multibank_subtract_average", (2,), denoise_multibank.multibank_subtract_average,
+                 denoise_multibank.multibank_subtract_average_plain),
+                ("alg1_subtract_average", (), wrappers["alg1_subtract_average"],
+                 denoise_tmpframe.alg1_subtract_average_plain),
+                ("alg2_subtract_average", (), wrappers["alg2_subtract_average"],
+                 denoise_tmpframe.alg2_subtract_average_plain)):
+            frames = wire(banks + (G, N, H), "u16").to(dev)
+            b = banks[0] if banks else 1
+            nbytes = b * (G * N * H * W * 2 + out_px * 2)
+            if kernel.startswith(("alg1", "alg2")):  # the tmpFrame written and read back
+                nbytes += 2 * G * out_px * 2
+            row(kernel, f"u16 v1 B={b} {tag}", time_ms(lambda: fn(frames, **kw)),
+                plain_ms(lambda: plain_fn(frames, **kw), reps=3, inner=1), nbytes,
+                b * out_px * (G * step_flops("u16", False) + 1))
+            del frames
+        window = torch.zeros(5, P, H, W, dtype=acc, device=dev)
+        kw = dict(slot=2, offset=offset)
+        row("median_window_insert", f"u16 {tag}", time_ms(
+            lambda: denoise_median.median_window_insert(window, group, **kw)),
+            plain_ms(lambda: denoise_median.median_window_insert_plain(window, group, **kw),
+                     reps=5, inner=2), N * H * W * 2 + out_px * 2, out_px * 2)
+        for k in range(5):
+            denoise_median.median_window_insert(window, wire((1, N, H), "u16")[0].to(dev),
+                                                slot=k, offset=offset)
+        row("median_combine", f"K=5 {tag}", time_ms(lambda: denoise_median.median_combine(window)),
+            plain_ms(lambda: denoise_median.median_combine_plain(window), reps=5, inner=2),
+            6 * out_px * 2, out_px * 20, library=plain_ms(lambda: torch.median(window, dim=0),
+                                                          reps=5, inner=2))
+        del window
+        state = [torch.zeros(P, H, W, dtype=acc, device=dev), torch.zeros(H, W, dtype=acc, device=dev),
+                 torch.zeros(H, W, dtype=acc, device=dev)]
+        kw = dict(alpha=0.25, offset=offset, prior_count=0, pair_tile=5)
+        row("ema_welford_step", f"u16 pair_tile=5 {tag}", time_ms(
+            lambda: denoise_ema.ema_welford_step(*state, group, **kw)),
+            plain_ms(lambda: denoise_ema.ema_welford_step_plain(*state, group, **kw), reps=3,
+                     inner=1),
+            N * H * W * 2 + 2 * out_px * 2 + 4 * H * W * 2, out_px * 9 + (P // 5) * H * W * 12)
+        del state
+        xh = x.to(acc)
+        for mode, flops in (("box", out_px * 10), ("bilateral", out_px * (9 * 16 + 1))):
+            kw = dict(mode=mode, range_sigma=cfg.spatial_range_sigma)
+            row("spatial_filter_3x3", f"{mode} {tag}", time_ms(
+                lambda: denoise_spatial.spatial_filter_3x3(xh, **kw)),
+                plain_ms(lambda: denoise_spatial.spatial_filter_3x3_plain(xh, **kw), reps=5,
+                         inner=2), 2 * out_px * 2, flops)
+        del xh
+        half_rows += rows[first:]
+    for acc in (torch.int32, torch.uint16):  # p12 wire into integer sums, divide last
+        name_acc, acc_bytes = str(acc).split(".")[-1], torch.empty((), dtype=acc).element_size()
+        first = len(rows)
+        frames1 = wire((1, N, H), "p12")[0].to(dev)
+        s1 = torch.zeros(P, H, W, dtype=acc, device=dev)
+        kw = dict(num_groups=G, offset=offset, stream_dtype="p12")
+        row("alg3_stream_step", f"p12 v1 {name_acc}",
+            time_ms(lambda: denoise_stream.alg3_stream_step(frames1, s1, **kw)),
+            plain_ms(lambda: denoise_stream.alg3_stream_step_plain(frames1, s1, **kw), reps=3,
+                     inner=1),
+            N * H * W * 1.5 + 2 * out_px * acc_bytes, out_px * step_flops("p12", False))
+        frames = wire((G, N, H), "p12").to(dev)
+        kw = dict(offset=offset, accum_dtype=acc, stream_dtype="p12")
+        row("alg3_subtract_average", f"p12 v1 B=1 {name_acc}",
+            time_ms(lambda: denoise_stream.alg3_subtract_average(frames, **kw)),
+            plain_ms(lambda: denoise_stream.alg3_subtract_average_plain(frames, **kw), reps=3,
+                     inner=1),
+            G * N * H * W * 1.5 + out_px * acc_bytes, out_px * (G * step_flops("p12", False) + 1))
+        del frames1, s1, frames
+        half_rows += rows[first:]
+    record["half_and_p12_rows"] = [r["kernel"] + " " + r["label"] for r in half_rows]
     for r in rows:
         lib = f"  library {r['library_ms'] * 1e3:9.1f} us" if r["library_ms"] is not None else ""
         print(f"  {r['kernel']:28s} {r['label']:16s} {r['ms'] * 1e3:9.2f} us  bound "

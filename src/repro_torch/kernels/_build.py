@@ -54,13 +54,13 @@ ARGTYPES = {
     "multibank_subtract_average_launch":
         (_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _I, _I64, _I64, _P),
     "median_window_insert_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I, _F, _F, _I64, _I64, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I, _F, _F, _I64, _I64, _I, _P),
     "median_combine_launch":
-        (_P, _P, _I64, _I64, _P),
+        (_P, _P, _I64, _I64, _I, _P),
     "ema_welford_step_launch":
-        (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _F, _F, _F, _F, _F, _F, _P),
+        (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _F, _F, _F, _F, _F, _F, _I, _P),
     "spatial_filter_3x3_launch":
-        (_P, _P, _I64, _I64, _I64, _I, _I, _F, _P),
+        (_P, _P, _I64, _I64, _I64, _I, _I, _F, _F, _I, _P),
     "tmpframe_subtract_launch":
         (_P, _P, _I64, _I64, _I64, _I, _F, _I, _I64, _I64, _P),
     "tmpframe_reduce_launch":

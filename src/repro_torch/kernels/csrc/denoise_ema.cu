@@ -13,6 +13,10 @@
 // Bound: HBM bytes (read the wire group, read + write the ema frames, read +
 // write two (H, W) planes), about 16 floating-point operations per pair.
 //
+// The design below is the float32 kernel's. A float16 or bfloat16 state
+// takes ema_half_kernel, at the end of this file: one thread a pixel, the
+// chunks in order, rounded as XLA rounds the reference's kernel in that type.
+//
 // Design: chunk-parallel statistics, ordered merge. The order of rounding
 // (below) fixes the order within a chunk and the order of the merges, not
 // which thread does what: each chunk's sum, centred sum of squares and EMA
@@ -390,19 +394,174 @@ cudaError_t launch(const void* frames, void* ema, void* mean, void* m2,
 #undef TILE
 }
 
+// XLA's float32 order for a sum of the m values v(0), ..., v(m - 1), by m
+// (the orders above): one chain up to kChainMax, 8 lanes folded pairwise and
+// the rest chained on up to kLanesMax, zero-padded windows of kWindow above.
+template <typename V>
+__device__ __forceinline__ float ordered_sum(int m, V&& v) {
+  if (m <= kChainMax) {
+    float s = 0.0f;
+    for (int i = 0; i < m; ++i) s = __fadd_rn(s, v(i));
+    return s;
+  }
+  if (m <= kLanesMax) {
+    const int full = m / 8 * 8;
+    float lane[8][1] = {};
+    for (int i0 = 0; i0 < full; i0 += 8)
+#pragma unroll
+      for (int l = 0; l < 8; ++l) lane[l][0] = __fadd_rn(lane[l][0], v(i0 + l));
+    float s[1];
+    fold_lanes<1>(lane, s);
+    for (int i = full; i < m; ++i) s[0] = __fadd_rn(s[0], v(i));
+    return s[0];
+  }
+  const int padded = (m + kWindow - 1) / kWindow * kWindow;
+  const int low = (padded - m) / 2;
+  float s = 0.0f, part = 0.0f;
+  for (int i = 0; i < m; ++i) {
+    if (i > 0 && (i + low) % kWindow == 0) {
+      s = __fadd_rn(s, part);
+      part = 0.0f;
+    }
+    part = __fadd_rn(part, v(i));
+  }
+  return __fadd_rn(s, part);
+}
+
+// A float16 or bfloat16 state (A, quant.cuh Acc): one thread per thread item
+// (a pixel, or a p12 pixel pair), the chunks in order. The arithmetic is the
+// plain version's (kernels/denoise_ema.py ema_welford_step_plain), which
+// follows what XLA makes of the reference's kernel for a half type:
+//   ema'  = fma(ema, 1 - a, a * d) as one float16 FMA; for bfloat16
+//           ema * (1 - a) + a * d, every operation rounded;
+//   cm    = A(s * f32(1/m)), s the float32 sum of the chunk's d in the
+//           order of its length; for bfloat16 the sum reads each d before
+//           the rounding of its last add (pair_diff_acc's `wide`), as XLA
+//           computes that add in float32;
+//   chunk = A(float32 sum of the squares of A(d - cm)), a square rounded to
+//           float16, exact in float32 for bfloat16;
+//   n = prior + A(k) * m, tot = n + m, r = m / tot, c = (n * m) / tot,
+//   delta = cm - mean, all in A;
+//   mean' = fma(delta, r, mean), M2' = M2 + fma(delta^2, c, chunk) for
+//           float16 (one FMA each); for bfloat16 mean + delta * r and
+//           M2 + (chunk + delta^2 * c), every operation rounded.
+// A correct, simple kernel: each thread re-reads a chunk's wire pairs for
+// each of its three passes.
+template <int FMT, typename A>
+__global__ void __launch_bounds__(256)
+    ema_half_kernel(const uint8_t* __restrict__ frames, A* __restrict__ ema,
+                    A* __restrict__ mean, A* __restrict__ m2, int chunks, int plane_items,
+                    int64_t frame_bytes, int pair_tile, float offset, float u8_scale,
+                    float alpha, float one_minus_alpha, float prior, float rcp_tile) {
+  using repro_quant::Acc;
+  using repro_quant::acc_add;
+  using repro_quant::acc_div;
+  using repro_quant::acc_mul;
+  using repro_quant::acc_sub;
+  constexpr int P = Item<FMT>::kPixels;
+  constexpr bool kBf16 = std::is_same_v<A, __nv_bfloat16>;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= plane_items) return;
+  const int64_t plane_px = static_cast<int64_t>(plane_items) * P;
+  const float m = Acc<A>::round(static_cast<float>(pair_tile));
+  float mu[P], var[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    mu[k] = Acc<A>::load(mean[static_cast<int64_t>(t) * P + k]);
+    var[k] = Acc<A>::load(m2[static_cast<int64_t>(t) * P + k]);
+  }
+  for (int c = 0; c < chunks; ++c) {
+    const int64_t p0 = static_cast<int64_t>(c) * pair_tile;
+    auto diff = [&](int i, float (&d)[P], float (&w)[P]) {
+      const uint8_t* ctl = frames + 2 * (p0 + i) * frame_bytes;
+      pair_diff_acc<FMT, A>(ctl, ctl + frame_bytes, t, offset, u8_scale, d, w);
+    };
+    for (int i = 0; i < pair_tile; ++i) {
+      float d[P], w[P];
+      diff(i, d, w);
+      A* e = ema + (p0 + i) * plane_px + static_cast<int64_t>(t) * P;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const float ev = Acc<A>::load(e[k]), ad = acc_mul<A>(alpha, d[k]);
+        if constexpr (Acc<A>::kContracts) {
+          e[k] = Acc<A>::store(Acc<A>::fma(ev, one_minus_alpha, ad));
+        } else {
+          e[k] = Acc<A>::store(acc_add<A>(acc_mul<A>(ev, one_minus_alpha), ad));
+        }
+      }
+    }
+    const float n = acc_add<A>(prior, acc_mul<A>(Acc<A>::round(static_cast<float>(c)), m));
+    const float tot = acc_add<A>(n, m);
+    const float r = acc_div<A>(m, tot), cw = acc_div<A>(acc_mul<A>(n, m), tot);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float s = ordered_sum(pair_tile, [&](int i) {
+        float d[P], w[P];
+        diff(i, d, w);
+        return kBf16 ? w[k] : d[k];
+      });
+      const float cm = Acc<A>::round(__fmul_rn(s, rcp_tile));
+      const float sq = ordered_sum(pair_tile, [&](int i) {
+        float d[P], w[P];
+        diff(i, d, w);
+        const float dc = acc_sub<A>(d[k], cm);
+        return kBf16 ? __fmul_rn(dc, dc) : acc_mul<A>(dc, dc);
+      });
+      const float chunk = Acc<A>::round(sq);
+      const float delta = acc_sub<A>(cm, mu[k]);
+      const float dd = acc_mul<A>(delta, delta);
+      if constexpr (Acc<A>::kContracts) {
+        mu[k] = Acc<A>::fma(delta, r, mu[k]);
+        var[k] = acc_add<A>(var[k], Acc<A>::fma(dd, cw, chunk));
+      } else {
+        mu[k] = acc_add<A>(mu[k], acc_mul<A>(delta, r));
+        var[k] = acc_add<A>(var[k], acc_add<A>(chunk, acc_mul<A>(dd, cw)));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    mean[static_cast<int64_t>(t) * P + k] = Acc<A>::store(mu[k]);
+    m2[static_cast<int64_t>(t) * P + k] = Acc<A>::store(var[k]);
+  }
+}
+
+template <typename A>
+cudaError_t launch_half(int fmt, const void* frames, void* ema, void* mean, void* m2,
+                        int pairs, int plane_items, int64_t frame_bytes, int pair_tile,
+                        float offset, float u8_scale, float alpha, float one_minus_alpha,
+                        float prior, float rcp_tile, cudaStream_t stream) {
+  const int blocks = (plane_items + 255) / 256;
+#define HALF(F)                                                                              \
+  ema_half_kernel<F, A><<<blocks, 256, 0, stream>>>(                                         \
+      static_cast<const uint8_t*>(frames), static_cast<A*>(ema), static_cast<A*>(mean),       \
+      static_cast<A*>(m2), pairs / pair_tile, plane_items, frame_bytes, pair_tile, offset,    \
+      u8_scale, alpha, one_minus_alpha, prior, rcp_tile)
+  switch (fmt) {
+    case kU16: HALF(kU16); break;
+    case kU8: HALF(kU8); break;
+    case kP12: HALF(kP12); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef HALF
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // `frames` is one group (N, H, wire_W); `ema` (N/2, H, W); `mean` and `m2`
-// (H, W), all float32 and updated in place. `items` is W, or W/2 for p12;
-// `pair_tile` divides `pairs`; `prior` is the sample count already merged.
+// (H, W), all of the type `acc` (AccumCode: float32, float16 or bfloat16)
+// and updated in place. `items` is W, or W/2 for p12; `pair_tile` divides
+// `pairs`; `prior` is the sample count already merged. The constants come
+// rounded to the state's type, but `rcp_tile`, float32 1/pair_tile.
 int ema_welford_step_launch(const void* frames, void* ema, void* mean,
                             void* m2, int64_t pairs, int64_t height,
                             int64_t items, int64_t row_bytes,
                             int64_t pair_tile, int fmt, float offset,
                             float u8_scale, float alpha, float one_minus_alpha,
-                            float prior, float rcp_tile, void* stream) {
+                            float prior, float rcp_tile, int acc, void* stream) {
   if (pairs == 0 || height == 0 || items == 0) return cudaSuccess;
   // a p12 item is 3 wire bytes at byte 3 * item of its plane: keep that an int
   if (pair_tile < 1 || pairs % pair_tile || pairs > 0x3fffffff ||
@@ -412,6 +571,15 @@ int ema_welford_step_launch(const void* frames, void* ema, void* mean,
   const int p = static_cast<int>(pairs), tp = static_cast<int>(pair_tile);
   const int plane_items = static_cast<int>(height * items);
   const int64_t frame_bytes = height * row_bytes;
+  if (acc == kAccF16 || acc == kAccBF16) {
+    return acc == kAccF16
+               ? launch_half<__half>(fmt, frames, ema, mean, m2, p, plane_items, frame_bytes, tp,
+                                     offset, u8_scale, alpha, one_minus_alpha, prior, rcp_tile, s)
+               : launch_half<__nv_bfloat16>(fmt, frames, ema, mean, m2, p, plane_items,
+                                            frame_bytes, tp, offset, u8_scale, alpha,
+                                            one_minus_alpha, prior, rcp_tile, s);
+  }
+  if (acc != kAccF32) return cudaErrorInvalidValue;
 #define EMA(F) launch<F>(frames, ema, mean, m2, p, plane_items, frame_bytes, tp, offset, u8_scale, alpha, one_minus_alpha, prior, rcp_tile, s)
   switch (fmt) {
     case kU16: return EMA(kU16);

@@ -40,7 +40,8 @@
 // Shared memory: 9.8 KB a block for box, 46.8 KB for bilateral (four 17 x 136
 // weight planes), so 4 bilateral blocks a SM, held to 64 registers a thread.
 //
-// Rounding: box is bitwise equal to the reference (every step an _rn
+// Frames of a half type take spatial_half_kernel, one thread a pixel
+// (below). Rounding: box is bitwise equal to the reference (every step an _rn
 // intrinsic). Bilateral uses CUDA's expf, which is not XLA's exp: its output
 // is held to the plain version within a declared tolerance; the same
 // weights, fma order and __fdiv_rn keep it bitwise equal to the per-pixel
@@ -49,7 +50,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant.cuh"
+
 namespace {
+
+using repro_quant::Acc;
+using repro_quant::acc_add;
+using repro_quant::acc_div;
+using repro_quant::acc_mul;
+using repro_quant::acc_scale;
+using repro_quant::acc_sub;
 
 constexpr int kThreads = 256;
 constexpr int kTileW = 128;  // 32 lanes x 4 columns
@@ -239,6 +249,68 @@ __global__ void __launch_bounds__(kThreads, BOX ? 1 : 4)
   }
 }
 
+// Frames of a half type A (__half or __nv_bfloat16; quant.cuh Acc): one
+// thread per output pixel over a (column, row, frame) grid of 32 x 8 blocks,
+// the nine neighbours read from global memory with the edges clamped, every
+// operation rounded to A as the reference's kernel body rounds it: box sums
+// in the neighbours' order and scales by the host's f16(1/9) (float16) or
+// divides by 9 (bfloat16); bilateral rounds each weight's difference,
+// square, scaled argument and expf, accumulates w * x as one float16 FMA
+// (float16) or a rounded product and add (bfloat16), and divides truly.
+template <bool BOX, typename A>
+__global__ void spatial_half_kernel(const A* __restrict__ in, A* __restrict__ out, int height,
+                                    int width, float inv2s2, float rcp9) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (col >= width || row >= height) return;
+  const int64_t plane = static_cast<int64_t>(height) * width;
+  const A* frame = in + blockIdx.z * plane;
+  const float c = Acc<A>::load(frame[static_cast<int64_t>(row) * width + col]);
+  float acc = 0.0f, wsum = 0.0f;
+#pragma unroll
+  for (int dr = -1; dr <= 1; ++dr) {
+    const A* line = frame + static_cast<int64_t>(clampi(row + dr, height - 1)) * width;
+#pragma unroll
+    for (int dc = -1; dc <= 1; ++dc) {
+      const float x = Acc<A>::load(line[clampi(col + dc, width - 1)]);
+      if constexpr (BOX) {
+        acc = acc_add<A>(acc, x);
+      } else {
+        const float d = acc_sub<A>(x, c);
+        const float w =
+            Acc<A>::round(expf(acc_mul<A>(-acc_mul<A>(d, d), inv2s2)));
+        if constexpr (Acc<A>::kContracts) {
+          acc = Acc<A>::fma(w, x, acc);
+        } else {
+          acc = acc_add<A>(acc, acc_mul<A>(w, x));
+        }
+        wsum = acc_add<A>(wsum, w);
+      }
+    }
+  }
+  out[blockIdx.z * plane + static_cast<int64_t>(row) * width + col] =
+      Acc<A>::store(BOX ? acc_scale<A>(acc, rcp9, 9.0f) : acc_div<A>(acc, wsum));
+}
+
+template <bool BOX, typename A>
+cudaError_t launch_half(const void* in, void* out, int64_t frames, int h, int w, float inv2s2,
+                        float rcp9, cudaStream_t s) {
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  const dim3 block(32, 8);
+  if ((h + 7) / 8 > 65535) return cudaErrorInvalidValue;
+  const A* src = static_cast<const A*>(in);
+  A* dst = static_cast<A*>(out);
+  for (int64_t f0 = 0; f0 < frames; f0 += 65535) {
+    const dim3 grid((w + 31) / 32, (h + 7) / 8,
+                    static_cast<unsigned>(frames - f0 < 65535 ? frames - f0 : 65535));
+    spatial_half_kernel<BOX, A><<<grid, block, 0, s>>>(src + f0 * plane, dst + f0 * plane, h, w,
+                                                       inv2s2, rcp9);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // One launch per 65,535 frames (the grid's z limit).
 template <bool BOX>
 cudaError_t launch(const float* in, float* out, int64_t frames, int h, int w, bool vec,
@@ -264,19 +336,33 @@ cudaError_t launch(const float* in, float* out, int64_t frames, int h, int w, bo
 
 extern "C" {
 
-// `in` and `out` are (frames, H, W) float32; mode 0 = box, 1 = bilateral.
-// `vector` asks for the float4 path; a launch whose planes do not allow it
-// (W % 4 != 0, or either pointer not 16-byte aligned) returns
-// cudaErrorMisalignedAddress.
+// `in` and `out` are (frames, H, W) of the type `acc` (AccumCode: float32,
+// float16 or bfloat16); mode 0 = box, 1 = bilateral. `inv2s2` and `rcp9`
+// (box's 1/9, read for float16 only) come rounded to that type. `vector`
+// asks for the float32 kernel's float4 path; a launch whose planes do not
+// allow it (W % 4 != 0, either pointer not 16-byte aligned, or a half type)
+// returns cudaErrorMisalignedAddress.
 int spatial_filter_3x3_launch(const void* in, void* out, int64_t frames,
                               int64_t height, int64_t width, int mode, int vector,
-                              float inv2s2, void* stream) {
+                              float inv2s2, float rcp9, int acc, void* stream) {
   if (frames == 0 || height == 0 || width == 0) return cudaSuccess;
   if (width > 0x7fffffff - kTileW || (height + kTileH - 1) / kTileH > 65535)
     return cudaErrorInvalidValue;
+  if (mode != 0 && mode != 1) return cudaErrorInvalidValue;
   if (vector && (width % 4 || reinterpret_cast<uintptr_t>(in) % 16 ||
-                 reinterpret_cast<uintptr_t>(out) % 16))
+                 reinterpret_cast<uintptr_t>(out) % 16 || acc != repro_quant::kAccF32))
     return cudaErrorMisalignedAddress;
+  if (acc == repro_quant::kAccF16 || acc == repro_quant::kAccBF16) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int h = static_cast<int>(height), w = static_cast<int>(width);
+    if (acc == repro_quant::kAccF16) {
+      return mode == 0 ? launch_half<true, __half>(in, out, frames, h, w, inv2s2, rcp9, s)
+                       : launch_half<false, __half>(in, out, frames, h, w, inv2s2, rcp9, s);
+    }
+    return mode == 0 ? launch_half<true, __nv_bfloat16>(in, out, frames, h, w, inv2s2, rcp9, s)
+                     : launch_half<false, __nv_bfloat16>(in, out, frames, h, w, inv2s2, rcp9, s);
+  }
+  if (acc != repro_quant::kAccF32) return cudaErrorInvalidValue;
   const float* src = static_cast<const float*>(in);
   float* dst = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

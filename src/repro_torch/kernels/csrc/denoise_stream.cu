@@ -54,11 +54,13 @@
 // row body, so every geometry gives the same bits.
 //
 // Integer sums (int32, or uint16 wrapping at 16 bits: the paper's u16-container
-// overflow past G = 8) take u16 wire and one layout, the scalar one, in kernels
-// of their own: they are the reference's contract, not its speed path. Their
-// arithmetic is IntSum's (quant.cuh): the pair difference in int32, narrowed to
-// the sum type; the divide-first fold adds floor(d / G); the final division
-// floors.
+// overflow past G = 8) take u16 or p12 wire and one layout, the scalar one, in
+// kernels of their own: they are the reference's contract, not its speed path.
+// Their arithmetic is IntSum's (quant.cuh): the pair difference in int32,
+// narrowed to the sum type; the divide-first fold adds floor(d / G); the final
+// division floors. float16 and bfloat16 sums take the scalar layout's kernels,
+// templated on the sum's type (quant.cuh Acc): each operation rounded to it,
+// a float16 fold one __hfma, a bfloat16 one a true division and an add.
 //
 // Rounding is part of the contract: the reference's jitted kernels compute
 // (a) the u8 dequant as fma(e, S, -(c*S)) + offset (quant.cuh), (b) x / G as
@@ -88,45 +90,47 @@ __device__ __forceinline__ float fold(float s, float d, float rcp) {
 // B2/B4, scalar path: fold one group into the running sum, in place. Row
 // (pair p, image row h) spans all banks: a (B, N, H, wire) group is the same
 // memory as (B*N, H, wire), so the bank axis folds into the pair axis.
-template <int FMT, bool DIVIDE_FIRST>
+// A is the sum's type (float, __half or __nv_bfloat16, quant.cuh Acc); for
+// float the row is the float32 arithmetic above, operation for operation.
+template <int FMT, bool DIVIDE_FIRST, typename A>
 __device__ __forceinline__ void step_row(const uint8_t* __restrict__ frames,
-                                         float* __restrict__ sum, int64_t p, int64_t h,
+                                         A* __restrict__ sum, int64_t p, int64_t h,
                                          int height, int items, int64_t row_bytes,
                                          float offset, float u8_scale, float rcp,
-                                         bool final_div) {
+                                         float groups, bool final_div) {
   constexpr int P = Item<FMT>::kPixels;
   const uint8_t* ctl = frames + ((2 * p) * height + h) * row_bytes;
   const uint8_t* exc = ctl + height * row_bytes;
-  float* out = sum + (p * height + h) * static_cast<int64_t>(items) * P;
+  A* out = sum + (p * height + h) * static_cast<int64_t>(items) * P;
   for (int x = threadIdx.x; x < items; x += blockDim.x) {
     float d[P];
-    pair_diff<FMT>(ctl, exc, x, offset, u8_scale, d);
+    pair_diff_as<FMT, A>(ctl, exc, x, offset, u8_scale, d);
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      float t = fold<DIVIDE_FIRST>(out[x * P + k], d[k], rcp);
+      float t = acc_fold<A, DIVIDE_FIRST>(Acc<A>::load(out[x * P + k]), d[k], rcp, groups);
       if constexpr (!DIVIDE_FIRST) {
-        if (final_div) t = __fmul_rn(t, rcp);
+        if (final_div) t = acc_scale<A>(t, rcp, groups);
       }
-      out[x * P + k] = t;
+      out[x * P + k] = Acc<A>::store(t);
     }
   }
 }
 
-template <int FMT, bool DIVIDE_FIRST, bool TILED>
+template <int FMT, bool DIVIDE_FIRST, bool TILED, typename A>
 __global__ void stream_step_kernel(const uint8_t* __restrict__ frames,
-                                   float* __restrict__ sum, int64_t pairs, int height,
+                                   A* __restrict__ sum, int64_t pairs, int height,
                                    int items, int64_t row_bytes, int rt, int pt, float offset,
-                                   float u8_scale, float rcp, bool final_div) {
+                                   float u8_scale, float rcp, float groups, bool final_div) {
   if constexpr (TILED) {
     for_tile_rows(pairs, height, rt, pt, [=](int64_t p, int64_t h) {
-      step_row<FMT, DIVIDE_FIRST>(frames, sum, p, h, height, items, row_bytes, offset,
-                                  u8_scale, rcp, final_div);
+      step_row<FMT, DIVIDE_FIRST, A>(frames, sum, p, h, height, items, row_bytes, offset,
+                                     u8_scale, rcp, groups, final_div);
     });
   } else {
     const int64_t r = blockIdx.x;
     const int64_t p = r / height;
-    step_row<FMT, DIVIDE_FIRST>(frames, sum, p, r - p * height, height, items, row_bytes,
-                                offset, u8_scale, rcp, final_div);
+    step_row<FMT, DIVIDE_FIRST, A>(frames, sum, p, r - p * height, height, items, row_bytes,
+                                   offset, u8_scale, rcp, groups, final_div);
   }
 }
 
@@ -213,9 +217,9 @@ __global__ void __launch_bounds__(kVecThreads)
 // B3/B5: one-shot average over G groups. Row (bp, h) is (bank b, pair p, row
 // h) with bp = b * pairs + p. The sum of one output pixel stays in registers
 // across the group loop.
-template <int FMT, bool DIVIDE_FIRST>
+template <int FMT, bool DIVIDE_FIRST, typename A>
 __device__ __forceinline__ void average_row(const uint8_t* __restrict__ frames,
-                                            float* __restrict__ out, int64_t bp, int64_t h,
+                                            A* __restrict__ out, int64_t bp, int64_t h,
                                             int groups, int pairs, int height, int items,
                                             int64_t row_bytes, float offset, float u8_scale,
                                             float rcp) {
@@ -224,7 +228,8 @@ __device__ __forceinline__ void average_row(const uint8_t* __restrict__ frames,
   const int64_t p = bp - b * pairs;
   const int64_t group_bytes = 2 * static_cast<int64_t>(pairs) * height * row_bytes;
   const uint8_t* base = frames + b * groups * group_bytes + ((2 * p) * height + h) * row_bytes;
-  float* dst = out + (bp * height + h) * static_cast<int64_t>(items) * P;
+  const float gf = static_cast<float>(groups);
+  A* dst = out + (bp * height + h) * static_cast<int64_t>(items) * P;
   for (int x = threadIdx.x; x < items; x += blockDim.x) {
     float acc[P];
 #pragma unroll
@@ -233,112 +238,129 @@ __device__ __forceinline__ void average_row(const uint8_t* __restrict__ frames,
     for (int g = 0; g < groups; ++g) {
       const uint8_t* ctl = base + g * group_bytes;
       float d[P];
-      pair_diff<FMT>(ctl, ctl + height * row_bytes, x, offset, u8_scale, d);
+      pair_diff_as<FMT, A>(ctl, ctl + height * row_bytes, x, offset, u8_scale, d);
 #pragma unroll
-      for (int k = 0; k < P; ++k) acc[k] = fold<DIVIDE_FIRST>(acc[k], d[k], rcp);
+      for (int k = 0; k < P; ++k) acc[k] = acc_fold<A, DIVIDE_FIRST>(acc[k], d[k], rcp, gf);
     }
 #pragma unroll
-    for (int k = 0; k < P; ++k) dst[x * P + k] = DIVIDE_FIRST ? acc[k] : __fmul_rn(acc[k], rcp);
+    for (int k = 0; k < P; ++k)
+      dst[x * P + k] = Acc<A>::store(DIVIDE_FIRST ? acc[k] : acc_scale<A>(acc[k], rcp, gf));
   }
 }
 
-template <int FMT, bool DIVIDE_FIRST, bool TILED>
+template <int FMT, bool DIVIDE_FIRST, bool TILED, typename A>
 __global__ void subtract_average_kernel(const uint8_t* __restrict__ frames,
-                                        float* __restrict__ out, int64_t bank_pairs,
+                                        A* __restrict__ out, int64_t bank_pairs,
                                         int groups, int pairs, int height, int items,
                                         int64_t row_bytes, int rt, int pt, float offset,
                                         float u8_scale, float rcp) {
   if constexpr (TILED) {
     for_tile_rows(bank_pairs, height, rt, pt, [=](int64_t bp, int64_t h) {
-      average_row<FMT, DIVIDE_FIRST>(frames, out, bp, h, groups, pairs, height, items,
-                                     row_bytes, offset, u8_scale, rcp);
+      average_row<FMT, DIVIDE_FIRST, A>(frames, out, bp, h, groups, pairs, height, items,
+                                        row_bytes, offset, u8_scale, rcp);
     });
   } else {
     const int64_t r = blockIdx.x;
     const int64_t bp = r / height;
-    average_row<FMT, DIVIDE_FIRST>(frames, out, bp, r - bp * height, groups, pairs, height,
-                                   items, row_bytes, offset, u8_scale, rcp);
+    average_row<FMT, DIVIDE_FIRST, A>(frames, out, bp, r - bp * height, groups, pairs,
+                                      height, items, row_bytes, offset, u8_scale, rcp);
   }
 }
 
-// B2/B4 and B3/B5 with an integer sum T (scalar layout, u16 wire): the step
-// folds one group in place (rows as in stream_step_kernel); the one-shot keeps
-// the sum in a register across the G groups (rows as in subtract_average_kernel).
-template <typename T, bool DIVIDE_FIRST>
-__device__ __forceinline__ void step_int_row(const uint16_t* __restrict__ frames,
+// B2/B4 and B3/B5 with an integer sum T (scalar layout, u16 or p12 wire): the
+// step folds one group in place (rows as in stream_step_kernel); the one-shot
+// keeps the sum in a register across the G groups (rows as in
+// subtract_average_kernel).
+template <int FMT, typename T, bool DIVIDE_FIRST>
+__device__ __forceinline__ void step_int_row(const uint8_t* __restrict__ frames,
                                              T* __restrict__ sum, int64_t p, int64_t h,
-                                             int height, int width, int32_t offset,
-                                             int32_t groups, bool final_div) {
-  const uint16_t* ctl = frames + ((2 * p) * height + h) * width;
-  const uint16_t* exc = ctl + static_cast<int64_t>(height) * width;
-  T* out = sum + (p * height + h) * width;
-  for (int x = threadIdx.x; x < width; x += blockDim.x) {
-    T d = int_pair_diff<T>(ctl[x], exc[x], offset);
-    if constexpr (DIVIDE_FIRST) d = IntSum<T>::div(d, groups);
-    T s = IntSum<T>::add(out[x], d);
-    if constexpr (!DIVIDE_FIRST) {
-      if (final_div) s = IntSum<T>::div(s, groups);
+                                             int height, int items, int64_t row_bytes,
+                                             int32_t offset, int32_t groups, bool final_div) {
+  constexpr int P = Item<FMT>::kPixels;
+  const uint8_t* ctl = frames + ((2 * p) * height + h) * row_bytes;
+  const uint8_t* exc = ctl + height * row_bytes;
+  T* out = sum + (p * height + h) * static_cast<int64_t>(items) * P;
+  for (int x = threadIdx.x; x < items; x += blockDim.x) {
+    T d[P];
+    int_pair_diff_item<FMT, T>(ctl, exc, x, offset, d);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if constexpr (DIVIDE_FIRST) d[k] = IntSum<T>::div(d[k], groups);
+      T s = IntSum<T>::add(out[x * P + k], d[k]);
+      if constexpr (!DIVIDE_FIRST) {
+        if (final_div) s = IntSum<T>::div(s, groups);
+      }
+      out[x * P + k] = s;
     }
-    out[x] = s;
   }
 }
 
-template <typename T, bool DIVIDE_FIRST, bool TILED>
-__global__ void stream_step_int_kernel(const uint16_t* __restrict__ frames,
+template <int FMT, typename T, bool DIVIDE_FIRST, bool TILED>
+__global__ void stream_step_int_kernel(const uint8_t* __restrict__ frames,
                                        T* __restrict__ sum, int64_t pairs, int height,
-                                       int width, int rt, int pt, int32_t offset,
-                                       int32_t groups, bool final_div) {
+                                       int items, int64_t row_bytes, int rt, int pt,
+                                       int32_t offset, int32_t groups, bool final_div) {
   if constexpr (TILED) {
     for_tile_rows(pairs, height, rt, pt, [=](int64_t p, int64_t h) {
-      step_int_row<T, DIVIDE_FIRST>(frames, sum, p, h, height, width, offset, groups,
-                                    final_div);
+      step_int_row<FMT, T, DIVIDE_FIRST>(frames, sum, p, h, height, items, row_bytes, offset,
+                                         groups, final_div);
     });
   } else {
     const int64_t r = blockIdx.x;
     const int64_t p = r / height;
-    step_int_row<T, DIVIDE_FIRST>(frames, sum, p, r - p * height, height, width, offset,
-                                  groups, final_div);
+    step_int_row<FMT, T, DIVIDE_FIRST>(frames, sum, p, r - p * height, height, items,
+                                       row_bytes, offset, groups, final_div);
   }
 }
 
-template <typename T, bool DIVIDE_FIRST>
-__device__ __forceinline__ void average_int_row(const uint16_t* __restrict__ frames,
+template <int FMT, typename T, bool DIVIDE_FIRST>
+__device__ __forceinline__ void average_int_row(const uint8_t* __restrict__ frames,
                                                 T* __restrict__ out, int64_t bp, int64_t h,
-                                                int groups, int pairs, int height, int width,
-                                                int32_t offset) {
+                                                int groups, int pairs, int height, int items,
+                                                int64_t row_bytes, int32_t offset) {
+  constexpr int P = Item<FMT>::kPixels;
   const int64_t b = bp / pairs;
   const int64_t p = bp - b * pairs;
-  const int64_t plane = static_cast<int64_t>(height) * width;
-  const int64_t group_px = 2 * static_cast<int64_t>(pairs) * plane;
-  const uint16_t* base = frames + b * groups * group_px + (2 * p) * plane + h * width;
-  T* dst = out + (bp * height + h) * width;
-  for (int x = threadIdx.x; x < width; x += blockDim.x) {
-    T acc = 0;
+  const int64_t plane = static_cast<int64_t>(height) * row_bytes;
+  const int64_t group_bytes = 2 * static_cast<int64_t>(pairs) * plane;
+  const uint8_t* base = frames + b * groups * group_bytes + (2 * p) * plane + h * row_bytes;
+  T* dst = out + (bp * height + h) * static_cast<int64_t>(items) * P;
+  for (int x = threadIdx.x; x < items; x += blockDim.x) {
+    T acc[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) acc[k] = 0;
     for (int g = 0; g < groups; ++g) {
-      const uint16_t* ctl = base + g * group_px;
-      T d = int_pair_diff<T>(ctl[x], ctl[plane + x], offset);
-      if constexpr (DIVIDE_FIRST) d = IntSum<T>::div(d, groups);
-      acc = IntSum<T>::add(acc, d);
+      const uint8_t* ctl = base + g * group_bytes;
+      T d[P];
+      int_pair_diff_item<FMT, T>(ctl, ctl + plane, x, offset, d);
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if constexpr (DIVIDE_FIRST) d[k] = IntSum<T>::div(d[k], groups);
+        acc[k] = IntSum<T>::add(acc[k], d[k]);
+      }
     }
-    dst[x] = DIVIDE_FIRST ? acc : IntSum<T>::div(acc, groups);
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      dst[x * P + k] = DIVIDE_FIRST ? acc[k] : IntSum<T>::div(acc[k], groups);
   }
 }
 
-template <typename T, bool DIVIDE_FIRST, bool TILED>
-__global__ void subtract_average_int_kernel(const uint16_t* __restrict__ frames,
+template <int FMT, typename T, bool DIVIDE_FIRST, bool TILED>
+__global__ void subtract_average_int_kernel(const uint8_t* __restrict__ frames,
                                             T* __restrict__ out, int64_t bank_pairs,
-                                            int groups, int pairs, int height, int width,
-                                            int rt, int pt, int32_t offset) {
+                                            int groups, int pairs, int height, int items,
+                                            int64_t row_bytes, int rt, int pt,
+                                            int32_t offset) {
   if constexpr (TILED) {
     for_tile_rows(bank_pairs, height, rt, pt, [=](int64_t bp, int64_t h) {
-      average_int_row<T, DIVIDE_FIRST>(frames, out, bp, h, groups, pairs, height, width,
-                                       offset);
+      average_int_row<FMT, T, DIVIDE_FIRST>(frames, out, bp, h, groups, pairs, height,
+                                            items, row_bytes, offset);
     });
   } else {
     const int64_t r = blockIdx.x;
     const int64_t bp = r / height;
-    average_int_row<T, DIVIDE_FIRST>(frames, out, bp, r - bp * height, groups, pairs, height,
-                                     width, offset);
+    average_int_row<FMT, T, DIVIDE_FIRST>(frames, out, bp, r - bp * height, groups, pairs,
+                                          height, items, row_bytes, offset);
   }
 }
 
@@ -353,56 +375,84 @@ struct Tiles {
   }
 };
 
-template <typename T>
+template <int FMT, typename T>
 cudaError_t launch_step_int(const void* frames, void* sum, int64_t pairs, int height,
-                            int width, Tiles t, int32_t offset, int32_t groups,
-                            bool divide_first, bool final_div, cudaStream_t stream) {
+                            int items, int64_t row_bytes, Tiles t, int32_t offset,
+                            int32_t groups, bool divide_first, bool final_div,
+                            cudaStream_t stream) {
   const unsigned blocks = t.blocks(pairs, height);
-  const int threads = threads_for(width);
-  const uint16_t* f = static_cast<const uint16_t*>(frames);
+  const int threads = threads_for(items);
+  const uint8_t* f = static_cast<const uint8_t*>(frames);
   T* s = static_cast<T*>(sum);
   return in_form(t.tiled, [&](auto form) {
     constexpr bool kTiled = decltype(form)::value;
     if (divide_first) {
-      stream_step_int_kernel<T, true, kTiled><<<blocks, threads, 0, stream>>>(
-          f, s, pairs, height, width, t.rt, t.pt, offset, groups, final_div);
+      stream_step_int_kernel<FMT, T, true, kTiled><<<blocks, threads, 0, stream>>>(
+          f, s, pairs, height, items, row_bytes, t.rt, t.pt, offset, groups, final_div);
     } else {
-      stream_step_int_kernel<T, false, kTiled><<<blocks, threads, 0, stream>>>(
-          f, s, pairs, height, width, t.rt, t.pt, offset, groups, final_div);
+      stream_step_int_kernel<FMT, T, false, kTiled><<<blocks, threads, 0, stream>>>(
+          f, s, pairs, height, items, row_bytes, t.rt, t.pt, offset, groups, final_div);
     }
   });
 }
 
-template <typename T>
+template <int FMT, typename T>
 cudaError_t launch_oneshot_int(const void* frames, void* out, int64_t bank_pairs, int groups,
-                               int pairs, int height, int width, Tiles t, int32_t offset,
-                               bool divide_first, cudaStream_t stream) {
+                               int pairs, int height, int items, int64_t row_bytes, Tiles t,
+                               int32_t offset, bool divide_first, cudaStream_t stream) {
   const unsigned blocks = t.blocks(bank_pairs, height);
-  const int threads = threads_for(width);
-  const uint16_t* f = static_cast<const uint16_t*>(frames);
+  const int threads = threads_for(items);
+  const uint8_t* f = static_cast<const uint8_t*>(frames);
   T* o = static_cast<T*>(out);
   return in_form(t.tiled, [&](auto form) {
     constexpr bool kTiled = decltype(form)::value;
     if (divide_first) {
-      subtract_average_int_kernel<T, true, kTiled><<<blocks, threads, 0, stream>>>(
-          f, o, bank_pairs, groups, pairs, height, width, t.rt, t.pt, offset);
+      subtract_average_int_kernel<FMT, T, true, kTiled><<<blocks, threads, 0, stream>>>(
+          f, o, bank_pairs, groups, pairs, height, items, row_bytes, t.rt, t.pt, offset);
     } else {
-      subtract_average_int_kernel<T, false, kTiled><<<blocks, threads, 0, stream>>>(
-          f, o, bank_pairs, groups, pairs, height, width, t.rt, t.pt, offset);
+      subtract_average_int_kernel<FMT, T, false, kTiled><<<blocks, threads, 0, stream>>>(
+          f, o, bank_pairs, groups, pairs, height, items, row_bytes, t.rt, t.pt, offset);
     }
   });
 }
 
+// An integer sum's launch: int32 or uint16 (acc), u16 or p12 wire.
+template <typename F>
+cudaError_t on_int_sum(int acc, int fmt, F&& launch) {
+  if (fmt != kU16 && fmt != kP12) return cudaErrorInvalidValue;
+  if (acc == kAccI32) {
+    return fmt == kU16 ? launch(std::integral_constant<int, kU16>{}, int32_t{})
+                       : launch(std::integral_constant<int, kP12>{}, int32_t{});
+  }
+  if (acc == kAccU16) {
+    return fmt == kU16 ? launch(std::integral_constant<int, kU16>{}, uint16_t{})
+                       : launch(std::integral_constant<int, kP12>{}, uint16_t{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// A float accumulator's launch: float, __half or __nv_bfloat16 (acc).
+template <typename F>
+cudaError_t on_float_sum(int acc, F&& launch) {
+  switch (acc) {
+    case kAccF32: return launch(float{});
+    case kAccF16: return launch(__half{});
+    case kAccBF16: return launch(__nv_bfloat16{});
+  }
+  return cudaErrorInvalidValue;
+}
+
 // The vector path's geometry: row_tile x items pixels a block, in whole
-// vectors (512 vectors when row_tile is 0), and pt pairs a block.
-template <int FMT, bool DF>
+// vectors (512 vectors when row_tile is 0), and pt pairs a block. The vector
+// path takes a float sum only; a half sum (A) takes the scalar path.
+template <int FMT, bool DF, typename A>
 cudaError_t launch_step(const void* frames, void* sum, int64_t pairs, int height,
                         int items, int64_t row_bytes, int64_t row_tile, Tiles t, float offset,
-                        float u8_scale, float rcp, bool final_div, bool vector,
+                        float u8_scale, float rcp, float groups, bool final_div, bool vector,
                         cudaStream_t stream) {
   const uint8_t* f = static_cast<const uint8_t*>(frames);
-  float* s = static_cast<float*>(sum);
-  if constexpr (FMT != kP12) {
+  A* s = static_cast<A*>(sum);
+  if constexpr (FMT != kP12 && std::is_same_v<A, float>) {
     if (vector) {
       const int64_t vectors = static_cast<int64_t>(height) * items / 8;
       const int64_t share = row_tile ? (row_tile * items + 7) / 8 : kVecPerBlock;
@@ -417,9 +467,9 @@ cudaError_t launch_step(const void* frames, void* sum, int64_t pairs, int height
     }
   }
   return in_form(t.tiled, [&](auto form) {
-    stream_step_kernel<FMT, DF, decltype(form)::value>
+    stream_step_kernel<FMT, DF, decltype(form)::value, A>
         <<<t.blocks(pairs, height), threads_for(items), 0, stream>>>(
-            f, s, pairs, height, items, row_bytes, t.rt, t.pt, offset, u8_scale, rcp,
+            f, s, pairs, height, items, row_bytes, t.rt, t.pt, offset, u8_scale, rcp, groups,
             final_div);
   });
 }
@@ -427,15 +477,15 @@ cudaError_t launch_step(const void* frames, void* sum, int64_t pairs, int height
 // Alignment (bytes) of a plane start that the vector path's loads need.
 int vector_align(int fmt) { return fmt == kU16 ? 16 : 8; }
 
-template <int FMT, bool DF>
+template <int FMT, bool DF, typename A>
 cudaError_t launch_oneshot(const void* frames, void* out, int64_t bank_pairs,
                            int groups, int pairs, int height, int items,
                            int64_t row_bytes, Tiles t, float offset, float u8_scale,
                            float rcp, cudaStream_t stream) {
   return in_form(t.tiled, [&](auto form) {
-    subtract_average_kernel<FMT, DF, decltype(form)::value>
+    subtract_average_kernel<FMT, DF, decltype(form)::value, A>
         <<<t.blocks(bank_pairs, height), threads_for(items), 0, stream>>>(
-            static_cast<const uint8_t*>(frames), static_cast<float*>(out), bank_pairs, groups,
+            static_cast<const uint8_t*>(frames), static_cast<A*>(out), bank_pairs, groups,
             pairs, height, items, row_bytes, t.rt, t.pt, offset, u8_scale, rcp);
   });
 }
@@ -450,6 +500,8 @@ bool tiles_for(int64_t pairs, int64_t height, int64_t row_tile, int64_t pair_til
   return true;
 }
 
+bool integer_acc(int acc) { return acc == kAccI32 || acc == kAccU16; }
+
 int step(const void* frames, void* sum, int64_t pairs, int64_t height,
          int64_t items, int64_t row_bytes, int fmt, int divide_first,
          int final_div, int vector, float offset, float u8_scale, float rcp,
@@ -458,39 +510,39 @@ int step(const void* frames, void* sum, int64_t pairs, int64_t height,
   if (rows == 0 || items == 0) return cudaSuccess;
   if (rows > 0x7fffffff || items > 0x7fffffff) return cudaErrorInvalidValue;
   if (fmt < kU16 || fmt > kP12) return cudaErrorInvalidValue;
+  if (groups < 1 || groups > 0x7fffffff) return cudaErrorInvalidValue;
   Tiles t;
   if (!tiles_for(pairs, height, row_tile, pair_tile, &t)) return cudaErrorInvalidValue;
-  if (acc != kAccF32) {  // integer sums: u16 wire, the scalar layout only
-    if (fmt != kU16 || vector || groups < 1 || groups > 0x7fffffff) return cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int h = static_cast<int>(height), w = static_cast<int>(items);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int h = static_cast<int>(height), it = static_cast<int>(items);
+  if (integer_acc(acc)) {  // integer sums: u16 or p12 wire, the scalar layout only
+    if (vector) return cudaErrorInvalidValue;
     const int32_t off = static_cast<int32_t>(offset), g = static_cast<int32_t>(groups);
-    if (acc == kAccI32)
-      return launch_step_int<int32_t>(frames, sum, pairs, h, w, t, off, g, divide_first,
-                                      final_div, s);
-    if (acc == kAccU16)
-      return launch_step_int<uint16_t>(frames, sum, pairs, h, w, t, off, g, divide_first,
-                                       final_div, s);
-    return cudaErrorInvalidValue;
+    return on_int_sum(acc, fmt, [&](auto f, auto zero) {
+      return launch_step_int<decltype(f)::value, decltype(zero)>(
+          frames, sum, pairs, h, it, row_bytes, t, off, g, divide_first, final_div, s);
+    });
   }
   // the host chose the vector path; a shape it cannot take is refused, never rerouted
-  if (vector && (fmt == kP12 || (height * items) % 8 ||
+  if (vector && (fmt == kP12 || acc != kAccF32 || (height * items) % 8 ||
                  reinterpret_cast<uintptr_t>(frames) % vector_align(fmt) ||
                  reinterpret_cast<uintptr_t>(sum) % 16))
     return cudaErrorMisalignedAddress;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int h = static_cast<int>(height), it = static_cast<int>(items);
   const bool fd = final_div != 0, vec = vector != 0;
+  const float gf = static_cast<float>(groups);
+  return on_float_sum(acc, [&](auto zero) {
+    using A = decltype(zero);
 #define STEP(F, D) \
-  launch_step<F, D>(frames, sum, pairs, h, it, row_bytes, row_tile, t, offset, u8_scale, rcp, \
-                    fd, vec, s)
-  switch (fmt) {
-    case kU16: return divide_first ? STEP(kU16, true) : STEP(kU16, false);
-    case kU8: return divide_first ? STEP(kU8, true) : STEP(kU8, false);
-    case kP12: return divide_first ? STEP(kP12, true) : STEP(kP12, false);
-  }
+  launch_step<F, D, A>(frames, sum, pairs, h, it, row_bytes, row_tile, t, offset, u8_scale, rcp, \
+                       gf, fd, vec, s)
+    switch (fmt) {
+      case kU16: return divide_first ? STEP(kU16, true) : STEP(kU16, false);
+      case kU8: return divide_first ? STEP(kU8, true) : STEP(kU8, false);
+      case kP12: return divide_first ? STEP(kP12, true) : STEP(kP12, false);
+    }
 #undef STEP
-  return cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
+  });
 }
 
 int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
@@ -501,30 +553,33 @@ int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
   if (rows == 0 || items == 0) return cudaSuccess;
   if (rows > 0x7fffffff || items > 0x7fffffff || groups > 0x7fffffff)
     return cudaErrorInvalidValue;
+  if (fmt < kU16 || fmt > kP12) return cudaErrorInvalidValue;
   Tiles t;
   if (!tiles_for(banks * pairs, height, row_tile, pair_tile, &t)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = static_cast<int>(groups), p = static_cast<int>(pairs);
   const int h = static_cast<int>(height), it = static_cast<int>(items);
   const int64_t bp = banks * pairs;
-  if (acc != kAccF32) {  // integer sums: u16 wire only
-    if (fmt != kU16 || groups < 1) return cudaErrorInvalidValue;
+  if (integer_acc(acc)) {  // integer sums: u16 or p12 wire
+    if (groups < 1) return cudaErrorInvalidValue;
     const int32_t off = static_cast<int32_t>(offset);
-    if (acc == kAccI32)
-      return launch_oneshot_int<int32_t>(frames, out, bp, g, p, h, it, t, off, divide_first, s);
-    if (acc == kAccU16)
-      return launch_oneshot_int<uint16_t>(frames, out, bp, g, p, h, it, t, off, divide_first, s);
-    return cudaErrorInvalidValue;
+    return on_int_sum(acc, fmt, [&](auto f, auto zero) {
+      return launch_oneshot_int<decltype(f)::value, decltype(zero)>(
+          frames, out, bp, g, p, h, it, row_bytes, t, off, divide_first, s);
+    });
   }
+  return on_float_sum(acc, [&](auto zero) {
+    using A = decltype(zero);
 #define ONESHOT(F, D) \
-  launch_oneshot<F, D>(frames, out, bp, g, p, h, it, row_bytes, t, offset, u8_scale, rcp, s)
-  switch (fmt) {
-    case kU16: return divide_first ? ONESHOT(kU16, true) : ONESHOT(kU16, false);
-    case kU8: return divide_first ? ONESHOT(kU8, true) : ONESHOT(kU8, false);
-    case kP12: return divide_first ? ONESHOT(kP12, true) : ONESHOT(kP12, false);
-  }
+  launch_oneshot<F, D, A>(frames, out, bp, g, p, h, it, row_bytes, t, offset, u8_scale, rcp, s)
+    switch (fmt) {
+      case kU16: return divide_first ? ONESHOT(kU16, true) : ONESHOT(kU16, false);
+      case kU8: return divide_first ? ONESHOT(kU8, true) : ONESHOT(kU8, false);
+      case kP12: return divide_first ? ONESHOT(kP12, true) : ONESHOT(kP12, false);
+    }
 #undef ONESHOT
-  return cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace

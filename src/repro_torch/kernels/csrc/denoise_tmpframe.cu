@@ -39,8 +39,10 @@
 //
 // Integer sums (int32, or uint16 wrapping at 16 bits) make the tmpFrame of
 // that type: pass A narrows each int32 difference to it, pass B adds in it
-// and floors the division by G (IntSum, quant.cuh). They take the scalar
-// store of pass A in both algorithms.
+// and floors the division by G (IntSum, quant.cuh). A float16 or bfloat16
+// accumulator makes a tmpFrame of its type, every operation rounded to it
+// (quant.cuh Acc); pass B scales by the host's f16(1/G), or divides by G for
+// bfloat16. Both take the scalar store of pass A in both algorithms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,12 +71,24 @@ constexpr int64_t kAlg2TileElems = int64_t{kAlg2Threads} * kAlg2VecPerThread * 4
 
 using repro_quant::IntSum;
 using repro_quant::int_pair_diff;
+using repro_quant::Acc;
+using repro_quant::acc_add;
+using repro_quant::acc_scale;
+using repro_quant::acc_sub;
+
+// A float16 or bfloat16 tmpFrame (quant.cuh Acc): every operation rounded to it.
+template <typename T>
+constexpr bool kHalf = std::is_same_v<T, __half> || std::is_same_v<T, __nv_bfloat16>;
 
 // One tmpFrame element of sum type T: exc - ctl + offset.
 template <typename T>
 __device__ __forceinline__ T diff(uint16_t c, uint16_t e, float offset) {
   if constexpr (std::is_same_v<T, float>) {
     return __fadd_rn(__fsub_rn(static_cast<float>(e), static_cast<float>(c)), offset);
+  } else if constexpr (kHalf<T>) {
+    const float d = acc_sub<T>(Acc<T>::round(static_cast<float>(e)),
+                               Acc<T>::round(static_cast<float>(c)));
+    return Acc<T>::store(acc_add<T>(d, offset));
   } else {
     return int_pair_diff<T>(c, e, static_cast<int32_t>(offset));
   }
@@ -183,20 +197,28 @@ __device__ __forceinline__ void reduce_row(const T* __restrict__ tmp, T* __restr
                                            float rcp) {
   const T* src = tmp + r * width;
   T* dst = out + r * width;
-  for (int x = threadIdx.x; x < width; x += blockDim.x) {
-    T acc = 0;
-#pragma unroll 4
-    for (int g = 0; g < groups; ++g) {
-      if constexpr (std::is_same_v<T, float>) {
-        acc = __fadd_rn(acc, src[g * plane + x]);
-      } else {
-        acc = IntSum<T>::add(acc, src[g * plane + x]);
-      }
+  if constexpr (kHalf<T>) {  // in order from zero, then * (1/G) or / G (acc_scale)
+    for (int x = threadIdx.x; x < width; x += blockDim.x) {
+      float acc = 0.0f;
+      for (int g = 0; g < groups; ++g) acc = acc_add<T>(acc, Acc<T>::load(src[g * plane + x]));
+      dst[x] = Acc<T>::store(acc_scale<T>(acc, rcp, static_cast<float>(groups)));
     }
-    if constexpr (std::is_same_v<T, float>) {
-      dst[x] = __fmul_rn(acc, rcp);
-    } else {
-      dst[x] = IntSum<T>::div(acc, groups);
+  } else {
+    for (int x = threadIdx.x; x < width; x += blockDim.x) {
+      T acc = 0;
+#pragma unroll 4
+      for (int g = 0; g < groups; ++g) {
+        if constexpr (std::is_same_v<T, float>) {
+          acc = __fadd_rn(acc, src[g * plane + x]);
+        } else {
+          acc = IntSum<T>::add(acc, src[g * plane + x]);
+        }
+      }
+      if constexpr (std::is_same_v<T, float>) {
+        dst[x] = __fmul_rn(acc, rcp);
+      } else {
+        dst[x] = IntSum<T>::div(acc, groups);
+      }
     }
   }
 }
@@ -301,6 +323,8 @@ int tmpframe_subtract_launch(const void* frames, void* tmp, int64_t spans,
     case repro_quant::kAccF32: return SUBTRACT(float);
     case repro_quant::kAccI32: return SUBTRACT(int32_t);
     case repro_quant::kAccU16: return SUBTRACT(uint16_t);
+    case repro_quant::kAccF16: return SUBTRACT(__half);
+    case repro_quant::kAccBF16: return SUBTRACT(__nv_bfloat16);
   }
 #undef SUBTRACT
   return cudaErrorInvalidValue;
@@ -323,6 +347,8 @@ int tmpframe_reduce_launch(const void* tmp, void* out, int64_t groups, int64_t p
     case repro_quant::kAccF32: return REDUCE(float);
     case repro_quant::kAccI32: return REDUCE(int32_t);
     case repro_quant::kAccU16: return REDUCE(uint16_t);
+    case repro_quant::kAccF16: return REDUCE(__half);
+    case repro_quant::kAccBF16: return REDUCE(__nv_bfloat16);
   }
 #undef REDUCE
   return cudaErrorInvalidValue;

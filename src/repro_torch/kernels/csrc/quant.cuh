@@ -11,10 +11,13 @@
 // Rounding is part of the contract: the reference's jitted prologue computes
 // the u8 dequant as fma(e, S, -(c*S)) + offset. It is written here with _rn
 // intrinsics, which nvcc never contracts or reorders, so the default
-// -fmad=true cannot change a result.
+// -fmad=true cannot change a result. pair_diff_acc is the same prologue for
+// a float16 or bfloat16 accumulator (Acc, below).
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -23,6 +26,94 @@
 namespace repro_quant {
 
 enum WireFormat : int { kU16 = 0, kU8 = 1, kP12 = 2 };
+
+// Accumulator types: float, __half, __nv_bfloat16. Values travel between
+// operations as float, each rounded to the accumulator's type where the
+// reference's compiled kernel rounds (repro_torch/kernels/ref.py):
+//   * float32 as it always was;
+//   * float16 keeps the float32 rules in float16: every operation rounded to
+//     float16, x / G as x * f16(1/G), a contracted a * b + c one float16 FMA
+//     (__hfma, rounded once);
+//   * bfloat16 rounds every operation and contracts nothing: no FMA, and
+//     x / G a true division.
+// One operation on two half values computed in float and rounded once is the
+// correctly rounded half result, so round(__fadd_rn(a, b)) is the half add.
+// The host passes every constant (offset, u8 scale, 1/G) already rounded to
+// the accumulator's type.
+template <typename A>
+struct Acc;
+template <>
+struct Acc<float> {
+  static constexpr bool kContracts = true;
+  static __device__ __forceinline__ float load(float x) { return x; }
+  static __device__ __forceinline__ float store(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ float fma(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+  }
+};
+template <>
+struct Acc<__half> {
+  static constexpr bool kContracts = true;
+  static __device__ __forceinline__ float load(__half x) { return __half2float(x); }
+  static __device__ __forceinline__ __half store(float x) { return __float2half_rn(x); }
+  static __device__ __forceinline__ float round(float x) {
+    return __half2float(__float2half_rn(x));
+  }
+  // a, b and c are float16 values: the exact a * b + c rounded once
+  static __device__ __forceinline__ float fma(float a, float b, float c) {
+    return __half2float(__hfma(__float2half_rn(a), __float2half_rn(b), __float2half_rn(c)));
+  }
+};
+template <>
+struct Acc<__nv_bfloat16> {
+  static constexpr bool kContracts = false;
+  static __device__ __forceinline__ float load(__nv_bfloat16 x) { return __bfloat162float(x); }
+  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+
+// The arithmetic of accumulator A on float-held values of type A.
+template <typename A>
+__device__ __forceinline__ float acc_add(float a, float b) {
+  return Acc<A>::round(__fadd_rn(a, b));
+}
+template <typename A>
+__device__ __forceinline__ float acc_sub(float a, float b) {
+  return Acc<A>::round(__fsub_rn(a, b));
+}
+template <typename A>
+__device__ __forceinline__ float acc_mul(float a, float b) {
+  return Acc<A>::round(__fmul_rn(a, b));
+}
+template <typename A>
+__device__ __forceinline__ float acc_div(float a, float b) {
+  return Acc<A>::round(__fdiv_rn(a, b));
+}
+
+// The running-sum fold s + d (divide-last) or s + d / G (divide-first): an
+// FMA with the host's rounded 1/G where A contracts, else a true division.
+template <typename A, bool DIVIDE_FIRST>
+__device__ __forceinline__ float acc_fold(float s, float d, float rcp, float groups) {
+  if constexpr (!DIVIDE_FIRST) {
+    return acc_add<A>(s, d);
+  } else if constexpr (Acc<A>::kContracts) {
+    return Acc<A>::fma(d, rcp, s);
+  } else {
+    return acc_add<A>(s, acc_div<A>(d, groups));
+  }
+}
+
+// x / G: x * (1/G) where A contracts, else a true division.
+template <typename A>
+__device__ __forceinline__ float acc_scale(float x, float rcp, float groups) {
+  if constexpr (Acc<A>::kContracts) return acc_mul<A>(x, rcp);
+  return acc_div<A>(x, groups);
+}
 
 // Logical pixels produced per thread item (a p12 item is 3 bytes, 2 pixels).
 template <int FMT>
@@ -56,6 +147,67 @@ __device__ __forceinline__ void pair_diff(const uint8_t* __restrict__ ctl,
     const float ehi = static_cast<float>((e1 >> 4) | (e2 << 4));
     d[0] = __fadd_rn(__fsub_rn(elo, clo), offset);
     d[1] = __fadd_rn(__fsub_rn(ehi, chi), offset);
+  }
+}
+
+// The wire value of pixel k (0 or 1) of item x, exactly as a float.
+template <int FMT>
+__device__ __forceinline__ void wire_pixels(const uint8_t* __restrict__ row, int x,
+                                            float v[Item<FMT>::kPixels]) {
+  if constexpr (FMT == kU16) {
+    v[0] = static_cast<float>(reinterpret_cast<const uint16_t*>(row)[x]);
+  } else if constexpr (FMT == kU8) {
+    v[0] = static_cast<float>(row[x]);
+  } else {
+    const uint8_t* b = row + 3 * x;
+    const int b0 = b[0], b1 = b[1], b2 = b[2];
+    v[0] = static_cast<float>(b0 | ((b1 & 0xF) << 8));
+    v[1] = static_cast<float>((b1 >> 4) | (b2 << 4));
+  }
+}
+
+// pair_diff for a half accumulator A: exc - ctl + offset rounded as the
+// reference rounds it in A. `wide` gets the last add unrounded: XLA computes
+// the last operation of a bfloat16 value that a float32 sum reads in float32
+// (denoise_ema.cu), so the EMA kernel's chunk mean sums `wide`.
+template <int FMT, typename A>
+__device__ __forceinline__ void pair_diff_acc(const uint8_t* __restrict__ ctl,
+                                              const uint8_t* __restrict__ exc, int x,
+                                              float offset, float u8_scale,
+                                              float d[Item<FMT>::kPixels],
+                                              float wide[Item<FMT>::kPixels]) {
+  constexpr int P = Item<FMT>::kPixels;
+  float c[P], e[P];
+  wire_pixels<FMT>(ctl, x, c);
+  wire_pixels<FMT>(exc, x, e);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    float pre;
+    if constexpr (FMT == kU8) {
+      if constexpr (Acc<A>::kContracts) {
+        pre = Acc<A>::fma(e[k], u8_scale, -acc_mul<A>(c[k], u8_scale));
+      } else {
+        pre = acc_sub<A>(acc_mul<A>(e[k], u8_scale), acc_mul<A>(c[k], u8_scale));
+      }
+    } else {
+      pre = acc_sub<A>(Acc<A>::round(e[k]), Acc<A>::round(c[k]));
+    }
+    wide[k] = __fadd_rn(pre, offset);
+    d[k] = Acc<A>::round(wide[k]);
+  }
+}
+
+// pair_diff for accumulator A: the float one above, or pair_diff_acc.
+template <int FMT, typename A>
+__device__ __forceinline__ void pair_diff_as(const uint8_t* __restrict__ ctl,
+                                             const uint8_t* __restrict__ exc, int x,
+                                             float offset, float u8_scale,
+                                             float d[Item<FMT>::kPixels]) {
+  if constexpr (std::is_same_v<A, float>) {
+    pair_diff<FMT>(ctl, exc, x, offset, u8_scale, d);
+  } else {
+    float wide[Item<FMT>::kPixels];
+    pair_diff_acc<FMT, A>(ctl, exc, x, offset, u8_scale, d, wide);
   }
 }
 
@@ -145,8 +297,31 @@ __device__ __forceinline__ T int_pair_diff(uint16_t ctl, uint16_t exc, int32_t o
   return IntSum<T>::narrow(uint32_t{exc} - uint32_t{ctl} + static_cast<uint32_t>(offset));
 }
 
-// Accumulator codes of the C entry points: float32, int32, uint16.
-enum AccumCode : int { kAccF32 = 0, kAccI32 = 1, kAccU16 = 2 };
+// The same for thread item x of a u16 or p12 wire row pair: one pixel, or
+// the two 12-bit pixels of a p12 item.
+template <int FMT, typename T>
+__device__ __forceinline__ void int_pair_diff_item(const uint8_t* __restrict__ ctl,
+                                                   const uint8_t* __restrict__ exc, int x,
+                                                   int32_t offset,
+                                                   T d[Item<FMT>::kPixels]) {
+  static_assert(FMT != kU8, "u8 wire has no integer sum");
+  if constexpr (FMT == kU16) {
+    d[0] = int_pair_diff<T>(reinterpret_cast<const uint16_t*>(ctl)[x],
+                            reinterpret_cast<const uint16_t*>(exc)[x], offset);
+  } else {
+    const uint8_t* cp = ctl + 3 * x;
+    const uint8_t* ep = exc + 3 * x;
+    const uint32_t c0 = cp[0], c1 = cp[1], c2 = cp[2];
+    const uint32_t e0 = ep[0], e1 = ep[1], e2 = ep[2];
+    d[0] = int_pair_diff<T>(static_cast<uint16_t>(c0 | ((c1 & 0xF) << 8)),
+                            static_cast<uint16_t>(e0 | ((e1 & 0xF) << 8)), offset);
+    d[1] = int_pair_diff<T>(static_cast<uint16_t>((c1 >> 4) | (c2 << 4)),
+                            static_cast<uint16_t>((e1 >> 4) | (e2 << 4)), offset);
+  }
+}
+
+// Accumulator codes of the C entry points.
+enum AccumCode : int { kAccF32 = 0, kAccI32 = 1, kAccU16 = 2, kAccF16 = 3, kAccBF16 = 4 };
 
 // Threads per block for a row of `items` thread items: whole warps, <= 256.
 inline int threads_for(int items) {

@@ -45,6 +45,14 @@ on the size of the fused loop body (the wire format, and Pallas against
 the XLA composite); there the port keeps the rule above and differs from
 the reference by the tolerance ``ROADMAP.md`` declares for B8.
 
+**Half-precision states** (float16, bfloat16) follow what XLA makes of
+the reference's kernel for each type (:func:`half_chunk_stats`,
+:func:`half_merge`): ``jnp.mean`` and ``jnp.sum`` take a chunk's
+statistics in float32 in the order above and round them once; the EMA and
+the merge round every operation, float16 contracting the FMAs of the
+float32 list. On the card they run a simple kernel of one thread a pixel
+(``ema_half_kernel`` in the CUDA source).
+
 Dispatch, checks and the launch counter are as in
 :mod:`repro_torch.kernels.denoise_stream`.
 """
@@ -56,7 +64,8 @@ import torch
 
 from repro_torch.kernels import _build, quant, ref
 from repro_torch.kernels.denoise_stream import (
-    U8_SCALE_F32,
+    ACCUM_CODES,
+    acc_constants,
     check_kernel_operands,
     check_launch,
     on_cuda,
@@ -71,10 +80,19 @@ def _f32(x) -> torch.Tensor:
 
 
 def _ema_update(ema, diff, alpha):
-    """``fma(ema, f32(1-a), f32(a*diff))``, the reference's contraction."""
-    a = np.float32(alpha)
-    return ref.fma_f32(ema, float(np.float32(1) - a), diff * _f32(a).to(diff.device))
+    """``ema * (1 - a) + a * diff`` in the state's type, ``a`` rounded to
+    it: ``fma(ema, 1-a, a*diff)`` where XLA contracts (``ref.contracts``),
+    each operation rounded on its own for bfloat16."""
+    dt = ema.dtype
+    a = torch.tensor(ref.round_const(alpha, dt), dtype=dt, device=ema.device)
+    one_minus = 1 - a
+    if ref.contracts(dt):
+        return ref.fma(ema, float(one_minus), diff * a)
+    return ema * one_minus + a * diff
 
+
+#: the state types whose chunk statistics ``jnp.mean``/``jnp.sum`` take in float32
+HALF_TYPES = (torch.float16, torch.bfloat16)
 
 CHAIN_MAX = 24   # a chunk of up to this many pairs: one sequential chain
 LANES_MAX = 32   # up to this many: 8 vector lanes, a pairwise fold, the rest
@@ -142,6 +160,61 @@ def chunk_sums(d: torch.Tensor, rcp: torch.Tensor):
     return s, acc, False
 
 
+def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """A float32 sum over the leading axis in XLA's order for its length."""
+    m = x.shape[0]
+    if m > LANES_MAX:
+        return _windows(x)
+    return _lanes(x, _add) if m > CHAIN_MAX else _seq_sum(x)
+
+
+def half_chunk_stats(d: torch.Tensor, d_wide: torch.Tensor):
+    """``(mean, m2)`` of one float16/bfloat16 chunk ``d`` ``(m, ...)``, in
+    ``d``'s type, as ``jnp.mean`` and ``jnp.sum`` compute them: both sum in
+    float32 (in XLA's order for the length), the mean scales by
+    ``f32(1/m)``, and each result is rounded once to the half type.
+    ``d_wide`` is the float32 the mean sums (:func:`sum_input`). The
+    centring rounds in the half type; the squares round to float16, while
+    a bfloat16 square stays in float32 (where it is exact)."""
+    dt = d.dtype
+    rcp = float(np.float32(1) / np.float32(d.shape[0]))
+    mean = (_ordered_sum(d_wide) * rcp).to(dt)
+    dc = d - mean
+    sq = (dc * dc).to(torch.float32) if dt == torch.float16 else dc.float() * dc.float()
+    return mean, _ordered_sum(sq).to(dt)
+
+
+def sum_input(group_frames, diff, *, offset, stream_dtype):
+    """The float32 values ``jnp.mean`` sums for the chunk mean: ``diff``
+    widened, except that for bfloat16 XLA computes the last operation of
+    the prologue, ``+ offset``, in float32 and does not round it."""
+    if diff.dtype != torch.bfloat16:
+        return diff.to(torch.float32)
+    pre = ref.pair_diff(group_frames, offset=0.0, accum_dtype=diff.dtype,
+                        stream_dtype=stream_dtype)
+    return pre.to(torch.float32) + ref.round_const(offset, diff.dtype)
+
+
+def half_merge(mean, m2, chunk_mean, chunk_m2, n, m, *, sum_first: bool):
+    """Chan's merge of a chunk's ``(chunk_mean, chunk_m2)`` into ``(mean,
+    m2)`` in a half type, ``n`` and ``m`` 0-dim tensors of that type.
+    ``sum_first`` is the XLA composite's order, ``(m2 + chunk_m2) + ...``;
+    the Pallas kernel adds ``chunk_m2 + ...`` to ``m2`` last."""
+    dt = mean.dtype
+    delta = chunk_mean - mean
+    tot = n + m
+    r, c = m / tot, (n * m) / tot
+    dd = delta * delta
+    if ref.contracts(dt):
+        new_mean = ref.fma(delta, float(r), mean)
+        new_m2 = (ref.fma(dd, float(c), m2 + chunk_m2) if sum_first
+                  else m2 + ref.fma(dd, float(c), chunk_m2))
+    else:
+        new_mean = mean + delta * r
+        new_m2 = (m2 + chunk_m2 + dd * c) if sum_first else m2 + (chunk_m2 + dd * c)
+    return new_mean, new_m2
+
+
 def _centred_delta(s, rcp, mean, windowed):
     """``s / m - mean``: contracted after a windowed sum, else rounded."""
     return ref.fma_f32(s, float(rcp), -mean) if windowed else s * rcp - mean
@@ -177,6 +250,18 @@ def ema_welford_step_plain(
                          stream_dtype=stream_dtype)
     new_ema = _ema_update(ema, diff, alpha)
     dev = ema.device
+    if ema.dtype in HALF_TYPES:
+        dt = ema.dtype
+        m = torch.tensor(pair_tile, dtype=dt, device=dev)
+        prior = torch.tensor(prior_count, dtype=dt, device=dev)
+        wide = sum_input(group_frames, diff, offset=offset, stream_dtype=stream_dtype)
+        mean, m2 = wmean, wm2
+        for k in range(diff.shape[0] // pair_tile):
+            chunk = slice(k * pair_tile, (k + 1) * pair_tile)
+            cm, cm2 = half_chunk_stats(diff[chunk], wide[chunk])
+            n = prior + torch.tensor(k, dtype=dt, device=dev) * m
+            mean, m2 = half_merge(mean, m2, cm, cm2, n, m, sum_first=False)
+        return new_ema, mean, m2
     m = _f32(pair_tile).to(dev)
     rcp = _f32(np.float32(1) / np.float32(pair_tile)).to(dev)
     prior = _f32(prior_count).to(dev)
@@ -204,6 +289,13 @@ def ema_welford_step_xla(
     new_ema = _ema_update(ema, diff, alpha)
     dev = ema.device
     p = diff.shape[0]
+    if ema.dtype in HALF_TYPES:
+        dt = ema.dtype
+        cm, cm2 = half_chunk_stats(
+            diff, sum_input(group_frames, diff, offset=offset, stream_dtype=stream_dtype))
+        return (new_ema, *half_merge(
+            wmean, wm2, cm, cm2, torch.tensor(prior_count, dtype=dt, device=dev),
+            torch.tensor(p, dtype=dt, device=dev), sum_first=True))
     m, n = _f32(p).to(dev), _f32(prior_count).to(dev)
     rcp = _f32(np.float32(1) / np.float32(p)).to(dev)
     s, chunk, windowed = chunk_sums(diff, rcp)
@@ -242,15 +334,18 @@ def ema_welford_step(
     fmt, items, row_bytes = check_kernel_operands(group_frames, ema, stream_dtype)
     for t in (wmean, wm2):
         check_kernel_operands(group_frames, t, stream_dtype)
-    a = np.float32(alpha)
+        if t.dtype != ema.dtype:
+            raise TypeError(f"ema is {ema.dtype}, a statistics plane {t.dtype}")
+    dt = ema.dtype
+    a = torch.tensor(ref.round_const(alpha, dt), dtype=dt)
     lib = _build.library()
     with torch.cuda.device(ema.device):
         rc = lib.ema_welford_step_launch(
             group_frames.data_ptr(), ema.data_ptr(), wmean.data_ptr(),
-            wm2.data_ptr(), p, h, items, row_bytes, tp, fmt, float(offset),
-            U8_SCALE_F32, float(a), float(np.float32(1) - a),
-            float(np.float32(prior_count)), float(np.float32(1) / np.float32(tp)),
-            torch.cuda.current_stream().cuda_stream,
+            wm2.data_ptr(), p, h, items, row_bytes, tp, fmt,
+            *acc_constants(dt, offset)[:2], float(a), float(1 - a),
+            ref.round_const(prior_count, dt), float(np.float32(1) / np.float32(tp)),
+            ACCUM_CODES[dt], torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "ema_welford_step")
     ema_welford_step.launches += 1

@@ -12,7 +12,8 @@
   version below and the kernel agree bit for bit, with each other and
   with the reference's network or its ``jnp.sort``.
 
-Dispatch, checks and launch counters are as in
+The window is float32, float16 or bfloat16 (the even-K add rounds to
+its type). Dispatch, checks and launch counters are as in
 :mod:`repro_torch.kernels.denoise_stream`, and so is the insert's launch
 geometry (``row_tile`` rows of ``pair_tile`` pairs a block). The combine
 has one geometry, a flat grid of 256-thread blocks: it validates the
@@ -28,7 +29,10 @@ import torch
 
 from repro_torch.kernels import _build, quant, ref
 from repro_torch.kernels.denoise_stream import (
-    U8_SCALE_F32,
+    ACCUM_CODES,
+    FLOAT_ACCUMS,
+    NOT_PORTED_ACCUM,
+    acc_constants,
     check_kernel_operands,
     check_launch,
     on_cuda,
@@ -100,7 +104,8 @@ def median_window_insert(
     with torch.cuda.device(window.device):
         rc = lib.median_window_insert_launch(
             group_frames.data_ptr(), dst.data_ptr(), n // 2, h, items, row_bytes,
-            fmt, float(offset), U8_SCALE_F32, *tiles, torch.cuda.current_stream().cuda_stream,
+            fmt, *acc_constants(window.dtype, offset)[:2], *tiles, ACCUM_CODES[window.dtype],
+            torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "median_window_insert")
     median_window_insert.launches += 1
@@ -135,15 +140,15 @@ def median_combine(
     if not on_cuda(window):
         return median_combine_plain(window)
     k = window.shape[0]
-    if window.dtype != torch.float32:
-        raise NotImplementedError(f"accumulator {window.dtype}: the CUDA kernels take float32 only")
+    if window.dtype not in FLOAT_ACCUMS:
+        raise NotImplementedError(f"accumulator {window.dtype}: {NOT_PORTED_ACCUM}")
     if not window.is_contiguous():
         raise ValueError("the CUDA kernels need a contiguous window")
     out = torch.empty(window.shape[1:], dtype=window.dtype, device=window.device)
     lib = _build.library()
     with torch.cuda.device(window.device):
         rc = lib.median_combine_launch(
-            window.data_ptr(), out.data_ptr(), k, out.numel(),
+            window.data_ptr(), out.data_ptr(), k, out.numel(), ACCUM_CODES[window.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "median_combine")

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build, quant, ref
 from repro_torch.kernels.denoise_stream import (
     ACCUM_CODES,
-    U8_SCALE_F32,
+    acc_constants,
     check_step_shapes,
     alg3_stream_step_plain,
     alg3_subtract_average_plain,
@@ -115,9 +115,8 @@ def multibank_subtract_average(
     with torch.cuda.device(frames.device):
         rc = lib.multibank_subtract_average_launch(
             frames.data_ptr(), out.data_ptr(), b, g, n // 2, h, items,
-            row_bytes, fmt, int(divide_first), float(offset), U8_SCALE_F32,
-            ref.reciprocal(g), ACCUM_CODES[out.dtype], *tiles,
-            torch.cuda.current_stream().cuda_stream,
+            row_bytes, fmt, int(divide_first), *acc_constants(out.dtype, offset, g),
+            ACCUM_CODES[out.dtype], *tiles, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "multibank_subtract_average")
     multibank_subtract_average.launches += 1

@@ -1,8 +1,10 @@
 """The post-average 3×3 spatial stage on Hopper (counterpart of
 ``repro.kernels.denoise_spatial``), over ``csrc/denoise_spatial.cu``.
 
-:func:`spatial_filter_3x3` maps ``(P, H, W)`` float32 frames to a fresh
-``(P, H, W)`` tensor, image edges replicated:
+:func:`spatial_filter_3x3` maps ``(P, H, W)`` float32, float16 or
+bfloat16 frames to a fresh ``(P, H, W)`` tensor of their type, image edges
+replicated, every operation rounded to that type as the reference's kernel
+body rounds it (:mod:`repro_torch.kernels.ref`):
 
 * ``box`` — the 3×3 mean, rounded as the reference's jitted
   ``sum(neighbours) / 9``: a sequential sum (rows top to bottom, columns
@@ -11,26 +13,40 @@
   ``exp(-(x_i - x_c)^2 * f32(1/(2 sigma^2)))`` and a true division by the
   weight sum. ``exp`` is not the same function in XLA, PyTorch and CUDA,
   so this mode is held to the reference and to the kernel within
-  :data:`BILATERAL_RTOL`.
+  :data:`BILATERAL_RTOL` (float32) or :data:`BILATERAL_ULPS` (half types).
 
 The kernel stages tiles of 16 rows x 128 columns with their halo in
 shared memory. It takes one of two paths, chosen on the host by
 :func:`tile_path` and counted in ``spatial_filter_3x3.vector_launches``
 or ``.scalar_launches``: float4 loads and stores where W % 4 == 0 and
-both planes are 16-byte aligned, scalar ones otherwise. Dispatch, checks
-and the launch counter are as in :mod:`repro_torch.kernels.denoise_stream`.
+both planes are 16-byte aligned, scalar ones otherwise. Half-precision
+frames take a kernel of one thread a pixel, counted as a scalar launch.
+Dispatch, checks and the launch counter are as in
+:mod:`repro_torch.kernels.denoise_stream`.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.denoise_stream import check_launch, on_cuda
+from repro_torch.kernels.denoise_stream import (
+    ACCUM_CODES,
+    FLOAT_ACCUMS,
+    NOT_PORTED_ACCUM,
+    check_launch,
+    on_cuda,
+)
 from repro_torch.tune.budget import launch_tiles
 
-__all__ = ["BILATERAL_RTOL", "spatial_filter_3x3", "spatial_filter_3x3_plain", "tile_path"]
+__all__ = [
+    "BILATERAL_RTOL",
+    "BILATERAL_ULPS",
+    "half_ulps",
+    "spatial_filter_3x3",
+    "spatial_filter_3x3_plain",
+    "tile_path",
+]
 
 #: declared tolerance of ``bilateral`` against the reference and between
 #: the kernel and its plain version. Each float32 evaluation rounds its
@@ -42,12 +58,32 @@ __all__ = ["BILATERAL_RTOL", "spatial_filter_3x3", "spatial_filter_3x3_plain", "
 #: (``scripts/torch_bilateral_margin.py``); the limit sits between them.
 BILATERAL_RTOL = 1e-6
 
+#: declared tolerance of ``bilateral`` on half-precision frames, in units
+#: in the last place of the half type (:func:`half_ulps`): a weight whose
+#: float32 ``exp`` lands next to a half rounding boundary rounds one way in
+#: XLA and the other in PyTorch or CUDA. On the CPU the plain version
+#: reads at most 2 float16 ulps from the reference and 0 bfloat16 ulps.
+BILATERAL_ULPS = {torch.float16: 4, torch.bfloat16: 2}
+
 _MODES = {"box": 0, "bilateral": 1}
 
 
-def _inv2s2(range_sigma: float) -> float:
-    """``f32(1 / (2 sigma^2))``, computed in float64 as the reference's host does."""
-    return float(np.float32(1.0 / (2.0 * range_sigma * range_sigma)))
+def _inv2s2(range_sigma: float, dtype: torch.dtype = torch.float32) -> float:
+    """``1 / (2 sigma^2)`` computed in float64, as the reference's host does,
+    and rounded once to the frames' type."""
+    return ref.round_const(1.0 / (2.0 * range_sigma * range_sigma), dtype)
+
+
+def half_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` in units in the last place of ``want``
+    in the half type of ``got`` (the binade's spacing, at least the
+    smallest normal's)."""
+    dt = got.dtype
+    fi = torch.finfo(dt)
+    w = want.to(torch.float64)
+    binade = torch.floor(torch.log2(w.abs().clamp_min(fi.tiny)))
+    ulp = torch.exp2(binade) * fi.eps
+    return float(((got.to(torch.float64) - w).abs() / ulp).max())
 
 
 def tile_path(width: int, in_ptr: int, out_ptr: int) -> str:
@@ -76,20 +112,24 @@ def spatial_filter_3x3_plain(
     frames: torch.Tensor, *, mode: str = "box", range_sigma: float = 50.0
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (and the reference's padded-shift
-    XLA composite, which rounds alike); a fresh tensor."""
+    XLA composite, which rounds alike); a fresh tensor of the frames' type,
+    every operation rounded to it as the reference's kernel body rounds
+    (``ref.contracts``: float32 and float16 contract ``wgt * nb + acc`` into
+    an FMA and scale the box sum by ``1/9``, bfloat16 divides truly)."""
     nbs = _neighbours(frames)
+    dt = frames.dtype
     if mode == "box":
         total = torch.zeros_like(frames)
         for nb in nbs:
             total = total + nb
-        return total * torch.tensor(np.float32(1) / np.float32(9))
-    inv2s2 = torch.tensor(_inv2s2(range_sigma), dtype=frames.dtype)
+        return ref.scale_reciprocal(total, 9)
+    inv2s2 = torch.tensor(_inv2s2(range_sigma, dt), dtype=dt)
     acc = torch.zeros_like(frames)
     wsum = torch.zeros_like(frames)
     for nb in nbs:
         d = nb - frames
         wgt = torch.exp(-(d * d) * inv2s2)
-        acc = ref.fma_f32(wgt, nb, acc)
+        acc = ref.fma(wgt, nb, acc) if ref.contracts(dt) else acc + wgt * nb
         wsum = wsum + wgt
     return acc / wsum
 
@@ -108,18 +148,20 @@ def spatial_filter_3x3(
     launch_tiles(frames.shape[0], frames.shape[1], row_tile, pair_tile)
     if not on_cuda(frames):
         return spatial_filter_3x3_plain(frames, mode=mode, range_sigma=range_sigma)
-    if frames.dtype != torch.float32:
-        raise NotImplementedError(f"frames {frames.dtype}: the CUDA kernels take float32 only")
+    dt = frames.dtype
+    if dt not in FLOAT_ACCUMS:
+        raise NotImplementedError(f"frames {dt}: {NOT_PORTED_ACCUM}")
     if not frames.is_contiguous():
         raise ValueError("the CUDA kernels need contiguous frames")
     p, h, w = frames.shape
     out = torch.empty_like(frames)
-    path = tile_path(w, frames.data_ptr(), out.data_ptr())
+    path = tile_path(w, frames.data_ptr(), out.data_ptr()) if dt == torch.float32 else "scalar"
     lib = _build.library()
     with torch.cuda.device(frames.device):
         rc = lib.spatial_filter_3x3_launch(
             frames.data_ptr(), out.data_ptr(), p, h, w, _MODES[mode], int(path == "vector"),
-            _inv2s2(range_sigma), torch.cuda.current_stream().cuda_stream,
+            _inv2s2(range_sigma, dt), ref.reciprocal(9, dt), ACCUM_CODES[dt],
+            torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "spatial_filter_3x3")
     spatial_filter_3x3.launches += 1

@@ -15,7 +15,7 @@ The step kernel has two paths, chosen on the host by :func:`step_path`
 and passed to the kernel as a flag: a vector path (eight pixels a thread,
 16-byte loads for u16, 8-byte for u8) wherever every plane allows it, and
 the scalar path (one pixel a thread, one block per row) on every other
-shape, for p12 and for integer sums. Each launch
+shape, for p12 and for sums that are not float32. Each launch
 is counted in ``<wrapper>.vector_launches`` or ``<wrapper>.scalar_launches``
 as well as in ``<wrapper>.launches``.
 
@@ -24,8 +24,10 @@ device, dtype, shape and contiguity, launches its kernel on the current
 stream and counts the launch in ``<wrapper>.launches``; on a CPU tensor it
 runs the plain PyTorch version beside it (``*_plain``), the counterpart
 of the reference's interpret mode. It never falls back from one to the
-other. Sums are float32, or, from u16 wire, int32 or uint16 (the paper's
-u16 container, which wraps at 16 bits): the integer kernels do the plain
+other. Sums are float32, float16 or bfloat16, rounded as the plain
+versions round them (``ref``: the reference's compiled arithmetic for each
+type), or, from u16 or p12 wire, int32 or uint16 (the paper's u16
+container, which wraps at 16 bits): the integer kernels do the plain
 versions' integer arithmetic (``ref.fold``), floor divisions included.
 Every wrapper takes a launch geometry, ``row_tile`` image rows of
 ``pair_tile`` pairs a block (on the step's vector path, a share of
@@ -37,7 +39,6 @@ the reference's). The geometry never changes a bit of the result.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build, quant, ref
@@ -52,16 +53,29 @@ __all__ = [
 ]
 
 _FORMATS = {"u16": 0, "u8": 1, "p12": 2}
-#: float32 u8 scale, as the reference's ``jnp.asarray(U8_SCALE, f32)``
-U8_SCALE_F32 = float(np.float32(quant.U8_SCALE))
-#: ROADMAP.md item an unported request names
+#: what a wrapper that refuses an accumulator says: nothing the reference's
+#: configuration accepts is refused (its ``"float64"`` is float32 with x64
+#: off, and it rejects an integer sum of u8 wire too)
 NOT_PORTED_ACCUM = (
-    "the CUDA kernels accumulate in float32, and the Alg 1-3 kernels also in "
-    "int32 and uint16 from u16 wire; other accumulators run on the CPU "
-    "(ROADMAP.md queue C, 'other accumulators on CUDA')"
+    "the CUDA kernels accumulate in float32, float16 and bfloat16, and the "
+    "Alg 1-3 kernels also in int32 and uint16 from u16 or p12 wire (not from "
+    "u8 wire); other accumulators run on the CPU"
 )
 #: the C entry points' accumulator codes (``AccumCode``, ``csrc/quant.cuh``)
-ACCUM_CODES = {torch.float32: 0, torch.int32: 1, torch.uint16: 2}
+ACCUM_CODES = {
+    torch.float32: 0, torch.int32: 1, torch.uint16: 2, torch.float16: 3, torch.bfloat16: 4,
+}
+#: the floating accumulators every kernel takes
+FLOAT_ACCUMS = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def acc_constants(dtype: torch.dtype, offset: float, num_groups: int = 1):
+    """``(offset, u8 scale, 1/G)`` as the kernels take them: each rounded to
+    the accumulator's type (``ref.round_const``), the way the reference's
+    kernel body rounds ``jnp.asarray(c, acc)``; float32 for integer sums."""
+    dt = dtype if dtype in FLOAT_ACCUMS else torch.float32
+    return (ref.round_const(offset, dt), ref.round_const(quant.U8_SCALE, dt),
+            ref.reciprocal(num_groups, dt))
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -86,12 +100,13 @@ def check_kernel_operands(
 
     ``items`` is the per-row thread count (W, or W/2 for p12, whose 3 wire
     bytes hold two pixels); ``row_bytes`` the wire row length in bytes.
-    ``out`` is float32, or with ``integer_sums`` also an int32 or uint16
-    sum of u16 wire.
+    ``out`` is float32, float16 or bfloat16, or with ``integer_sums`` also
+    an int32 or uint16 sum of u16 or p12 wire.
     """
     quant.validate_stream_dtype(stream_dtype)
-    integer = integer_sums and stream_dtype == "u16" and out.dtype in (torch.int32, torch.uint16)
-    if out.dtype != torch.float32 and not integer:
+    integer = (integer_sums and stream_dtype != "u8"
+               and out.dtype in (torch.int32, torch.uint16))
+    if out.dtype not in FLOAT_ACCUMS and not integer:
         raise NotImplementedError(
             f"accumulator {out.dtype} ({stream_dtype} wire): {NOT_PORTED_ACCUM}")
     want = quant.container_torch_dtype(stream_dtype)
@@ -129,8 +144,8 @@ def launch_step(fn, entry: str, group_frames, sum_frame, dims, *, fmt: int,
                 divide_first: bool, final: bool, offset: float, num_groups: int,
                 stream_dtype: str, tiles: tuple[int, int]) -> None:
     """Launch the step kernel through the C entry point ``entry`` on the path
-    :func:`step_path` picks (the scalar one for an integer sum), and count
-    the launch on the wrapper ``fn``. ``dims`` are the launcher's sizes,
+    :func:`step_path` picks (the scalar one for a sum that is not float32),
+    and count the launch on the wrapper ``fn``. ``dims`` are the launcher's sizes,
     from the bank or pair count to ``row_bytes``; ``tiles`` is the
     launcher's ``(row_tile, pair_tile)`` (:func:`launch_tiles`)."""
     *_, h, w = sum_frame.shape
@@ -141,8 +156,8 @@ def launch_step(fn, entry: str, group_frames, sum_frame, dims, *, fmt: int,
     with torch.cuda.device(sum_frame.device):
         rc = getattr(lib, entry)(
             group_frames.data_ptr(), sum_frame.data_ptr(), *dims, fmt, int(divide_first),
-            int(final and not divide_first), int(path == "vector"), float(offset),
-            U8_SCALE_F32, ref.reciprocal(num_groups), acc, num_groups, *tiles,
+            int(final and not divide_first), int(path == "vector"),
+            *acc_constants(sum_frame.dtype, offset, num_groups), acc, num_groups, *tiles,
             torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, fn.__name__)
@@ -283,9 +298,8 @@ def alg3_subtract_average(
     with torch.cuda.device(frames.device):
         rc = lib.alg3_subtract_average_launch(
             frames.data_ptr(), out.data_ptr(), g, n // 2, h, items, row_bytes,
-            fmt, int(divide_first), float(offset), U8_SCALE_F32,
-            ref.reciprocal(g), ACCUM_CODES[out.dtype], *tiles,
-            torch.cuda.current_stream().cuda_stream,
+            fmt, int(divide_first), *acc_constants(out.dtype, offset, g),
+            ACCUM_CODES[out.dtype], *tiles, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "alg3_subtract_average")
     alg3_subtract_average.launches += 1

@@ -23,9 +23,11 @@ tensor the wrapper checks its operands, launches both kernels on the
 current stream and adds one to ``<wrapper>.launches`` at each launch (two
 per call); on a CPU tensor it runs the plain version (``*_plain``). The
 kernels ingest u16 frames only, as the reference's Pallas baselines have
-no dequant path, into a float32 accumulator or an int32 or uint16 one
-(the tmpFrame then has that type; pass B floors its division by G, as
-the plain version does).
+no dequant path, into a float32, float16 or bfloat16 accumulator or an
+int32 or uint16 one. The tmpFrame then has that type: every operation
+rounds to a half type, and pass B scales by ``f16(1/G)`` or divides a
+bfloat16 sum truly (``ref.scale_reciprocal``); it floors an integer
+division by G, as the plain version does.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.denoise_stream import (
     ACCUM_CODES,
     NOT_PORTED_ACCUM,
+    acc_constants,
     check_launch,
     on_cuda,
 )
@@ -103,7 +106,8 @@ def subtract_pass(frames: torch.Tensor, *, offset: float = 0.0, burst: bool,
     with torch.cuda.device(frames.device):
         rc = _build.library().tmpframe_subtract_launch(
             frames.data_ptr(), tmp.data_ptr(), g * (n // 2), h, w, int(burst),
-            float(offset), ACCUM_CODES[acc], *tiles, torch.cuda.current_stream().cuda_stream,
+            acc_constants(acc, offset)[0], ACCUM_CODES[acc], *tiles,
+            torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "tmpframe_subtract")
     return tmp
@@ -114,14 +118,14 @@ def reduce_pass(tmp: torch.Tensor, *, tiles: tuple[int, int] = (0, 0)) -> torch.
     ``tiles`` as for :func:`subtract_pass`."""
     if tmp.ndim != 4 or tmp.dtype not in ACCUM_CODES or not tmp.is_contiguous():
         raise ValueError(
-            f"expected a contiguous (G, P, H, W) float32, int32 or uint16 "
-            f"tmpFrame, got {tuple(tmp.shape)} {tmp.dtype}"
+            f"expected a contiguous (G, P, H, W) float32, float16, bfloat16, "
+            f"int32 or uint16 tmpFrame, got {tuple(tmp.shape)} {tmp.dtype}"
         )
     g, p, h, w = tmp.shape
     out = torch.empty((p, h, w), dtype=tmp.dtype, device=tmp.device)
     with torch.cuda.device(tmp.device):
         rc = _build.library().tmpframe_reduce_launch(
-            tmp.data_ptr(), out.data_ptr(), g, p, h, w, ref.reciprocal(g),
+            tmp.data_ptr(), out.data_ptr(), g, p, h, w, acc_constants(tmp.dtype, 0.0, g)[2],
             ACCUM_CODES[tmp.dtype], *tiles, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "tmpframe_reduce")

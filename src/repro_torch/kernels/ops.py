@@ -116,13 +116,18 @@ def pair_diff(
 
 
 def _materialized(frames, *, offset, accum_dtype, stream_dtype, group_axis):
-    """Alg 1/2 dataflow: every diff first (tmpFrame), then the reduction."""
+    """Alg 1/2 dataflow: every diff first (tmpFrame), then the reduction.
+
+    The reference reduces with ``jnp.sum``, which sums a float16 or
+    bfloat16 tmpFrame in float32 and rounds the total once."""
     acc = ref.as_torch_dtype(accum_dtype)
     tmp = pair_diff(frames, offset=offset, accum_dtype=acc, stream_dtype=stream_dtype)
+    if acc in (torch.float16, torch.bfloat16):
+        tmp = tmp.to(torch.float32)
     total = tmp.select(group_axis, 0)
     for k in range(1, tmp.shape[group_axis]):
         total = ref.fold(total, tmp.select(group_axis, k), divide_first=False, num_groups=1)
-    return ref.scale_reciprocal(total, tmp.shape[group_axis])
+    return ref.scale_reciprocal(total.to(acc), tmp.shape[group_axis])
 
 
 def subtract_average(

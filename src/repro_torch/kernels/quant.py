@@ -226,7 +226,9 @@ def pair_diff_block(
 
     For ``"u8"`` into float32 the difference is
     ``fma(exc, S, -f32(ctl*S)) + offset``, rounded as the reference's
-    jitted prologue and the CUDA ``pair_diff`` round it (module docstring).
+    jitted prologue and the CUDA ``pair_diff`` round it (module docstring);
+    into float16 the same in float16 (the FMA rounded once to float16). Into bfloat16 every operation rounds on its own
+    (``ref.contracts``).
     """
     validate_stream_dtype(stream_dtype)
     acc = accum_dtype
@@ -238,5 +240,13 @@ def pair_diff_block(
         ctl_s = (ctl.to(torch.float32) * scale).to(torch.float64)
         diff = (exc.to(torch.float64) * float(scale) - ctl_s).to(torch.float32)
         return diff + off
+    if stream_dtype == "u8" and acc == torch.float16:
+        from repro_torch.kernels.ref import fma  # ref builds on this module
+
+        # the same contraction in float16: fma(exc, S16, -f16(ctl*S16)),
+        # rounded once to float16, then + offset
+        scale = torch.tensor(U8_SCALE, dtype=torch.float16)
+        ctl_s = ctl.to(torch.float16) * scale
+        return fma(exc.to(torch.float16), float(scale), -ctl_s) + off
     diff = dequant(exc, stream_dtype, work) - dequant(ctl, stream_dtype, work) + off
     return narrow(diff, acc)

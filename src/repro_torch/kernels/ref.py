@@ -21,6 +21,21 @@ scales by the reciprocal. Outside ``jit`` the reference divides truly:
 through :func:`true_divide`, which never lets PyTorch's CUDA scalar
 division swap in a reciprocal.
 
+**Half-precision accumulators** follow what XLA's CPU compiler makes of
+the same jitted expressions, which depends on the type:
+
+* ``float16`` keeps the float32 rules in float16: every operation is
+  rounded to float16, ``x / G`` becomes ``x * f16(1/G)``, and a
+  contracted ``a * b + c`` is one float16 FMA, rounded once
+  (:func:`fma`, ``__hfma`` on the card);
+* ``bfloat16`` rounds every operation to bfloat16 and contracts nothing:
+  ``x / G`` is a true division (:func:`contracts` is False).
+
+Each single operation on two half values, computed in float32 and rounded
+once, is the correctly rounded half result, so PyTorch's CPU half
+arithmetic and the CUDA kernels' float arithmetic with ``_rn`` rounding
+agree on it.
+
 Integer containers (``torch.uint16``, ``torch.int32``) compute in int32
 and wrap back (``quant.widen``/``quant.narrow``): PyTorch has no
 arithmetic on ``uint16``.
@@ -38,6 +53,9 @@ __all__ = [
     "true_divide",
     "reciprocal",
     "fma_f32",
+    "fma",
+    "contracts",
+    "round_const",
     "fold",
     "scale_reciprocal",
     "ref_subtract_average",
@@ -48,12 +66,23 @@ __all__ = [
 ]
 
 
+#: what ``jax.dtypes.canonicalize_dtype`` makes of a 64-bit type with x64 off
+_CANONICAL = {
+    "float64": "float32", "int64": "int32", "uint64": "uint32", "complex128": "complex64",
+}
+
+
 def as_torch_dtype(dtype) -> torch.dtype:
-    """``"float32"``, ``np.float32``, ``torch.float32``... -> ``torch.float32``."""
+    """``"float32"``, ``np.float32``, ``torch.float32``... -> ``torch.float32``.
+
+    A name or numpy dtype resolves as the reference's
+    ``jnp.dtype`` under its default (x64 off): ``"float64"`` gives float32,
+    ``"int64"`` int32 and ``"uint64"`` uint32. A torch dtype keeps its type.
+    """
     if isinstance(dtype, torch.dtype):
         return dtype
     name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
-    out = getattr(torch, name, None)
+    out = getattr(torch, _CANONICAL.get(name, name), None)
     if not isinstance(out, torch.dtype):
         raise ValueError(f"not a dtype: {dtype!r}")
     return out
@@ -61,6 +90,13 @@ def as_torch_dtype(dtype) -> torch.dtype:
 
 def _is_int(dtype: torch.dtype) -> bool:
     return not dtype.is_floating_point and not dtype.is_complex
+
+
+def contracts(dtype: torch.dtype) -> bool:
+    """Whether XLA's CPU compiler applies the float32 rules to ``dtype``:
+    ``x / G`` as a reciprocal multiply and ``a * b + c`` as one FMA. True
+    for float32 and float16; bfloat16 rounds each operation on its own."""
+    return dtype in (torch.float32, torch.float16)
 
 
 def true_divide(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -74,28 +110,63 @@ def true_divide(x: torch.Tensor, k: int) -> torch.Tensor:
     return x / torch.tensor(k, dtype=x.dtype, device=x.device)
 
 
-def reciprocal(num_groups: int) -> float:
-    """``f32(1) / f32(G)``: the constant XLA multiplies by for ``/ G``."""
+def reciprocal(num_groups: int, dtype: torch.dtype = torch.float32) -> float:
+    """``dtype(1) / dtype(G)``: the constant XLA multiplies by for ``/ G``
+    (float32 for every type that is not float16)."""
+    if dtype == torch.float16:
+        return float(np.float16(1) / np.float16(num_groups))
     return float(np.float32(1) / np.float32(num_groups))
 
 
-def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
-    """``round_f32(a * b + c)`` with a single rounding, like ``fmaf``.
+def round_const(value: float, dtype: torch.dtype) -> float:
+    """A host constant ``jnp.asarray(value, dtype)``: the Python float
+    rounded once to float16 or float32; to bfloat16 through float32, as
+    JAX converts it."""
+    if dtype == torch.float16:
+        return float(np.float16(value))
+    f = float(np.float32(value))
+    return float(torch.tensor(f).to(torch.bfloat16)) if dtype == torch.bfloat16 else f
 
-    ``a * b`` is exact in float64 (24 + 24 significant bits). The sum is
-    rounded to odd in float64 (TwoSum for the exact error, then a nudge
-    off an even last bit), and the final cast to float32 rounds to
-    nearest: with 53 >= 24 + 2 bits that double rounding is exact.
-    """
+
+def _fma_odd_f64(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded to odd in float64, for float32 or narrower
+    operands: ``a * b`` is exact in float64 (24 + 24 significant bits),
+    TwoSum gives the exact error of the sum, and an inexact sum with an
+    even last bit is nudged toward the exact value."""
     x = a.to(torch.float64) * torch.as_tensor(b, dtype=torch.float64)
     y = c.to(torch.float64)
     s = x + y
     bb = s - x
     err = (x - (s - bb)) + (y - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
+    return _to_odd(s, err != 0, err > 0, torch.int64)
+
+
+def _to_odd(s: torch.Tensor, inexact, up, int_type) -> torch.Tensor:
+    """``s`` with its last bit set where it is inexact and even, moved one
+    step toward the exact value (``up``: the exact value is larger)."""
+    even = (s.view(int_type) & 1) == 0
+    toward = torch.where(up, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(inexact & even, torch.nextafter(s, toward), s)
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``round_f32(a * b + c)`` with a single rounding, like ``fmaf``: the
+    float64 sum rounded to odd, then to nearest float32 (with 53 >= 24 + 2
+    bits that double rounding is exact)."""
+    return _fma_odd_f64(a, b, c).to(torch.float32)
+
+
+def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """A contracted ``a * b + c`` in ``c``'s type with one rounding:
+    :func:`fma_f32`, and for float16 the float16 FMA XLA computes
+    (``__hfma`` on the card): the sum rounded to odd in float32 (24 >= 11
+    + 2 bits), then to nearest float16."""
+    if c.dtype == torch.float32:
+        return fma_f32(a, b, c)
+    s = _fma_odd_f64(a, b, c)
+    f = s.to(torch.float32)
+    back = f.to(torch.float64)
+    return _to_odd(f, back != s, s > back, torch.int32).to(c.dtype)
 
 
 def fold(
@@ -110,16 +181,17 @@ def fold(
         return quant.narrow(quant.widen(sum_frame) + d, acc)
     if not divide_first:
         return sum_frame + diff
-    if acc == torch.float32:
-        return fma_f32(diff, reciprocal(num_groups), sum_frame)
-    return sum_frame + diff * torch.tensor(reciprocal(num_groups), dtype=acc)
+    if not contracts(acc):
+        return sum_frame + true_divide(diff, num_groups)
+    return fma(diff, reciprocal(num_groups, acc), sum_frame)
 
 
 def scale_reciprocal(total: torch.Tensor, num_groups: int) -> torch.Tensor:
-    """The jitted ``total / G``: a reciprocal multiply (floor for integers)."""
-    if _is_int(total.dtype):
+    """The jitted ``total / G``: a reciprocal multiply where XLA makes one
+    (:func:`contracts`), else a true division (floor for integers)."""
+    if _is_int(total.dtype) or not contracts(total.dtype):
         return true_divide(total, num_groups)
-    return total * torch.tensor(reciprocal(num_groups), dtype=total.dtype)
+    return total * torch.tensor(reciprocal(num_groups, total.dtype), dtype=total.dtype)
 
 
 def _split_pairs(frames: torch.Tensor) -> torch.Tensor:

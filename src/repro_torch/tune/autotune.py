@@ -110,7 +110,7 @@ def vector_path(config) -> bool:
     multiple of 8; the timer's fresh tensors are aligned)."""
     return (
         _stream_dtype(config) != "p12"
-        and str(getattr(config, "accum_dtype", "float32")) == "float32"
+        and as_torch_dtype(getattr(config, "accum_dtype", "float32")) == torch.float32
         and int(config.height) * int(config.width) % 8 == 0
     )
 

@@ -1,0 +1,163 @@
+"""Port parity of the float16, bfloat16 and 64-bit accumulators against the
+reference, on the CPU: the Alg 1-3 kernels' plain versions (B2-B5, B10),
+and how the 64-bit names resolve. The ``pair_average`` filter is in
+``test_torch_accumulator_streams.py``, the other filters and their
+kernels in ``test_torch_accumulator_filters.py``.
+
+The reference runs with x64 off, so ``"float64"`` and ``"int64"`` resolve
+to float32 and int32 in both packages. For the half types the port follows
+what XLA's CPU compiler makes of the reference's jitted code
+(``repro_torch.kernels.ref`` docstring): float16 keeps the float32 rules
+in float16 (reciprocal multiplies, FMAs rounded once), bfloat16 rounds
+every operation and divides truly, and ``jnp.sum`` without a dtype sums
+either in float32.
+
+Tolerance: **bitwise**, output dtype included, everywhere but the one
+declared float32 band of the reference's banked XLA path (p12, Alg 3 v2,
+G not a power of two; ``ROADMAP.md`` queue C), which is held within it.
+
+On the CPU the reference's ``auto`` is its XLA path and the port's
+``auto`` the kernels' plain versions; for Alg 1/2 in a half type the
+reference's two paths differ (its XLA path sums in float32, its Pallas
+baseline in the half type), so those one-shot calls are held on
+``pallas`` and ``xla`` in both packages.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.denoise import DenoiseConfig as JConfig
+from repro.kernels import ops as jops
+from repro.kernels import quant as jquant
+from repro_torch.core.denoise import DenoiseConfig, StreamingDenoiser
+from repro_torch.kernels import ops, ref
+
+OFFSET = 4096.0
+HALF = ("float16", "bfloat16")
+FORMATS = ("u16", "u8", "p12")
+N, H, W = 8, 8, 128
+
+
+def _wire(shape, fmt, seed):
+    px = np.random.default_rng(seed).integers(0, 4096, shape + (W,)).astype(np.uint16)
+    return jquant.encode(px, fmt)
+
+
+def _np(x):
+    """A reference or port array as numpy, bfloat16 as ``"bfloat16"``."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return x.float().numpy(), "bfloat16"
+        return x.numpy(), str(x.numpy().dtype)
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x, x.dtype.name
+
+
+def _same(got, want, rtol=0.0):
+    (g, gd), (w, wd) = _np(got), _np(want)
+    assert gd == wd and g.shape == w.shape, (gd, wd, g.shape, w.shape)
+    if rtol:
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=0)
+    else:
+        assert np.array_equal(g, w, equal_nan=True), float(np.nanmax(np.abs(
+            g.astype(np.float64) - w)))
+
+
+# ---------------------------------------------------------------------------
+# Dtype resolution.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "name, want",
+    [("float64", torch.float32), ("int64", torch.int32), ("uint64", torch.uint32),
+     ("float16", torch.float16), ("bfloat16", torch.bfloat16), (np.float64, torch.float32),
+     (np.dtype("int64"), torch.int32), (torch.float64, torch.float64)],
+    ids=str,
+)
+def test_accum_dtypes_resolve_as_the_reference_canonicalizes(name, want):
+    assert ref.as_torch_dtype(name) == want
+    if not isinstance(name, torch.dtype):
+        assert str(jnp.zeros((), name).dtype) == str(want).replace("torch.", "")
+
+
+@pytest.mark.parametrize("acc", HALF + ("float32",))
+def test_host_constants_round_as_jax_converts_them(acc):
+    # offsets, the u8 scale, alpha and 1/(2 sigma^2) reach the kernels so rounded
+    values = [4096.0, jquant.U8_SCALE, 0.3, 1.0 / 7200.0, 1.0 / 1800.0, 123.456, 1e-5]
+    values += list(np.random.default_rng(0).uniform(-1e4, 1e4, 200))
+    for v in values:
+        want = float(jnp.asarray(v, acc).astype(jnp.float32))
+        assert ref.round_const(float(v), getattr(torch, acc)) == want, v
+
+
+def test_config_keeps_accum_dtype_as_written():
+    kw = dict(num_groups=3, frames_per_group=N, height=H, width=W, accum_dtype="float64")
+    cfg, jcfg = DenoiseConfig(**kw), JConfig(**kw)
+    assert cfg.accum_dtype == "float64" and cfg.stream_key() == jcfg.stream_key()
+    assert StreamingDenoiser(cfg, device="cpu").init().dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# B2 / B4 (step), B3 / B5 (one shot), B10 (Alg 1/2) at the kernel level,
+# against the reference's Pallas interpret mode and its XLA path.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g", [4, 5, 8])
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("acc", HALF)
+def test_stream_steps_b2_b4_half(acc, fmt, g):
+    wire = _wire((g, 2, N, H), fmt, seed=g)  # two banks
+    for variant in ("divide_last", "divide_first"):
+        for backend in ("pallas", "xla"):
+            js = jops.multibank_stream_init(2, N, H, W, acc)
+            ts = ops.multibank_stream_init(2, N, H, W, acc, device="cpu")
+            j1, t1 = jops.stream_init(N, H, W, acc), ops.stream_init(N, H, W, acc, device="cpu")
+            kw = dict(num_groups=g, offset=OFFSET, variant=variant, backend=backend,
+                      stream_dtype=fmt)
+            for k in range(g):
+                js = jops.multibank_stream_step(js, jnp.asarray(wire[k]), **kw)
+                ops.multibank_stream_step(ts, torch.from_numpy(wire[k]), **kw)
+                j1 = jops.stream_step(j1, jnp.asarray(wire[k, 0]), **kw)
+                ops.stream_step(t1, torch.from_numpy(wire[k, 0]), **kw)
+                _same(ts, js)
+                _same(t1, j1)
+            _same(ops.stream_finalize(t1, g, variant=variant),
+                  jops.stream_finalize(j1, g, variant=variant))
+
+
+@pytest.mark.parametrize("g", [4, 5, 8])
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("acc", HALF)
+def test_subtract_average_b3_b5_half(acc, fmt, g):
+    wire = _wire((2, g, N, H), fmt, seed=10 + g)
+    for algorithm in ("alg3", "alg3_v2"):
+        for backend in ("pallas", "xla"):
+            kw = dict(offset=OFFSET, algorithm=algorithm, backend=backend, accum_dtype=acc,
+                      stream_dtype=fmt)
+            _same(ops.subtract_average(torch.from_numpy(wire[0]), **kw),
+                  jops.subtract_average(jnp.asarray(wire[0]), **kw))
+            _same(ops.multibank_subtract_average(torch.from_numpy(wire), **kw),
+                  jops.multibank_subtract_average(jnp.asarray(wire), **kw))
+
+
+@pytest.mark.parametrize("g", [4, 5, 8])
+@pytest.mark.parametrize("acc", HALF)
+def test_alg1_alg2_b10_half(acc, g):
+    # pallas: the two-pass kernels sum the tmpFrame in the half type;
+    # xla: jnp.sum sums it in float32 (u8/p12 only there, as in the reference)
+    for fmt in FORMATS:
+        wire = _wire((g, N, H), fmt, seed=20 + g)
+        for algorithm in ("alg1", "alg2"):
+            for backend in (("pallas", "xla") if fmt == "u16" else ("xla",)):
+                kw = dict(offset=OFFSET, algorithm=algorithm, backend=backend,
+                          accum_dtype=acc, stream_dtype=fmt)
+                _same(ops.subtract_average(torch.from_numpy(wire), **kw),
+                      jops.subtract_average(jnp.asarray(wire), **kw))
+            banked = np.stack([wire, wire[::-1]])
+            kw = dict(offset=OFFSET, algorithm=algorithm, accum_dtype=acc, stream_dtype=fmt)
+            _same(ops.multibank_subtract_average(torch.from_numpy(banked), **kw),
+                  jops.multibank_subtract_average(jnp.asarray(banked), **kw))

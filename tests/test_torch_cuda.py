@@ -8,7 +8,8 @@ imports the JAX package, which that machine need not have)::
 
 Tolerance: bitwise (the kernels round as the plain versions do), except
 the bilateral mode of the spatial kernel, whose ``expf`` is held to the
-plain version's ``torch.exp`` within ``denoise_spatial.BILATERAL_RTOL``.
+plain version's ``torch.exp`` within ``denoise_spatial.BILATERAL_RTOL``
+(float32) or ``denoise_spatial.BILATERAL_ULPS`` (half types).
 """
 
 import time
@@ -173,15 +174,15 @@ def test_ema_kernel_long_chunks_bitwise_equal_plain(cuda, fmt, pairs, pair_tile)
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     s = torch.zeros(4, 8, 256, device=cuda)
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(NotImplementedError, match="float32, float16 and bfloat16"):
         denoise_stream.alg3_stream_step(
             torch.zeros(8, 8, 256, dtype=torch.uint16, device=cuda),
             s.to(torch.float64), num_groups=2)
-    with pytest.raises(NotImplementedError, match="u8 wire"):  # integer sums take u16 wire
+    with pytest.raises(NotImplementedError, match="u8 wire"):  # no integer sum of u8 wire
         denoise_stream.alg3_stream_step(
             torch.zeros(8, 8, 256, dtype=torch.uint8, device=cuda),
             s.to(torch.int32), num_groups=2, stream_dtype="u8")
-    with pytest.raises(NotImplementedError, match="float32"):  # the median window is float32
+    with pytest.raises(NotImplementedError, match="float32"):  # the median window is a float
         denoise_median.median_window_insert(
             torch.zeros(2, 4, 8, 256, dtype=torch.int32, device=cuda),
             torch.zeros(8, 8, 256, dtype=torch.uint16, device=cuda), slot=0)
@@ -371,7 +372,7 @@ def test_tmpframe_kernels_bitwise_equal_plain(cuda, shape):
     with pytest.raises(ValueError, match="'u8' ingest"):
         ops.subtract_average(frames[:, :, :, :128].to(torch.uint8).to(cuda), algorithm="alg1",
                              stream_dtype="u8")
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(NotImplementedError, match="float32, float16 and bfloat16"):
         denoise_tmpframe.alg1_subtract_average(frames.to(cuda), accum_dtype=torch.float64)
 
 
@@ -657,3 +658,116 @@ def test_every_admitted_geometry_bitwise_equal_plain(cuda, case, shape):
     if case.startswith("B2"):  # every geometry on the path the case names
         taken = (b2.vector_launches - paths[0], b2.scalar_launches - paths[1])
         assert taken == ((len(geoms), 0) if vector else (0, len(geoms)))
+
+
+# ---------------------------------------------------------------------------
+# Half-precision accumulators and p12 wire into integer sums.
+# ---------------------------------------------------------------------------
+
+HALF = (torch.float16, torch.bfloat16)
+
+
+def _equal(a, b):
+    return torch.equal(a.cpu(), b) or (
+        a.dtype.is_floating_point and torch.allclose(a.cpu(), b, rtol=0, atol=0, equal_nan=True))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 80, 256), (2, 8, 7, 130)], ids=["80x256", "ragged"])
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+@pytest.mark.parametrize("acc", HALF, ids=["float16", "bfloat16"])
+@pytest.mark.parametrize("g", [5, 8])
+def test_half_accumulator_kernels_b2_b5_b10_bitwise_equal_plain(cuda, g, acc, fmt, shape):
+    b, n, h, w = shape
+    frames = _wire((b, g, n, h), fmt, seed=g, width=w)
+    for divide_first in (False, True):
+        kw = dict(offset=4096.0, divide_first=divide_first, stream_dtype=fmt)
+        got = denoise_multibank.multibank_subtract_average(frames.to(cuda), accum_dtype=acc, **kw)
+        want = denoise_multibank.multibank_subtract_average_plain(frames, accum_dtype=acc, **kw)
+        assert got.dtype == acc and _equal(got, want)
+        s = torch.zeros(b, n // 2, h, w, dtype=acc, device=cuda)
+        sc = s.cpu()
+        for k in range(g):
+            chunk = frames[:, k].contiguous()
+            denoise_multibank.multibank_stream_step(chunk.to(cuda), s, num_groups=g, **kw)
+            sc = denoise_multibank.multibank_stream_step_plain(chunk, sc, num_groups=g, **kw)
+        assert _equal(s, sc)
+    if fmt == "u16":
+        x = frames[0]
+        want = denoise_tmpframe.alg1_subtract_average_plain(x, offset=4096.0, accum_dtype=acc)
+        for fn in (denoise_tmpframe.alg1_subtract_average, denoise_tmpframe.alg2_subtract_average):
+            assert _equal(fn(x.to(cuda), offset=4096.0, accum_dtype=acc), want)
+
+
+@pytest.mark.parametrize("accum", [torch.int32, torch.uint16], ids=["int32", "uint16"])
+def test_p12_integer_sums_bitwise_equal_plain(cuda, accum):
+    g = 10  # uint16 sums of 12-bit differences plus the offset wrap
+    frames = _wire((2, g, 8, 16), "p12", seed=3, width=130)
+    for divide_first in (False, True):
+        kw = dict(offset=4096.0, divide_first=divide_first, stream_dtype="p12")
+        got = denoise_multibank.multibank_subtract_average(frames.to(cuda), accum_dtype=accum, **kw)
+        assert torch.equal(got.cpu(), denoise_multibank.multibank_subtract_average_plain(
+            frames, accum_dtype=accum, **kw))
+        s = torch.zeros(2, 4, 16, 130, dtype=accum, device=cuda)
+        sc = s.cpu()
+        for k in range(g):
+            chunk = frames[:, k].contiguous()
+            denoise_multibank.multibank_stream_step(chunk.to(cuda), s, num_groups=g, **kw)
+            sc = denoise_multibank.multibank_stream_step_plain(chunk, sc, num_groups=g, **kw)
+            denoise_stream.alg3_stream_step(chunk[0].to(cuda), s[0], num_groups=g, **kw)
+            sc[0] = denoise_stream.alg3_stream_step_plain(chunk[0], sc[0], num_groups=g, **kw)
+        assert torch.equal(s.cpu(), sc)
+
+
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+@pytest.mark.parametrize("acc", HALF, ids=["float16", "bfloat16"])
+def test_half_accumulator_kernels_b6_to_b9_bitwise_equal_plain(cuda, acc, fmt):
+    frames = _wire((3, 12, 7), fmt, seed=5, width=130)
+    window = torch.zeros(4, 6, 7, 130, dtype=acc, device=cuda)
+    wc = window.cpu()
+    for g in range(3):
+        denoise_median.median_window_insert(window, frames[g].to(cuda), slot=g, offset=4096.0,
+                                            stream_dtype=fmt)
+        denoise_median.median_window_insert_plain(wc, frames[g], slot=g, offset=4096.0,
+                                                  stream_dtype=fmt)
+    assert _equal(window, wc)
+    for k in (1, 2, 3, 65):
+        win = window[:min(k, 3)] if k < 65 else window[torch.arange(k) % 3].contiguous()
+        assert _equal(denoise_median.median_combine(win),
+                      denoise_median.median_combine_plain(win.cpu()))
+    for pair_tile in (1, 2, 6):
+        gpu = [torch.zeros(6, 7, 130, dtype=acc, device=cuda),
+               torch.zeros(7, 130, dtype=acc, device=cuda), torch.zeros(7, 130, dtype=acc, device=cuda)]
+        cpu = [t.cpu() for t in gpu]
+        for g in range(3):
+            kw = dict(alpha=0.3, offset=4096.0, prior_count=6 * g, pair_tile=pair_tile,
+                      stream_dtype=fmt)
+            denoise_ema.ema_welford_step(*gpu, frames[g].to(cuda), **kw)
+            cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[g], **kw))
+        for a, b in zip(gpu, cpu):
+            assert _equal(a, b)
+    avg = denoise_stream.alg3_subtract_average_plain(frames, offset=4096.0, accum_dtype=acc,
+                                                     stream_dtype=fmt)
+    assert _equal(denoise_spatial.spatial_filter_3x3(avg.to(cuda), mode="box"),
+                  denoise_spatial.spatial_filter_3x3_plain(avg, mode="box"))
+    for sigma in (10.0, 60.0):
+        got = denoise_spatial.spatial_filter_3x3(avg.to(cuda), mode="bilateral", range_sigma=sigma)
+        want = denoise_spatial.spatial_filter_3x3_plain(avg, mode="bilateral", range_sigma=sigma)
+        assert got.dtype == acc
+        assert denoise_spatial.half_ulps(got.cpu(), want) <= denoise_spatial.BILATERAL_ULPS[acc]
+
+
+@pytest.mark.parametrize("acc", HALF, ids=["float16", "bfloat16"])
+@pytest.mark.parametrize(
+    "extra",
+    [dict(), dict(algorithm="alg3_v2", stream_dtype="u8"),
+     dict(filter_name="temporal_median", median_window=2, stream_dtype="p12"),
+     dict(filter_name="ema_variance", pair_tile=2), dict(filter_name="spatial_box", spatial_mode="box")],
+    ids=["pair_average", "v2_u8", "median_p12", "ema", "box"],
+)
+def test_half_accumulator_filters_on_the_card_match_cpu(cuda, acc, extra):
+    kw = dict(num_groups=5, frames_per_group=8, height=16, width=128,
+              accum_dtype=str(acc).replace("torch.", ""), **extra)
+    cfg = DenoiseConfig(**kw)
+    frames = PrismSource(cfg, seed=2).all_frames()
+    got = StreamingDenoiser(cfg, device=cuda)(frames)
+    assert _equal(got, StreamingDenoiser(cfg, device="cpu")(frames))

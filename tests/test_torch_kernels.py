@@ -274,9 +274,11 @@ def test_step_path_takes_vectors_only_where_every_plane_allows(
         (torch.int32, "u16", True, True),     # the Alg 1-3 kernels' integer sums
         (torch.uint16, "u16", True, True),
         (torch.int32, "u16", False, False),   # a kernel without them (B6, B8)
-        (torch.int32, "u8", True, False),     # integer sums take u16 wire only
-        (torch.uint16, "p12", True, False),
+        (torch.int32, "u8", True, False),     # no integer sum of u8 wire
+        (torch.uint16, "p12", True, True),    # integer sums take u16 and p12 wire
         (torch.float64, "u16", True, False),
+        (torch.float16, "u8", False, True),   # every kernel takes the half types
+        (torch.bfloat16, "p12", True, True),
     ],
 )
 def test_kernel_operands_take_integer_sums_only_from_u16_wire(acc, fmt, integer_sums, ok):
@@ -286,7 +288,7 @@ def test_kernel_operands_take_integer_sums_only_from_u16_wire(acc, fmt, integer_
     if ok:
         assert denoise_stream.check_kernel_operands(frames, out, fmt, integer_sums=integer_sums)
     else:
-        with pytest.raises(NotImplementedError, match="queue C"):
+        with pytest.raises(NotImplementedError, match="run on the CPU"):
             denoise_stream.check_kernel_operands(frames, out, fmt, integer_sums=integer_sums)
 
 
