@@ -42,10 +42,11 @@
 //
 // Frames of a half type take spatial_half_kernel, one thread a pixel
 // (below). Rounding: box is bitwise equal to the reference (every step an _rn
-// intrinsic). Bilateral uses CUDA's expf, which is not XLA's exp: its output
-// is held to the plain version within a declared tolerance; the same
+// intrinsic). Bilateral uses CUDA's expf, which is not XLA's exp: a float32
+// output is held to the plain version within a declared tolerance; the same
 // weights, fma order and __fdiv_rn keep it bitwise equal to the per-pixel
-// kernel it replaced.
+// kernel it replaced. A half type rounds each weight to that type, and its
+// output is held bitwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -256,7 +257,8 @@ __global__ void __launch_bounds__(kThreads, BOX ? 1 : 4)
 // in the neighbours' order and scales by the host's f16(1/9) (float16) or
 // divides by 9 (bfloat16); bilateral rounds each weight's difference,
 // square, scaled argument and expf, accumulates w * x as one float16 FMA
-// (float16) or a rounded product and add (bfloat16), and divides truly.
+// (float16, the first two products as fma(w0, x0, f16(w1 * x1))) or a
+// rounded product and add (bfloat16), and divides truly.
 template <bool BOX, typename A>
 __global__ void spatial_half_kernel(const A* __restrict__ in, A* __restrict__ out, int height,
                                     int width, float inv2s2, float rcp9) {
@@ -266,7 +268,7 @@ __global__ void spatial_half_kernel(const A* __restrict__ in, A* __restrict__ ou
   const int64_t plane = static_cast<int64_t>(height) * width;
   const A* frame = in + blockIdx.z * plane;
   const float c = Acc<A>::load(frame[static_cast<int64_t>(row) * width + col]);
-  float acc = 0.0f, wsum = 0.0f;
+  float acc = 0.0f, wsum = 0.0f, w0 = 0.0f, x0 = 0.0f;
 #pragma unroll
   for (int dr = -1; dr <= 1; ++dr) {
     const A* line = frame + static_cast<int64_t>(clampi(row + dr, height - 1)) * width;
@@ -280,7 +282,15 @@ __global__ void spatial_half_kernel(const A* __restrict__ in, A* __restrict__ ou
         const float w =
             Acc<A>::round(expf(acc_mul<A>(-acc_mul<A>(d, d), inv2s2)));
         if constexpr (Acc<A>::kContracts) {
-          acc = Acc<A>::fma(w, x, acc);
+          // as XLA: the zero start folded away and w0*x0 + w1*x1
+          // contracted on its first product
+          const int k = (dr + 1) * 3 + dc + 1;  // a constant once unrolled
+          if (k == 0) {
+            w0 = w;
+            x0 = x;
+          } else {
+            acc = k == 1 ? Acc<A>::fma(w0, x0, acc_mul<A>(w, x)) : Acc<A>::fma(w, x, acc);
+          }
         } else {
           acc = acc_add<A>(acc, acc_mul<A>(w, x));
         }

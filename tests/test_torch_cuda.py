@@ -7,9 +7,10 @@ imports the JAX package, which that machine need not have)::
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: bitwise (the kernels round as the plain versions do), except
-the bilateral mode of the spatial kernel, whose ``expf`` is held to the
-plain version's ``torch.exp`` within ``denoise_spatial.BILATERAL_RTOL``
-(float32) or ``denoise_spatial.BILATERAL_ULPS`` (half types).
+the bilateral mode of the spatial kernel on float32 frames, whose ``expf``
+is held to the plain version's ``torch.exp`` within
+``denoise_spatial.BILATERAL_RTOL``. On half-type frames each weight is
+rounded to that type, and bilateral too is held bitwise.
 """
 
 import time
@@ -749,11 +750,41 @@ def test_half_accumulator_kernels_b6_to_b9_bitwise_equal_plain(cuda, acc, fmt):
                                                      stream_dtype=fmt)
     assert _equal(denoise_spatial.spatial_filter_3x3(avg.to(cuda), mode="box"),
                   denoise_spatial.spatial_filter_3x3_plain(avg, mode="box"))
-    for sigma in (10.0, 60.0):
-        got = denoise_spatial.spatial_filter_3x3(avg.to(cuda), mode="bilateral", range_sigma=sigma)
-        want = denoise_spatial.spatial_filter_3x3_plain(avg, mode="bilateral", range_sigma=sigma)
-        assert got.dtype == acc
-        assert denoise_spatial.half_ulps(got.cpu(), want) <= denoise_spatial.BILATERAL_ULPS[acc]
+    rng = np.random.default_rng(30)
+    smooth = (300 + 20 * torch.from_numpy(rng.standard_normal((4, 7, 130)))).to(acc)
+    for x in (avg, smooth):  # around 300 the range weights are far from 0 and 1
+        for sigma in (10.0, 60.0):
+            got = denoise_spatial.spatial_filter_3x3(x.to(cuda), mode="bilateral", range_sigma=sigma)
+            want = denoise_spatial.spatial_filter_3x3_plain(x, mode="bilateral", range_sigma=sigma)
+            assert got.dtype == acc and _equal(got, want)
+
+
+def _near_pairs(shape, seed, width=130, spread=12):
+    """u16 frames whose control and excitation differ by at most ``spread``:
+    at offset 0 a float16 M2 of their differences stays finite."""
+    rng = np.random.default_rng(seed)
+    px = rng.integers(64, 4032, shape + (width,)).astype(np.int32)
+    px[..., 1::2, :, :] = px[..., 0::2, :, :] + rng.integers(-spread, spread + 1,
+                                                             px[..., 1::2, :, :].shape)
+    return px.astype(np.uint16)
+
+
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+@pytest.mark.parametrize("acc", HALF, ids=["float16", "bfloat16"])
+def test_half_ema_welford_step_finite_m2_bitwise_equal_plain(cuda, acc, fmt):
+    frames = torch.from_numpy(np.ascontiguousarray(quant.encode(_near_pairs((3, 12, 7), 6), fmt)))
+    for pair_tile in (1, 2, 6):
+        gpu = [torch.zeros(6, 7, 130, dtype=acc, device=cuda),
+               torch.zeros(7, 130, dtype=acc, device=cuda), torch.zeros(7, 130, dtype=acc, device=cuda)]
+        cpu = [t.cpu().clone() for t in gpu]
+        for g in range(3):
+            kw = dict(alpha=0.3, offset=0.0, prior_count=6 * g, pair_tile=pair_tile,
+                      stream_dtype=fmt)
+            denoise_ema.ema_welford_step(*gpu, frames[g].to(cuda), **kw)
+            cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[g], **kw))
+        for a, b in zip(gpu, cpu):
+            assert _equal(a, b)
+        assert torch.isfinite(cpu[2]).all() and bool((cpu[2] > 0).any())
 
 
 @pytest.mark.parametrize("acc", HALF, ids=["float16", "bfloat16"])
