@@ -32,11 +32,12 @@ then:
    each tile path at its edges (partial row and column tiles, H = 1 and 2
    on the float4 path; W % 4 != 0, an unaligned view and W = 1 on the
    scalar path); every kernel B2-B10 with float16 and bfloat16
-   accumulators (each a scalar path) bitwise against its plain version,
+   accumulators bitwise against its plain version,
    for u16/u8/p12, G in {5, 8}, both variants, on the 80 x 256 plane and a
    ragged 7 x 130 one (B9 bilateral too, also on planes around 300 where
-   the range weights matter; B8 also on pairs within +-12 at offset 0,
-   where a float16 M2 stays finite), and B2-B5 with p12 wire into int32
+   the range weights matter, on its four-pixel and its scalar path; B8
+   also on pairs within +-12 at offset 0, where a float16 M2 stays
+   finite, and in every register tile and long order), and B2-B5 with p12 wire into int32
    and uint16 sums at G = 10, their uint16 sums wrapping. Then (1b) runs the executors on
    the card at G = 5, where 1/G is inexact, for ``pair_average`` and the
    three other filters, so the eager true divisions (finalize, a
@@ -103,7 +104,9 @@ then:
    filter (``spatial_box`` bilateral), two sessions in full cohorts on a
    2-slot executor killed before its 6th cohort, at
    ``checkpoint_every=1`` (restore) and 3 (restore + replay), the restored
-   state on the card; (9b) live migration under a co-tenant's load,
+   state on the card, and a bfloat16 ``pair_average`` session
+   checkpointed (``V2`` leaves) and restored, bitwise its CPU run; (9b)
+   live migration under a co-tenant's load,
    ``pair_average`` and ``temporal_median``; (9c) straggler and heartbeat
    evictions on a ``FakeClock``; (9d) ``scale_down`` draining its victim
    through live migration, over two 1-slot executors and over
@@ -209,7 +212,9 @@ after; a kernel of the path launched no time there fails the run. Phases
 counter and the dry run) hold no kernel of the port: phases 13 and 14
 zero the counters before and fail if any moved. A kernel's ``launches``
 in the ``{"kernels": [...]}`` line is
-its sum over those phases. The script prints the card's ``nvidia-smi`` name and power
+its sum over those phases. The float16/bfloat16 launches of each entry
+point over the whole run (``AccumTally``) go to ``half_launches``. The
+script prints the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 It exits with code 2, printing no result, when no CUDA device is present.
@@ -218,9 +223,11 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -267,6 +274,9 @@ BASELINE_PATH = ("alg1_subtract_average", "alg2_subtract_average")
 BANKED_PATH = ("multibank_stream_step", "multibank_subtract_average") + FILTER_PATH
 #: the half-precision accumulators every kernel takes (phase 1, 1b and 4)
 HALF_TYPES = (torch.float16, torch.bfloat16)
+#: B8's register tiles (1-8) and one chunk length of each long order (12
+#: the chain, 27 the 8 lanes, 40 the windows), each held in a half type
+HALF_EMA_TILES = (1, 2, 3, 4, 5, 6, 7, 8, 12, 27, 40)
 
 #: the session service's path (phase 8): the lone-slot step (B2), the cohort
 #: and gang steps (B4) and ``temporal_median``'s window (B6, B7)
@@ -287,6 +297,46 @@ FLEET_FILTERS = {
 #: cohorts (8a, 9a); the service's default is 5 ms
 FULL_COHORT_MS = 60_000.0
 SESSION_TIMEOUT_S = 120  # every session's result() is bounded
+
+
+class AccumTally:
+    """Counts the calls of each kernel entry point by the accumulator code
+    it passes (``quant.cuh`` AccumCode), read off its ``int acc`` argument:
+    from construction on, the library the wrappers load is this proxy.
+    The half-type instances run on no main path, so their launches are
+    counted here rather than by the wrappers' own counters."""
+
+    def __init__(self, build):
+        self.calls: collections.Counter = collections.Counter()
+        self._pos = {}
+        for src in build.SOURCES:
+            for m in re.finditer(r"^int (\w+_launch)\(([^)]*)\)", src.read_text(), re.M):
+                params = [" ".join(p.split()) for p in m.group(2).split(",")]
+                if "int acc" in params:
+                    self._pos[m.group(1)] = params.index("int acc")
+        self._lib = build.library()
+        build.library = lambda: self
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self._pos:
+            return fn
+        pos = self._pos[name]
+
+        def call(*args):
+            self.calls[name, args[pos]] += 1
+            return fn(*args)
+
+        return call
+
+    def by_type(self, codes: dict) -> dict:
+        """``{entry point: {type name: calls}}`` for the accumulator codes
+        ``codes`` (``{code: name}``)."""
+        out: dict = {}
+        for (name, code), n in sorted(self.calls.items()):
+            if code in codes:
+                out.setdefault(name, {})[codes[code]] = n
+        return out
 
 
 def card_peaks(name: str) -> tuple[float, float]:
@@ -745,6 +795,29 @@ def fleet_phase(cfg, groups, reset_counters, read_counters, one_card, smi, serve
               f"ex0 killed before its 6th cohort, for {', '.join(cfgs)} (bilateral) at every=1 "
               f"(restore @5) and every=3 (restore @3 + replay 2): every output bitwise equal to "
               f"its undisturbed run_pipelined, restarts 1, restored state on {dev}")
+
+        # 9a in bfloat16: one pair_average session checkpoints its bfloat16
+        # sum every group (host leaves of dtype V2, the reference's format),
+        # ex0 dies before its 6th group, and the session restores on ex1 and
+        # finishes bitwise equal to its run on the CPU
+        cb = dataclasses.replace(cfg, accum_dtype="bfloat16")
+        want = streaming.run_pipelined(cb, iter(tenants[0]), device="cpu")[0]
+        plan, path = FaultPlan().crash("ex0", at_step=5), ckpt("9a-bfloat16")
+        with FleetScheduler(checkpoint_dir=path, faults=plan, slots_per_executor=1,
+                            max_executors=2, **on) as fleet:
+            out, rep = fleet.submit(Session(config=cb, source=iter(tenants[0]), name="b")).result(
+                timeout=SESSION_TIMEOUT_S)
+        host, step = CheckpointManager(os.path.join(path, "b")).restore()
+        if (out.dtype != torch.bfloat16 or out.device.type != dev.type
+                or not torch.equal(out.cpu().view(torch.int16), want.view(torch.int16))):
+            raise AssertionError("9a bfloat16: not bitwise equal to its run on the CPU")
+        if (rep.restarts, step) != (1, G) or "recover@b->ex1:steps=5+0" not in fleet.events:
+            raise AssertionError(f"9a bfloat16: restarts {rep.restarts}, last checkpoint {step}, "
+                                 f"events {fleet.events}")
+        if any(a.dtype != np.dtype("V2") for a in tree_leaves(host)[0]):
+            raise AssertionError("9a bfloat16: the checkpoint's leaves are not bfloat16 bits (V2)")
+        print("phase 9a: a bfloat16 pair_average session checkpointed on the card (V2 leaves), "
+              "killed before its 6th group and restored on ex1: bitwise equal to its CPU run")
 
         # 9b: live migration under a co-tenant's load, mid-stream
         for label in ("pair_average", "temporal_median"):
@@ -2130,6 +2203,7 @@ def main() -> int:
     took = time.perf_counter() - t0
     print(f"build: {', '.join(s.name for s in _build.SOURCES)} built and loaded in {took:.1f} s")
     record: dict = {"card": smi, "device": name, "torch": torch.__version__, "build_s": took}
+    tally = AccumTally(_build)
 
     wrappers = {
         "alg3_stream_step": denoise_stream.alg3_stream_step,
@@ -2432,6 +2506,23 @@ def main() -> int:
         px[..., 1::2, :, :] = px[..., 0::2, :, :] + rng.integers(-12, 13, px[..., 1::2, :, :].shape)
         return torch.from_numpy(np.ascontiguousarray(quant.encode(px.astype(np.uint16), fmt)))
 
+    def ema_half(frames, fmt, tp, off, acc, what):
+        """B8 in a half type over ``frames`` (G, N, h, wire_w) from zero
+        states, card against plain; returns the plain states."""
+        g, n, h = frames.shape[:3]
+        hw = (h, quant.logical_width(frames.shape[-1], fmt))
+        gpu = [torch.zeros(n // 2, *hw, dtype=acc, device=dev),
+               torch.zeros(hw, dtype=acc, device=dev), torch.zeros(hw, dtype=acc, device=dev)]
+        cpu = [t.cpu().clone() for t in gpu]
+        for k in range(g):
+            kw = dict(alpha=0.3, offset=off, prior_count=k * (n // 2), pair_tile=tp,
+                      stream_dtype=fmt)
+            denoise_ema.ema_welford_step(*gpu, frames[k].to(dev), **kw)
+            cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[k], **kw))
+        for a, b in zip(gpu, cpu):
+            same_nan("ema_welford_step", a, b, what)
+        return cpu
+
     half_cases = 0
     for acc in HALF_TYPES:
         tag = str(acc).replace("torch.", "")
@@ -2512,18 +2603,40 @@ def main() -> int:
                         for a, b in zip(gpu, cpu):
                             same_nan("ema_welford_step", a, b, f"{what} pair_tile={tp}")
                     half_cases += 1
-        for shape in ((32, H, W), (4, 7, 130)):  # B9: box and bilateral bitwise
+        # B8: every register tile and long order of its one body, one group
+        # (a prior count is held by the G = 5/8 cases above)
+        for fmt in quant.STREAM_DTYPES:
+            for tp in HALF_EMA_TILES:
+                n = 2 * (9 if tp <= 8 else 2) * tp  # two chunk rounds, or two long chunks
+                for h, w in ((H, W), (7, 130)):
+                    for off, make in ((offset, wire), (0.0, near_wire)):
+                        what = f"{tag} G=1 N={n} {h}x{w} {fmt} pair_tile={tp} offset={off:g}"
+                        cpu = ema_half(make((1, n, h), fmt, width=w), fmt, tp, off, acc, what)
+                        if off == 0.0 and not torch.isfinite(cpu[2]).all():
+                            raise AssertionError(f"ema_welford_step {what}: M2 not finite")
+                        half_cases += 1
+        # B9: box and bilateral bitwise, on its four-pixel path (W % 4 == 0,
+        # 8-byte aligned planes) and its scalar path (W = 130, a view 2 bytes in)
+        for shape, place, path in (((32, H, W), to_dev, "vector"), ((4, 7, 130), to_dev, "scalar"),
+                                   ((4, H, W), shifted, "scalar")):
             for base, noise in ((4096, 40), (300, 20)):  # around 300 the weights matter
                 x = (base + noise * torch.from_numpy(rng.standard_normal(shape))).to(acc)
                 x[:, 3, 5] += 900.0  # a hot pixel
-                what = f"{tag} " + "x".join(map(str, shape)) + f" around {base}"
-                same_nan("spatial_filter_3x3", spatial(x.to(dev), mode="box"),
+                what = (f"{tag} " + "x".join(map(str, shape)) + f" around {base}"
+                        + (" unaligned" if place is shifted else ""))
+                before = (spatial.vector_launches, spatial.scalar_launches)
+                xd = place(x)
+                same_nan("spatial_filter_3x3", spatial(xd, mode="box"),
                          denoise_spatial.spatial_filter_3x3_plain(x, mode="box"), f"{what} box")
                 for sigma in (10.0, 60.0):
                     kw = dict(mode="bilateral", range_sigma=sigma)
-                    same_nan("spatial_filter_3x3", spatial(x.to(dev), **kw),
+                    same_nan("spatial_filter_3x3", spatial(xd, **kw),
                              denoise_spatial.spatial_filter_3x3_plain(x, **kw),
                              f"{what} bilateral sigma {sigma}")
+                took = (spatial.vector_launches - before[0], spatial.scalar_launches - before[1])
+                if took != ((3, 0) if path == "vector" else (0, 3)):
+                    raise AssertionError(f"B9 {what}: launches {took} on (vector, scalar), "
+                                         f"want the {path} path")
                 half_cases += 1
     p12_cases = 0
     for off in (0.0, offset):  # p12 wire into integer sums, G = 10, the uint16 sums wrapping
@@ -2555,7 +2668,10 @@ def main() -> int:
     print(f"phase 1: float16/bfloat16 accumulators bitwise equal to the CPU plain versions in "
           f"{half_cases} cases (B2-B5 at G=5/8 u16/u8/p12 both variants on 80x256 and a ragged "
           f"7x130 plane; B6/B7 K=1/4/5; B8 pair_tile 2/8 and 3, also on pairs within +-12 at "
-          f"offset 0 with a finite M2; B9 box and bilateral around 4096 and 300; B10 Alg 1/2); "
+          f"offset 0 with a finite M2, and every register tile and long order "
+          f"{'/'.join(map(str, HALF_EMA_TILES))} on 80x256 and 7x130 at offset 4096 and on near "
+          f"pairs at offset 0; B9 box and bilateral around 4096 and 300 on its four-pixel and "
+          f"scalar paths (7x130, a view 2 bytes in); B10 Alg 1/2); "
           f"B2-B5 with p12 wire into int32/uint16 sums in {p12_cases} cases (G=10, offset 0 "
           f"and 4096) ({time.perf_counter() - t1:.1f} s)")
     record.update(half_cases=half_cases, p12_int_cases=p12_cases,
@@ -3349,6 +3465,10 @@ def main() -> int:
         for k, (src_file, replaces) in KERNELS.items()
     ]
     record["kernels"] = kernels
+    half_codes = {denoise_stream.ACCUM_CODES[t]: str(t).replace("torch.", "") for t in HALF_TYPES}
+    record["half_launches"] = tally.by_type(half_codes)
+    print(f"float16/bfloat16 launches of each entry point in this run (phases 1, 1b, 4, 9): "
+          f"{json.dumps(record['half_launches'])}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -7,7 +7,7 @@ geometry, for the port of a given source tree.
 Run on the machine with the card, from the root of a checkout::
 
     python3 scripts/torch_time_steps.py [TREE] [--out FILE]
-        [--b9-save FILE] [--b9-ref FILE]
+        [--b9-save FILE] [--b9-ref FILE] [--build-times] [--sass-mix MATCH]
 
 ``TREE`` (default: this checkout) is the root of a checkout whose
 ``src/repro_torch`` is timed; its kernels are built from its own sources.
@@ -17,6 +17,16 @@ same way. Time them in one machine session, in the order parent, change,
 change, parent. It prints one JSON object (the card and its clock, the
 tree, the µs of each kernel and case, and the B9 kernels' SASS
 instruction counts), and writes it to ``FILE`` too if asked.
+
+The float16 and bfloat16 instance of every kernel is timed beside the
+float32 rows, at chip_smoke.py's phase 4 labels (B2-B6 and B8 on every
+wire format, B2-B5 both variants), with two PyTorch calls as yardsticks
+in the half type: pad + ``avg_pool2d`` for B9 box and
+``torch.sum(tmp, 0)`` for B10's pass B. ``--build-times`` also
+compiles each of the tree's sources alone, cold, with the port's flags,
+and records the seconds of each; ``--sass-mix MATCH`` counts the SASS
+opcodes of every kernel whose mangled name the regular expression
+``MATCH`` finds.
 
 B9 runs on seeded frames (500 x 80 x 256 around 4096 with hot pixels):
 ``--b9-save`` writes the tree's box and bilateral outputs there, and
@@ -83,6 +93,35 @@ def sass_segments(library: str, match: str, dump: str | None = None) -> dict[str
     return out
 
 
+def sass_mix(library: str, match: str) -> dict[str, dict[str, int]]:
+    """Per kernel function whose name ``match`` (a regular expression)
+    finds: how many SASS instructions of each opcode (modifiers dropped, NOPs left out) its
+    code holds, up to the first unpredicated EXIT. Static counts: a loop
+    body is counted once."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out: dict[str, dict[str, int]] = {}
+    name, done = None, False
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name, done = head.group(1), False
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not ins or name is None or done or not re.search(match, name):
+            continue
+        op = ins.group(2).split()
+        op = op[1] if op[0].startswith("@") else op[0]
+        if op.startswith("NOP"):
+            continue
+        done = ins.group(2) == "EXIT"
+        key = op.split(".")[0]
+        counts = out.setdefault(name, {})
+        counts[key] = counts.get(key, 0) + 1
+    return out
+
+
 def b9_issue(segments: dict[str, list[int]], pixels: int, sm_count: int, clock_hz: float) -> dict:
     """Warp instructions a bilateral output pixel issues, from the SASS
     counts of the kernel this tree has, and the issue-time floor at
@@ -91,10 +130,12 @@ def b9_issue(segments: dict[str, list[int]], pixels: int, sm_count: int, clock_h
     (2,048 pixels a block of 8 warps) runs its phases 1 and 3 once a warp,
     and its weight loop 19 times a block (17 chunk rows, 2 of halo
     weights), each pass counted with both branches: an upper bound."""
-    # the bilateral instance (BOX = false), on its float4 path where it has one
+    # the float32 bilateral instance (BOX = false), on its float4 path where
+    # it has one: <false, true, float> of a tile kernel over the frame type,
+    # <false, true> of one over float32 frames, or a per-pixel <false>
     args = {k: k.split("kernel")[-1] for k in segments}
-    name = min((k for k, a in args.items() if a.startswith("ILb0E")),
-               key=lambda k: not args[k].startswith("ILb0ELb1E"))
+    name = next(k for pre in ("ILb0ELb1EfE", "ILb0ELb1EE", "ILb0EE")
+                for k, a in args.items() if a.startswith(pre))
     segs = segments[name]
     if len(segs) == 1:
         per_px = segs[0] / 32
@@ -112,6 +153,10 @@ def main() -> int:
     ap.add_argument("--b9-save", default=None)
     ap.add_argument("--b9-ref", default=None)
     ap.add_argument("--sass-dump", default=None, help="write the B9 kernels' SASS to this file")
+    ap.add_argument("--sass-mix", default=None, metavar="MATCH",
+                    help="count the SASS opcodes of each kernel whose name this regex finds")
+    ap.add_argument("--build-times", action="store_true",
+                    help="compile each source alone, cold, and record its seconds")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
@@ -137,6 +182,11 @@ def main() -> int:
 
     if not Path(denoise_stream.__file__).is_relative_to(tree):
         raise RuntimeError(f"imported {denoise_stream.__file__}, not the tree {tree}")
+    import time
+
+    t0 = time.perf_counter()
+    _build.library()  # the tree's own parallel build, as chip_smoke.py's
+    library_build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     G, N, H, W = 8, 1000, 80, 256
@@ -228,6 +278,79 @@ def main() -> int:
         b9[mode] = call().cpu()
         rows.append(dict(kernel="spatial_filter_3x3", label=mode, us=time_ms(call) * 1e3,
                          host_us=host_us(call)))
+    # the float16 and bfloat16 instances of every kernel (the labels of
+    # chip_smoke.py's phase 4), and the library calls beside B9 and B10
+    import torch.nn.functional as F
+
+    half = (torch.float16, torch.bfloat16)
+    tags = {acc: str(acc).split(".")[-1] for acc in half}
+    for fmt in ("u16", "u8", "p12"):
+        banked = wire((2, G, N, H), fmt)
+        one, two, group = banked[0], banked[:, 0].contiguous(), banked[0, 0]
+        for acc in half:
+            tag = tags[acc]
+            s1 = torch.zeros(P, H, W, dtype=acc, device=dev)
+            s2 = torch.zeros(2, P, H, W, dtype=acc, device=dev)
+            for df in (False, True):
+                v = "v2" if df else "v1"
+                kw = dict(offset=offset, divide_first=df, stream_dtype=fmt)
+                timed("alg3_stream_step", f"{fmt} {v} {tag}", lambda: denoise_stream.alg3_stream_step(
+                    group, s1, num_groups=G, **kw))
+                timed("multibank_stream_step", f"{fmt} {v} B=2 {tag}",
+                      lambda: denoise_multibank.multibank_stream_step(two, s2, num_groups=G, **kw))
+                timed("alg3_subtract_average", f"{fmt} {v} B=1 {tag}",
+                      lambda: denoise_stream.alg3_subtract_average(one, accum_dtype=acc, **kw))
+                timed("multibank_subtract_average", f"{fmt} {v} B=2 {tag}",
+                      lambda: denoise_multibank.multibank_subtract_average(banked, accum_dtype=acc,
+                                                                           **kw))
+            window = torch.zeros(5, P, H, W, dtype=acc, device=dev)
+            timed("median_window_insert", f"{fmt} {tag}", lambda: denoise_median.median_window_insert(
+                window, group, slot=2, offset=offset, stream_dtype=fmt))
+            if fmt == "u16":
+                for k in range(5):
+                    denoise_median.median_window_insert(window, one[k], slot=k, offset=offset)
+                timed("median_combine", f"K=5 {tag}", lambda: denoise_median.median_combine(window))
+            del s1, s2, window
+            state = [torch.zeros(P, H, W, dtype=acc, device=dev),
+                     torch.zeros(H, W, dtype=acc, device=dev),
+                     torch.zeros(H, W, dtype=acc, device=dev)]
+            timed("ema_welford_step", f"{fmt} pair_tile=5 {tag}", lambda: denoise_ema.ema_welford_step(
+                *state, group, alpha=0.25, offset=offset, prior_count=0, pair_tile=5,
+                stream_dtype=fmt))
+            del state
+            if fmt == "u16":
+                for alg in ("alg1", "alg2"):
+                    fn = getattr(denoise_tmpframe, f"{alg}_subtract_average")
+                    timed(f"{alg}_subtract_average", f"u16 v1 B=1 {tag}",
+                          lambda: fn(one, offset=offset, accum_dtype=acc))
+                tmp = denoise_tmpframe.subtract_pass(one, offset=offset, burst=True,
+                                                     accum_dtype=acc)
+                timed("alg1_subtract_average", f"pass B {tag}",
+                      lambda: denoise_tmpframe.reduce_pass(tmp))
+                timed("library", f"torch.sum(tmp, 0) {tag}", lambda: torch.sum(tmp, dim=0))
+                del tmp
+        del banked, one, two, group
+    for acc in half:
+        tag = tags[acc]
+        xh = x.to(acc)
+        for mode in ("box", "bilateral"):
+            timed("spatial_filter_3x3", f"{mode} {tag}", lambda: denoise_spatial.spatial_filter_3x3(
+                xh, mode=mode, range_sigma=60.0))
+        timed("library", f"pad + avg_pool2d {tag}", lambda: F.avg_pool2d(
+            F.pad(xh[:, None], (1, 1, 1, 1), mode="replicate"), 3, stride=1))
+        del xh
+    build_s = None
+    if args.build_times:
+        import tempfile
+
+        build_s = {}
+        with tempfile.TemporaryDirectory() as tmpdir:
+            for src in _build.SOURCES:
+                t0 = time.perf_counter()
+                subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                                str(Path(tmpdir) / f"{src.stem}.o"), str(src)],
+                               check=True, capture_output=True, timeout=900)
+                build_s[src.name] = time.perf_counter() - t0
     if args.b9_save:
         Path(args.b9_save).parent.mkdir(parents=True, exist_ok=True)
         torch.save(b9, args.b9_save)
@@ -247,7 +370,8 @@ def main() -> int:
                      clock_hz)
     out = dict(card=nvidia_smi(), max_sm_clock_mhz=float(clock), tree=str(tree),
                torch=torch.__version__, rows=rows, b9_vs_ref=b9_vs, b9_sass=segments,
-               b9_bilateral_issue=issue)
+               b9_bilateral_issue=issue, library_build_s=library_build_s, build_s=build_s,
+               sass_mix=sass_mix(_build.library()._name, args.sass_mix) if args.sass_mix else None)
     text = json.dumps(out)
     print(text)
     if args.out:

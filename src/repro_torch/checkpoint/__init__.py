@@ -3,7 +3,9 @@
 
 from repro_torch.checkpoint.checkpoint import (  # noqa: F401
     CheckpointManager,
+    from_host,
     read_manifest,
     restore_tree,
     save_tree,
+    to_host,
 )

@@ -28,13 +28,16 @@ import os
 import shutil
 import threading
 import time
+import zipfile
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops
 
-__all__ = ["save_tree", "restore_tree", "read_manifest", "CheckpointManager"]
+__all__ = [
+    "save_tree", "restore_tree", "read_manifest", "CheckpointManager", "to_host", "from_host",
+]
 
 
 def _flatten(tree, path=()):
@@ -128,13 +131,60 @@ def _rebuild(paths, leaves, kinds):
     return finalize(root, "")
 
 
-def _host(leaf) -> np.ndarray:
-    """A host numpy copy of a leaf: a tensor is copied off its device (a
-    CPU tensor is copied too, so the caller may overwrite it in place);
-    anything else goes through ``np.asarray`` as in the reference."""
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of tensor ``t`` (a CPU tensor is copied too, so the
+    caller may overwrite it in place), dtype kept: the checkpoint and
+    migration format. numpy has no bfloat16 without ``ml_dtypes``, so a
+    bfloat16 tensor becomes its 2-byte bit patterns as dtype ``V2``, which
+    is what the reference's ``restore_tree`` gives back for the bfloat16
+    leaf its ``save_tree`` wrote (:func:`from_host` reads them back)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _bfloat16_bits(a: np.ndarray) -> bool:
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2 and a.dtype.names is None
+
+
+def from_host(leaf) -> torch.Tensor:
+    """The tensor of a host leaf, sharing its memory where ``torch.as_tensor``
+    would (a tensor passes through): a 2-byte void array holds bfloat16 bit
+    patterns (:func:`to_host`, or a reference checkpoint's bfloat16 leaf)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        return leaf
+    a = np.asarray(leaf)
+    if _bfloat16_bits(a):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(a)
+
+
+def _host(leaf) -> np.ndarray:
+    """A host numpy copy of a leaf: a tensor by :func:`to_host`; anything
+    else goes through ``np.asarray`` as in the reference."""
+    if isinstance(leaf, torch.Tensor):
+        return to_host(leaf)
     return np.asarray(leaf)
+
+
+def _write_npz(file: str, host: list) -> None:
+    """``np.savez(file, leaf_0=..., ...)``, member for member, except that a
+    2-byte void leaf (bfloat16 bits) is written under the descr ``'<V2'``:
+    the header the reference's ``ml_dtypes`` bfloat16 leaf gets, where
+    numpy alone would write ``'|V2'``. Both load as ``V2``."""
+    with zipfile.ZipFile(file, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for i, a in enumerate(host):
+            a = np.asanyarray(a)
+            with zf.open(f"leaf_{i}.npy", "w", force_zip64=True) as fid:
+                if _bfloat16_bits(a):
+                    a = np.ascontiguousarray(a)
+                    np.lib.format.write_array_header_1_0(
+                        fid, {"descr": "<V2", "fortran_order": False, "shape": a.shape})
+                    fid.write(a.tobytes())
+                else:
+                    np.lib.format.write_array(fid, a)
 
 
 def save_tree(
@@ -153,9 +203,7 @@ def save_tree(
     os.makedirs(parent, exist_ok=True)
     tmp = os.path.join(parent, f".tmp.{os.path.basename(path)}.{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
-    np.savez(os.path.join(tmp, "leaves.npz"), **{
-        f"leaf_{i}": a for i, a in enumerate(host)
-    })
+    _write_npz(os.path.join(tmp, "leaves.npz"), host)
     manifest = {
         "paths": paths,
         "kinds": _container_kinds(tree),
@@ -177,9 +225,11 @@ def restore_tree(path: str, *, device=None):
     """Restore a tree; returns ``(tree, step)``.
 
     With ``device=None`` the leaves are host numpy arrays, as the
-    reference's without shardings: a checkpoint is a host format. With a
-    device (``"cuda"``, ``"cuda:1"``, ``"cpu"``) they are tensors there,
-    dtype kept (``RuntimeError`` for CUDA without a card). Placement over
+    reference's without shardings: a checkpoint is a host format (a
+    bfloat16 leaf is ``V2``, as the reference's). With a device
+    (``"cuda"``, ``"cuda:1"``, ``"cpu"``) they are tensors there, dtype
+    kept, bfloat16 too (:func:`from_host`; ``RuntimeError`` for CUDA
+    without a card). Placement over
     several devices is :func:`repro_torch.runtime.elastic.elastic_reshard`'s.
     """
     with open(os.path.join(path, "manifest.json")) as f:
@@ -189,7 +239,7 @@ def restore_tree(path: str, *, device=None):
     tree = _rebuild(manifest["paths"], leaves, manifest["kinds"])
     if device is not None:
         dev = ops.resolve_device(device)
-        tree = map_tree(lambda a: torch.from_numpy(np.asarray(a)).to(dev), tree)
+        tree = map_tree(lambda a: from_host(a).to(dev), tree)
     return tree, manifest.get("step")
 
 

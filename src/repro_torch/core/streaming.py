@@ -257,13 +257,20 @@ def _wait(out: torch.Tensor) -> None:
 class DownloadConsumer:
     """Averaging-reduction download stage: lands each per-step partial
     average on the host. ``partials[k]`` is the host copy of the estimate
-    after groups ``0..k``; ``partials[-1]`` equals the final output."""
+    after groups ``0..k``; ``partials[-1]`` equals the final output.
+
+    numpy has no bfloat16 without ``ml_dtypes``, so a bfloat16 partial
+    lands as its exact float32 widening: every value equals the bfloat16
+    one (the reference's partial, widened). Every other dtype is kept."""
 
     def __init__(self):
         self.partials: list[np.ndarray] = []
 
     def __call__(self, step: int, partial: torch.Tensor) -> None:
-        self.partials.append(partial.cpu().numpy())
+        host = partial.cpu()
+        if host.dtype == torch.bfloat16:
+            host = host.float()
+        self.partials.append(host.numpy())
 
 
 def run_pipelined(

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import tune
+from repro_torch.checkpoint.checkpoint import from_host, to_host
 from repro_torch.kernels import ops
 
 __all__ = ["StreamingFilter", "tree_leaves", "tree_map"]
@@ -200,11 +201,15 @@ class StreamingFilter:
 
     def slot_to_host(self, slot_state):
         """Numpy copies of a single-bank state's tensors, dtype kept: the
-        checkpoint and migration format."""
-        return tree_map(lambda t: t.detach().cpu().numpy().copy(), slot_state)
+        checkpoint and migration format (``checkpoint.to_host``: a
+        bfloat16 tensor as its bit patterns, dtype ``V2``, as the
+        reference's checkpoints hold it)."""
+        return tree_map(to_host, slot_state)
 
     def slot_from_host(self, slot_state, device=None):
-        """Revive a :meth:`slot_to_host` snapshot as tensors on ``device``
-        (the filter's own device unless the caller names another)."""
+        """Revive a :meth:`slot_to_host` snapshot (or a reference
+        checkpoint's slot) as tensors on ``device`` (the filter's own
+        device unless the caller names another), a ``V2`` leaf as
+        bfloat16; the tensors share no memory with the snapshot."""
         dev = self.device if device is None else ops.resolve_device(device)
-        return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), slot_state)
+        return tree_map(lambda a: from_host(np.array(a)).to(dev), slot_state)

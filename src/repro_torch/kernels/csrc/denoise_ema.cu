@@ -13,10 +13,6 @@
 // Bound: HBM bytes (read the wire group, read + write the ema frames, read +
 // write two (H, W) planes), about 16 floating-point operations per pair.
 //
-// The design below is the float32 kernel's. A float16 or bfloat16 state
-// takes ema_half_kernel, at the end of this file: one thread a pixel, the
-// chunks in order, rounded as XLA rounds the reference's kernel in that type.
-//
 // Design: chunk-parallel statistics, ordered merge. The order of rounding
 // (below) fixes the order within a chunk and the order of the merges, not
 // which thread does what: each chunk's sum, centred sum of squares and EMA
@@ -36,6 +32,11 @@
 // round suffices. Shared memory per block is 2 x 8 x 32 x 8 bytes (twice
 // that for p12) for any chunk count.
 //
+// One body serves every state type A (float, __half, __nv_bfloat16;
+// quant.cuh Acc): the EMA and the statistics planes are loaded and stored
+// as A, every value travels as a float, and only the rounding differs by
+// type (below). The chunk sums stay float32 in every type.
+//
 // At the paper's shape (20,480 pixels, 100 chunks of 5 pairs) that is 640
 // blocks in 13 rounds. The registers are held to 48 a thread (kMinBlocks)
 // so that all 640 blocks are resident at once, 39 warps per SM, each warp
@@ -45,7 +46,8 @@
 //
 // Rounding is part of the contract. The reference's interpret-mode kernel is
 // compiled by XLA, which contracts some products into FMAs and keeps others;
-// each operation below is written with an _rn intrinsic in that order:
+// each operation below is written with an _rn intrinsic in that order. For
+// a float32 state:
 //   ema'   = fma(ema, 1 - a, a * d)
 //   s      = ((0 + d_0) + d_1) + ... ,   cm = s * f32(1/m)
 //   chunk  = fma(d_m-1 - cm, d_m-1 - cm, ... fma(d_0 - cm, d_0 - cm, 0))
@@ -64,6 +66,22 @@
 //     then the partials in order; the centred value is fma(-s, 1/m, d), its
 //     square rounded on its own, and the merge's cm - mean is
 //     fma(s, 1/m, -mean).
+// A float16 or bfloat16 state follows what XLA makes of the reference's
+// kernel in that type (the plain version, ema_welford_step_plain):
+//   ema'  = fma(ema, 1 - a, a * d) as one float16 FMA; for bfloat16
+//           ema * (1 - a) + a * d, every operation rounded;
+//   s     = the float32 sum of the chunk's d in the order of its length;
+//           for bfloat16 the sum reads each d before the rounding of its
+//           last add (pair_diff_acc's `wide`), as XLA computes that add in
+//           float32; cm = A(s * f32(1/m));
+//   chunk = A(float32 sum, in the same order, of the squares of
+//           dc = A(d - cm)), a square rounded to float16, exact in float32
+//           for bfloat16;
+//   n = prior + A(k) * m, tot = n + m, r = m / tot, c = (n * m) / tot,
+//   delta = cm - mean, all in A;
+//   mean' = fma(delta, r, mean), M2' = M2 + fma(delta^2, c, chunk) for
+//           float16 (one FMA each); for bfloat16 mean + delta * r and
+//           M2 + (chunk + delta^2 * c), every operation rounded.
 
 #include "quant.cuh"
 
@@ -95,41 +113,117 @@ __device__ __forceinline__ void fold_lanes(float (&lane)[8][P], float (&out)[P])
   }
 }
 
+// The pair at wire frame ctl (control; excitation one frame on), thread
+// item t: d of each pixel, rounded to A, and w, what the chunk sum adds: d,
+// or for bfloat16 the d before its last rounding.
+template <int FMT, typename A>
+__device__ __forceinline__ void load_diff(const uint8_t* __restrict__ ctl, int t,
+                                          int64_t frame_bytes, float offset, float u8_scale,
+                                          float (&d)[Item<FMT>::kPixels],
+                                          float (&w)[Item<FMT>::kPixels]) {
+  if constexpr (std::is_same_v<A, __nv_bfloat16>) {
+    pair_diff_acc<FMT, A>(ctl, ctl + frame_bytes, t, offset, u8_scale, d, w);
+  } else {
+    pair_diff_as<FMT, A>(ctl, ctl + frame_bytes, t, offset, u8_scale, d);
+#pragma unroll
+    for (int k = 0; k < Item<FMT>::kPixels; ++k) w[k] = d[k];
+  }
+}
+
+// ema * (1 - a) + a * d: one FMA where A contracts, else every operation rounded.
+template <typename A>
+__device__ __forceinline__ float ema_update(float e, float d, float alpha, float one_minus_alpha) {
+  const float ad = acc_mul<A>(alpha, d);
+  if constexpr (Acc<A>::kContracts) return Acc<A>::fma(e, one_minus_alpha, ad);
+  return acc_add<A>(acc_mul<A>(e, one_minus_alpha), ad);
+}
+
+// The chunk mean cm = A(s * f32(1/m)).
+template <typename A>
+__device__ __forceinline__ float chunk_mean(float s, float rcp_tile) {
+  return Acc<A>::round(__fmul_rn(s, rcp_tile));
+}
+
+// dc^2 as the sum of squares adds it: rounded to float16 for a float16
+// state, else the float32 product (exact for bfloat16).
+template <typename A>
+__device__ __forceinline__ float square(float dc) {
+  if constexpr (std::is_same_v<A, __half>) return acc_mul<A>(dc, dc);
+  return __fmul_rn(dc, dc);
+}
+
+// sq + dc^2 in the chain and lane orders: one FMA for float32, else the
+// square added.
+template <typename A>
+__device__ __forceinline__ float add_square(float sq, float dc) {
+  if constexpr (std::is_same_v<A, float>) return __fmaf_rn(dc, dc, sq);
+  return __fadd_rn(sq, square<A>(dc));
+}
+
+// The centred value of the windowed order: fma(-s, 1/m, d) for float32,
+// A(d - cm) otherwise.
+template <typename A>
+__device__ __forceinline__ float centred_windowed(float d, float s, float cm, float rcp_tile) {
+  if constexpr (std::is_same_v<A, float>) return __fmaf_rn(-s, rcp_tile, d);
+  return acc_sub<A>(d, cm);
+}
+
+// Chan's merge of a chunk's (s, sq) with weights w = (r, c) into (mu, var).
+template <typename A>
+__device__ __forceinline__ void merge(float s, float sq, float2 w, float rcp_tile, bool windowed,
+                                      float& mu, float& var) {
+  if constexpr (std::is_same_v<A, float>) {
+    const float dp = windowed ? __fmaf_rn(s, rcp_tile, -mu) : __fsub_rn(__fmul_rn(s, rcp_tile), mu);
+    var = __fadd_rn(var, __fmaf_rn(__fmul_rn(dp, dp), w.y, sq));
+    mu = __fmaf_rn(__fmaf_rn(s, rcp_tile, -mu), w.x, mu);
+  } else {
+    const float delta = acc_sub<A>(chunk_mean<A>(s, rcp_tile), mu);
+    const float dd = acc_mul<A>(delta, delta), chunk = Acc<A>::round(sq);
+    if constexpr (Acc<A>::kContracts) {
+      mu = Acc<A>::fma(delta, w.x, mu);
+      var = acc_add<A>(var, Acc<A>::fma(dd, w.y, chunk));
+    } else {
+      mu = acc_add<A>(mu, acc_mul<A>(delta, w.x));
+      var = acc_add<A>(var, acc_add<A>(chunk, acc_mul<A>(dd, w.y)));
+    }
+  }
+}
+
 // A chunk longer than kCap pairs (TILE 0) at thread item t, s and sq zeroed:
 // the first pass updates the EMA and forms s, the second re-reads the wire
 // pairs for the centred squares, each pass in the chunk length's order.
-template <int FMT>
+template <int FMT, typename A>
 __device__ __forceinline__ void chunk_stats_long(
-    float* __restrict__ ema_px, const uint8_t* __restrict__ ctl0, int t, int tile,
+    A* __restrict__ ema_px, const uint8_t* __restrict__ ctl0, int t, int tile,
     int64_t frame_bytes, int64_t plane_px, float offset, float u8_scale, float alpha,
     float one_minus_alpha, float rcp_tile, float (&s)[Item<FMT>::kPixels],
     float (&sq)[Item<FMT>::kPixels]) {
   constexpr int P = Item<FMT>::kPixels;
-  auto diff = [&](int i, float (&d)[P]) {
-    const uint8_t* ctl = ctl0 + 2 * i * frame_bytes;
-    pair_diff<FMT>(ctl, ctl + frame_bytes, t, offset, u8_scale, d);
+  auto diff = [&](int i, float (&d)[P], float (&w)[P]) {
+    load_diff<FMT, A>(ctl0 + 2 * i * frame_bytes, t, frame_bytes, offset, u8_scale, d, w);
   };
-  auto ema_diff = [&](int i, float (&d)[P]) {
-    diff(i, d);
-    float* e = ema_px + i * plane_px;
+  auto ema_diff = [&](int i, float (&d)[P], float (&w)[P]) {
+    diff(i, d, w);
+    A* e = ema_px + i * plane_px;
 #pragma unroll
-    for (int k = 0; k < P; ++k) e[k] = __fmaf_rn(e[k], one_minus_alpha, __fmul_rn(alpha, d[k]));
+    for (int k = 0; k < P; ++k)
+      e[k] = Acc<A>::store(ema_update<A>(Acc<A>::load(e[k]), d[k], alpha, one_minus_alpha));
   };
+  float cm[P];
   if (tile <= kChainMax) {
     for (int i = 0; i < tile; ++i) {
-      float d[P];
-      ema_diff(i, d);
+      float d[P], w[P];
+      ema_diff(i, d, w);
 #pragma unroll
-      for (int k = 0; k < P; ++k) s[k] = __fadd_rn(s[k], d[k]);
+      for (int k = 0; k < P; ++k) s[k] = __fadd_rn(s[k], w[k]);
     }
-    for (int i = 0; i < tile; ++i) {
-      float d[P];
-      diff(i, d);
 #pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const float dc = __fsub_rn(d[k], __fmul_rn(s[k], rcp_tile));
-        sq[k] = __fmaf_rn(dc, dc, sq[k]);
-      }
+    for (int k = 0; k < P; ++k) cm[k] = chunk_mean<A>(s[k], rcp_tile);
+    for (int i = 0; i < tile; ++i) {
+      float d[P], w[P];
+      diff(i, d, w);
+#pragma unroll
+      for (int k = 0; k < P; ++k) sq[k] = add_square<A>(sq[k], acc_sub<A>(d[k], cm[k]));
     }
     return;
   }
@@ -143,22 +237,21 @@ __device__ __forceinline__ void chunk_stats_long(
     for (int i0 = 0; i0 < full; i0 += 8) {
 #pragma unroll
       for (int l = 0; l < 8; ++l) {
-        float d[P];
-        ema_diff(i0 + l, d);
+        float d[P], w[P];
+        ema_diff(i0 + l, d, w);
 #pragma unroll
-        for (int k = 0; k < P; ++k) lane[l][k] = __fadd_rn(lane[l][k], d[k]);
+        for (int k = 0; k < P; ++k) lane[l][k] = __fadd_rn(lane[l][k], w[k]);
       }
     }
     fold_lanes<P>(lane, s);
     for (int i = full; i < tile; ++i) {
-      float d[P];
-      ema_diff(i, d);
+      float d[P], w[P];
+      ema_diff(i, d, w);
 #pragma unroll
-      for (int k = 0; k < P; ++k) s[k] = __fadd_rn(s[k], d[k]);
+      for (int k = 0; k < P; ++k) s[k] = __fadd_rn(s[k], w[k]);
     }
-    float cm[P];
 #pragma unroll
-    for (int k = 0; k < P; ++k) cm[k] = __fmul_rn(s[k], rcp_tile);
+    for (int k = 0; k < P; ++k) cm[k] = chunk_mean<A>(s[k], rcp_tile);
 #pragma unroll
     for (int l = 0; l < 8; ++l)
 #pragma unroll
@@ -166,24 +259,18 @@ __device__ __forceinline__ void chunk_stats_long(
     for (int i0 = 0; i0 < full; i0 += 8) {
 #pragma unroll
       for (int l = 0; l < 8; ++l) {
-        float d[P];
-        diff(i0 + l, d);
+        float d[P], w[P];
+        diff(i0 + l, d, w);
 #pragma unroll
-        for (int k = 0; k < P; ++k) {
-          const float dc = __fsub_rn(d[k], cm[k]);
-          lane[l][k] = __fmaf_rn(dc, dc, lane[l][k]);
-        }
+        for (int k = 0; k < P; ++k) lane[l][k] = add_square<A>(lane[l][k], acc_sub<A>(d[k], cm[k]));
       }
     }
     fold_lanes<P>(lane, sq);
     for (int i = full; i < tile; ++i) {
-      float d[P];
-      diff(i, d);
+      float d[P], w[P];
+      diff(i, d, w);
 #pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const float dc = __fsub_rn(d[k], cm[k]);
-        sq[k] = __fmaf_rn(dc, dc, sq[k]);
-      }
+      for (int k = 0; k < P; ++k) sq[k] = add_square<A>(sq[k], acc_sub<A>(d[k], cm[k]));
     }
     return;
   }
@@ -200,15 +287,16 @@ __device__ __forceinline__ void chunk_stats_long(
         part[k] = 0.0f;
       }
     }
-    float d[P];
-    ema_diff(i, d);
+    float d[P], w[P];
+    ema_diff(i, d, w);
 #pragma unroll
-    for (int k = 0; k < P; ++k) part[k] = __fadd_rn(part[k], d[k]);
+    for (int k = 0; k < P; ++k) part[k] = __fadd_rn(part[k], w[k]);
   }
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     s[k] = __fadd_rn(s[k], part[k]);
     part[k] = 0.0f;
+    cm[k] = chunk_mean<A>(s[k], rcp_tile);
   }
   for (int i = 0; i < tile; ++i) {
     if (i > 0 && (i + low) % kWindow == 0) {
@@ -218,33 +306,32 @@ __device__ __forceinline__ void chunk_stats_long(
         part[k] = 0.0f;
       }
     }
-    float d[P];
-    diff(i, d);
+    float d[P], w[P];
+    diff(i, d, w);
 #pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const float dc = __fmaf_rn(-s[k], rcp_tile, d[k]);
-      part[k] = __fadd_rn(part[k], __fmul_rn(dc, dc));
-    }
+    for (int k = 0; k < P; ++k)
+      part[k] = __fadd_rn(part[k], square<A>(centred_windowed<A>(d[k], s[k], cm[k], rcp_tile)));
   }
 #pragma unroll
   for (int k = 0; k < P; ++k) sq[k] = __fadd_rn(sq[k], part[k]);
 }
 
 // One chunk of pairs [p0, p0 + tile) at thread item t: update the EMA in
-// place and return the chunk's sequential sum s and centred sum of squares
-// sq, rounded as the contract says. The wire frame of pair p is 2p (control)
-// and 2p + 1 (excitation); every plane is (H * W) contiguous pixels. TILE is
-// the chunk's pair count when it is at most kCap (its diffs stay in
-// registers), and 0 for a longer chunk (its wire pairs are read twice, and
-// its sums take the order of its length).
-template <int FMT, int TILE>
+// place and return the chunk's sum s and centred sum of squares sq, rounded
+// as the contract says. The wire frame of pair p is 2p (control) and 2p + 1
+// (excitation); every plane is (H * W) contiguous pixels. TILE is the
+// chunk's pair count when it is at most kCap (its diffs stay in registers,
+// and each pair's w is folded into s as it is loaded), and 0 for a longer
+// chunk (its wire pairs are read twice, and its sums take the order of its
+// length).
+template <int FMT, int TILE, typename A>
 __device__ __forceinline__ void chunk_stats(
-    const uint8_t* __restrict__ frames, float* __restrict__ ema, int t, int64_t p0,
+    const uint8_t* __restrict__ frames, A* __restrict__ ema, int t, int64_t p0,
     int tile, int64_t frame_bytes, int64_t plane_px, float offset, float u8_scale,
     float alpha, float one_minus_alpha, float rcp_tile, float (&s)[Item<FMT>::kPixels],
     float (&sq)[Item<FMT>::kPixels]) {
   constexpr int P = Item<FMT>::kPixels;
-  float* ema_px = ema + p0 * plane_px + static_cast<int64_t>(t) * P;
+  A* ema_px = ema + p0 * plane_px + static_cast<int64_t>(t) * P;
   const uint8_t* ctl0 = frames + 2 * p0 * frame_bytes;
 #pragma unroll
   for (int k = 0; k < P; ++k) s[k] = sq[k] = 0.0f;
@@ -252,38 +339,38 @@ __device__ __forceinline__ void chunk_stats(
     float d[TILE][P], e[TILE][P];
 #pragma unroll
     for (int i = 0; i < TILE; ++i) {  // every load of the chunk before any use
-      const uint8_t* ctl = ctl0 + 2 * i * frame_bytes;
-      pair_diff<FMT>(ctl, ctl + frame_bytes, t, offset, u8_scale, d[i]);
-#pragma unroll
-      for (int k = 0; k < P; ++k) e[i][k] = ema_px[i * plane_px + k];
-    }
-#pragma unroll
-    for (int i = 0; i < TILE; ++i) {
+      float w[P];
+      load_diff<FMT, A>(ctl0 + 2 * i * frame_bytes, t, frame_bytes, offset, u8_scale, d[i], w);
 #pragma unroll
       for (int k = 0; k < P; ++k) {
-        ema_px[i * plane_px + k] = __fmaf_rn(e[i][k], one_minus_alpha, __fmul_rn(alpha, d[i][k]));
-        s[k] = __fadd_rn(s[k], d[i][k]);
+        e[i][k] = Acc<A>::load(ema_px[i * plane_px + k]);
+        s[k] = __fadd_rn(s[k], w[k]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < TILE; ++i) {
+    for (int i = 0; i < TILE; ++i)
 #pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const float dc = __fsub_rn(d[i][k], __fmul_rn(s[k], rcp_tile));
-        sq[k] = __fmaf_rn(dc, dc, sq[k]);
-      }
-    }
+      for (int k = 0; k < P; ++k)
+        ema_px[i * plane_px + k] =
+            Acc<A>::store(ema_update<A>(e[i][k], d[i][k], alpha, one_minus_alpha));
+    float cm[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) cm[k] = chunk_mean<A>(s[k], rcp_tile);
+#pragma unroll
+    for (int i = 0; i < TILE; ++i)
+#pragma unroll
+      for (int k = 0; k < P; ++k) sq[k] = add_square<A>(sq[k], acc_sub<A>(d[i][k], cm[k]));
   } else {
-    chunk_stats_long<FMT>(ema_px, ctl0, t, tile, frame_bytes, plane_px, offset, u8_scale,
-                          alpha, one_minus_alpha, rcp_tile, s, sq);
+    chunk_stats_long<FMT, A>(ema_px, ctl0, t, tile, frame_bytes, plane_px, offset, u8_scale,
+                             alpha, one_minus_alpha, rcp_tile, s, sq);
   }
 }
 
 // Grid: one block per kLanes thread items (for p12 an item is two pixels).
-template <int FMT, int TILE>
+template <int FMT, int TILE, typename A>
 __global__ void __launch_bounds__(kLanes * kChunkLanes, kMinBlocks<FMT>)
-    ema_kernel(const uint8_t* __restrict__ frames, float* __restrict__ ema,
-               float* __restrict__ mean, float* __restrict__ m2, int chunks,
+    ema_kernel(const uint8_t* __restrict__ frames, A* __restrict__ ema,
+               A* __restrict__ mean, A* __restrict__ m2, int chunks,
                int plane_items, int64_t frame_bytes, int pair_tile, float offset,
                float u8_scale, float alpha, float one_minus_alpha, float prior,
                float rcp_tile) {
@@ -296,14 +383,14 @@ __global__ void __launch_bounds__(kLanes * kChunkLanes, kMinBlocks<FMT>)
   const int t = live ? blockIdx.x * kLanes + lane : 0;
   const bool merger = r == 0 && live;
   const int64_t plane_px = static_cast<int64_t>(plane_items) * P;
-  const float m = static_cast<float>(pair_tile);
+  const float m = Acc<A>::round(static_cast<float>(pair_tile));
   const bool windowed = pair_tile > kLanesMax;
   float mu[P], var[P];
   if (merger) {
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      mu[k] = mean[static_cast<int64_t>(t) * P + k];
-      var[k] = m2[static_cast<int64_t>(t) * P + k];
+      mu[k] = Acc<A>::load(mean[static_cast<int64_t>(t) * P + k]);
+      var[k] = Acc<A>::load(m2[static_cast<int64_t>(t) * P + k]);
     }
   }
   const int rounds = (chunks + kChunkLanes - 1) / kChunkLanes;
@@ -313,9 +400,9 @@ __global__ void __launch_bounds__(kLanes * kChunkLanes, kMinBlocks<FMT>)
     if (c < chunks) {
       float s[P], sq[P];
       if (live) {
-        chunk_stats<FMT, TILE>(frames, ema, t, static_cast<int64_t>(c) * pair_tile, pair_tile,
-                         frame_bytes, plane_px, offset, u8_scale, alpha, one_minus_alpha,
-                         rcp_tile, s, sq);
+        chunk_stats<FMT, TILE, A>(frames, ema, t, static_cast<int64_t>(c) * pair_tile, pair_tile,
+                                  frame_bytes, plane_px, offset, u8_scale, alpha,
+                                  one_minus_alpha, rcp_tile, s, sq);
       } else {
 #pragma unroll
         for (int k = 0; k < P; ++k) s[k] = sq[k] = 0.0f;
@@ -323,9 +410,9 @@ __global__ void __launch_bounds__(kLanes * kChunkLanes, kMinBlocks<FMT>)
 #pragma unroll
       for (int k = 0; k < P; ++k) stats[buf][r][k][lane] = make_float2(s[k], sq[k]);
       if (lane == 0) {
-        const float n = __fadd_rn(prior, __fmul_rn(static_cast<float>(c), m));
-        const float tot = __fadd_rn(n, m);
-        weights[buf][r] = make_float2(__fdiv_rn(m, tot), __fdiv_rn(__fmul_rn(n, m), tot));
+        const float n = acc_add<A>(prior, acc_mul<A>(Acc<A>::round(static_cast<float>(c)), m));
+        const float tot = acc_add<A>(n, m);
+        weights[buf][r] = make_float2(acc_div<A>(m, tot), acc_div<A>(acc_mul<A>(n, m), tot));
       }
     }
     __syncthreads();
@@ -338,10 +425,7 @@ __global__ void __launch_bounds__(kLanes * kChunkLanes, kMinBlocks<FMT>)
 #pragma unroll
           for (int k = 0; k < P; ++k) {
             const float2 st = stats[buf][j][k][lane];
-            const float dp = windowed ? __fmaf_rn(st.x, rcp_tile, -mu[k])
-                                      : __fsub_rn(__fmul_rn(st.x, rcp_tile), mu[k]);
-            var[k] = __fadd_rn(var[k], __fmaf_rn(__fmul_rn(dp, dp), w.y, st.y));
-            mu[k] = __fmaf_rn(__fmaf_rn(st.x, rcp_tile, -mu[k]), w.x, mu[k]);
+            merge<A>(st.x, st.y, w, rcp_tile, windowed, mu[k], var[k]);
           }
         }
       }
@@ -350,201 +434,59 @@ __global__ void __launch_bounds__(kLanes * kChunkLanes, kMinBlocks<FMT>)
   if (merger) {
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      mean[static_cast<int64_t>(t) * P + k] = mu[k];
-      m2[static_cast<int64_t>(t) * P + k] = var[k];
+      mean[static_cast<int64_t>(t) * P + k] = Acc<A>::store(mu[k]);
+      m2[static_cast<int64_t>(t) * P + k] = Acc<A>::store(var[k]);
     }
   }
 }
 
-template <int FMT, int TILE>
-cudaError_t launch_tile(const void* frames, void* ema, void* mean, void* m2,
-                        int pairs, int plane_items, int64_t frame_bytes,
-                        int pair_tile, float offset, float u8_scale, float alpha,
-                        float one_minus_alpha, float prior, float rcp_tile,
-                        cudaStream_t stream) {
-  const int blocks = (plane_items + kLanes - 1) / kLanes;
-  ema_kernel<FMT, TILE><<<blocks, kLanes * kChunkLanes, 0, stream>>>(
-      static_cast<const uint8_t*>(frames), static_cast<float*>(ema),
-      static_cast<float*>(mean), static_cast<float*>(m2), pairs / pair_tile,
-      plane_items, frame_bytes, pair_tile, offset, u8_scale, alpha,
-      one_minus_alpha, prior, rcp_tile);
+// One launch's arguments, as the C entry point takes them.
+struct EmaArgs {
+  const void* frames;
+  void *ema, *mean, *m2;
+  int pairs, plane_items;
+  int64_t frame_bytes;
+  int pair_tile;
+  float offset, u8_scale, alpha, one_minus_alpha, prior, rcp_tile;
+  cudaStream_t stream;
+};
+
+template <int FMT, int TILE, typename A>
+cudaError_t launch_tile(const EmaArgs& a) {
+  const int blocks = (a.plane_items + kLanes - 1) / kLanes;
+  ema_kernel<FMT, TILE, A><<<blocks, kLanes * kChunkLanes, 0, a.stream>>>(
+      static_cast<const uint8_t*>(a.frames), static_cast<A*>(a.ema), static_cast<A*>(a.mean),
+      static_cast<A*>(a.m2), a.pairs / a.pair_tile, a.plane_items, a.frame_bytes, a.pair_tile,
+      a.offset, a.u8_scale, a.alpha, a.one_minus_alpha, a.prior, a.rcp_tile);
   return cudaGetLastError();
 }
 
-// One kernel per format and register tile: pair_tile 1 .. kCap, and 0 above.
-template <int FMT>
-cudaError_t launch(const void* frames, void* ema, void* mean, void* m2,
-                   int pairs, int plane_items, int64_t frame_bytes,
-                   int pair_tile, float offset, float u8_scale, float alpha,
-                   float one_minus_alpha, float prior, float rcp_tile,
-                   cudaStream_t stream) {
-  static_assert(kCap == 8, "the switch below lists the register tiles 1 .. kCap");
-#define TILE(T) launch_tile<FMT, T>(frames, ema, mean, m2, pairs, plane_items, frame_bytes, pair_tile, offset, u8_scale, alpha, one_minus_alpha, prior, rcp_tile, stream)
-  switch (pair_tile) {
-    case 1: return TILE(1);
-    case 2: return TILE(2);
-    case 3: return TILE(3);
-    case 4: return TILE(4);
-    case 5: return TILE(5);
-    case 6: return TILE(6);
-    case 7: return TILE(7);
-    case 8: return TILE(8);
-    default: return TILE(0);
-  }
-#undef TILE
-}
-
-// XLA's float32 order for a sum of the m values v(0), ..., v(m - 1), by m
-// (the orders above): one chain up to kChainMax, 8 lanes folded pairwise and
-// the rest chained on up to kLanesMax, zero-padded windows of kWindow above.
-template <typename V>
-__device__ __forceinline__ float ordered_sum(int m, V&& v) {
-  if (m <= kChainMax) {
-    float s = 0.0f;
-    for (int i = 0; i < m; ++i) s = __fadd_rn(s, v(i));
-    return s;
-  }
-  if (m <= kLanesMax) {
-    const int full = m / 8 * 8;
-    float lane[8][1] = {};
-    for (int i0 = 0; i0 < full; i0 += 8)
-#pragma unroll
-      for (int l = 0; l < 8; ++l) lane[l][0] = __fadd_rn(lane[l][0], v(i0 + l));
-    float s[1];
-    fold_lanes<1>(lane, s);
-    for (int i = full; i < m; ++i) s[0] = __fadd_rn(s[0], v(i));
-    return s[0];
-  }
-  const int padded = (m + kWindow - 1) / kWindow * kWindow;
-  const int low = (padded - m) / 2;
-  float s = 0.0f, part = 0.0f;
-  for (int i = 0; i < m; ++i) {
-    if (i > 0 && (i + low) % kWindow == 0) {
-      s = __fadd_rn(s, part);
-      part = 0.0f;
-    }
-    part = __fadd_rn(part, v(i));
-  }
-  return __fadd_rn(s, part);
-}
-
-// A float16 or bfloat16 state (A, quant.cuh Acc): one thread per thread item
-// (a pixel, or a p12 pixel pair), the chunks in order. The arithmetic is the
-// plain version's (kernels/denoise_ema.py ema_welford_step_plain), which
-// follows what XLA makes of the reference's kernel for a half type:
-//   ema'  = fma(ema, 1 - a, a * d) as one float16 FMA; for bfloat16
-//           ema * (1 - a) + a * d, every operation rounded;
-//   cm    = A(s * f32(1/m)), s the float32 sum of the chunk's d in the
-//           order of its length; for bfloat16 the sum reads each d before
-//           the rounding of its last add (pair_diff_acc's `wide`), as XLA
-//           computes that add in float32;
-//   chunk = A(float32 sum of the squares of A(d - cm)), a square rounded to
-//           float16, exact in float32 for bfloat16;
-//   n = prior + A(k) * m, tot = n + m, r = m / tot, c = (n * m) / tot,
-//   delta = cm - mean, all in A;
-//   mean' = fma(delta, r, mean), M2' = M2 + fma(delta^2, c, chunk) for
-//           float16 (one FMA each); for bfloat16 mean + delta * r and
-//           M2 + (chunk + delta^2 * c), every operation rounded.
-// A correct, simple kernel: each thread re-reads a chunk's wire pairs for
-// each of its three passes.
+// One kernel per format, register tile and state type: pair_tile 1 .. kCap,
+// and 0 above.
 template <int FMT, typename A>
-__global__ void __launch_bounds__(256)
-    ema_half_kernel(const uint8_t* __restrict__ frames, A* __restrict__ ema,
-                    A* __restrict__ mean, A* __restrict__ m2, int chunks, int plane_items,
-                    int64_t frame_bytes, int pair_tile, float offset, float u8_scale,
-                    float alpha, float one_minus_alpha, float prior, float rcp_tile) {
-  using repro_quant::Acc;
-  using repro_quant::acc_add;
-  using repro_quant::acc_div;
-  using repro_quant::acc_mul;
-  using repro_quant::acc_sub;
-  constexpr int P = Item<FMT>::kPixels;
-  constexpr bool kBf16 = std::is_same_v<A, __nv_bfloat16>;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= plane_items) return;
-  const int64_t plane_px = static_cast<int64_t>(plane_items) * P;
-  const float m = Acc<A>::round(static_cast<float>(pair_tile));
-  float mu[P], var[P];
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    mu[k] = Acc<A>::load(mean[static_cast<int64_t>(t) * P + k]);
-    var[k] = Acc<A>::load(m2[static_cast<int64_t>(t) * P + k]);
-  }
-  for (int c = 0; c < chunks; ++c) {
-    const int64_t p0 = static_cast<int64_t>(c) * pair_tile;
-    auto diff = [&](int i, float (&d)[P], float (&w)[P]) {
-      const uint8_t* ctl = frames + 2 * (p0 + i) * frame_bytes;
-      pair_diff_acc<FMT, A>(ctl, ctl + frame_bytes, t, offset, u8_scale, d, w);
-    };
-    for (int i = 0; i < pair_tile; ++i) {
-      float d[P], w[P];
-      diff(i, d, w);
-      A* e = ema + (p0 + i) * plane_px + static_cast<int64_t>(t) * P;
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const float ev = Acc<A>::load(e[k]), ad = acc_mul<A>(alpha, d[k]);
-        if constexpr (Acc<A>::kContracts) {
-          e[k] = Acc<A>::store(Acc<A>::fma(ev, one_minus_alpha, ad));
-        } else {
-          e[k] = Acc<A>::store(acc_add<A>(acc_mul<A>(ev, one_minus_alpha), ad));
-        }
-      }
-    }
-    const float n = acc_add<A>(prior, acc_mul<A>(Acc<A>::round(static_cast<float>(c)), m));
-    const float tot = acc_add<A>(n, m);
-    const float r = acc_div<A>(m, tot), cw = acc_div<A>(acc_mul<A>(n, m), tot);
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const float s = ordered_sum(pair_tile, [&](int i) {
-        float d[P], w[P];
-        diff(i, d, w);
-        return kBf16 ? w[k] : d[k];
-      });
-      const float cm = Acc<A>::round(__fmul_rn(s, rcp_tile));
-      const float sq = ordered_sum(pair_tile, [&](int i) {
-        float d[P], w[P];
-        diff(i, d, w);
-        const float dc = acc_sub<A>(d[k], cm);
-        return kBf16 ? __fmul_rn(dc, dc) : acc_mul<A>(dc, dc);
-      });
-      const float chunk = Acc<A>::round(sq);
-      const float delta = acc_sub<A>(cm, mu[k]);
-      const float dd = acc_mul<A>(delta, delta);
-      if constexpr (Acc<A>::kContracts) {
-        mu[k] = Acc<A>::fma(delta, r, mu[k]);
-        var[k] = acc_add<A>(var[k], Acc<A>::fma(dd, cw, chunk));
-      } else {
-        mu[k] = acc_add<A>(mu[k], acc_mul<A>(delta, r));
-        var[k] = acc_add<A>(var[k], acc_add<A>(chunk, acc_mul<A>(dd, cw)));
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    mean[static_cast<int64_t>(t) * P + k] = Acc<A>::store(mu[k]);
-    m2[static_cast<int64_t>(t) * P + k] = Acc<A>::store(var[k]);
+cudaError_t launch(const EmaArgs& a) {
+  static_assert(kCap == 8, "the switch below lists the register tiles 1 .. kCap");
+  switch (a.pair_tile) {
+    case 1: return launch_tile<FMT, 1, A>(a);
+    case 2: return launch_tile<FMT, 2, A>(a);
+    case 3: return launch_tile<FMT, 3, A>(a);
+    case 4: return launch_tile<FMT, 4, A>(a);
+    case 5: return launch_tile<FMT, 5, A>(a);
+    case 6: return launch_tile<FMT, 6, A>(a);
+    case 7: return launch_tile<FMT, 7, A>(a);
+    case 8: return launch_tile<FMT, 8, A>(a);
+    default: return launch_tile<FMT, 0, A>(a);
   }
 }
 
 template <typename A>
-cudaError_t launch_half(int fmt, const void* frames, void* ema, void* mean, void* m2,
-                        int pairs, int plane_items, int64_t frame_bytes, int pair_tile,
-                        float offset, float u8_scale, float alpha, float one_minus_alpha,
-                        float prior, float rcp_tile, cudaStream_t stream) {
-  const int blocks = (plane_items + 255) / 256;
-#define HALF(F)                                                                              \
-  ema_half_kernel<F, A><<<blocks, 256, 0, stream>>>(                                         \
-      static_cast<const uint8_t*>(frames), static_cast<A*>(ema), static_cast<A*>(mean),       \
-      static_cast<A*>(m2), pairs / pair_tile, plane_items, frame_bytes, pair_tile, offset,    \
-      u8_scale, alpha, one_minus_alpha, prior, rcp_tile)
+cudaError_t launch_format(int fmt, const EmaArgs& a) {
   switch (fmt) {
-    case kU16: HALF(kU16); break;
-    case kU8: HALF(kU8); break;
-    case kP12: HALF(kP12); break;
-    default: return cudaErrorInvalidValue;
+    case kU16: return launch<kU16, A>(a);
+    case kU8: return launch<kU8, A>(a);
+    case kP12: return launch<kP12, A>(a);
   }
-#undef HALF
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -567,26 +509,15 @@ int ema_welford_step_launch(const void* frames, void* ema, void* mean,
   if (pair_tile < 1 || pairs % pair_tile || pairs > 0x3fffffff ||
       3 * height * items > 0x7fffffff)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int p = static_cast<int>(pairs), tp = static_cast<int>(pair_tile);
-  const int plane_items = static_cast<int>(height * items);
-  const int64_t frame_bytes = height * row_bytes;
-  if (acc == kAccF16 || acc == kAccBF16) {
-    return acc == kAccF16
-               ? launch_half<__half>(fmt, frames, ema, mean, m2, p, plane_items, frame_bytes, tp,
-                                     offset, u8_scale, alpha, one_minus_alpha, prior, rcp_tile, s)
-               : launch_half<__nv_bfloat16>(fmt, frames, ema, mean, m2, p, plane_items,
-                                            frame_bytes, tp, offset, u8_scale, alpha,
-                                            one_minus_alpha, prior, rcp_tile, s);
+  const EmaArgs a{frames, ema, mean, m2, static_cast<int>(pairs),
+                  static_cast<int>(height * items), height * row_bytes,
+                  static_cast<int>(pair_tile), offset, u8_scale, alpha, one_minus_alpha,
+                  prior, rcp_tile, static_cast<cudaStream_t>(stream)};
+  switch (acc) {
+    case kAccF32: return launch_format<float>(fmt, a);
+    case kAccF16: return launch_format<__half>(fmt, a);
+    case kAccBF16: return launch_format<__nv_bfloat16>(fmt, a);
   }
-  if (acc != kAccF32) return cudaErrorInvalidValue;
-#define EMA(F) launch<F>(frames, ema, mean, m2, p, plane_items, frame_bytes, tp, offset, u8_scale, alpha, one_minus_alpha, prior, rcp_tile, s)
-  switch (fmt) {
-    case kU16: return EMA(kU16);
-    case kU8: return EMA(kU8);
-    case kP12: return EMA(kP12);
-  }
-#undef EMA
   return cudaErrorInvalidValue;
 }
 

@@ -65,15 +65,19 @@ struct Acc<__half> {
     return __half2float(__hfma(__float2half_rn(a), __float2half_rn(b), __float2half_rn(c)));
   }
 };
+// bfloat16 rounds through the packed conversion (cvt.rn.bf16x2.f32, SASS
+// F2FP): the same round to nearest even as cvt.rn.bf16.f32, which sm_90
+// runs as F2F at a quarter of F2FP's rate, and which set the pace of B8 and
+// B9 in bfloat16 (PERF.md section 6).
 template <>
 struct Acc<__nv_bfloat16> {
   static constexpr bool kContracts = false;
   static __device__ __forceinline__ float load(__nv_bfloat16 x) { return __bfloat162float(x); }
   static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16_rn(x);
+    return __low2bfloat16(__float2bfloat162_rn(x));
   }
   static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
+    return __low2float(__float2bfloat162_rn(x));
   }
 };
 

@@ -50,8 +50,9 @@ the reference's kernel for each type (:func:`half_chunk_stats`,
 :func:`half_merge`): ``jnp.mean`` and ``jnp.sum`` take a chunk's
 statistics in float32 in the order above and round them once; the EMA and
 the merge round every operation, float16 contracting the FMAs of the
-float32 list. On the card they run a simple kernel of one thread a pixel
-(``ema_half_kernel`` in the CUDA source).
+float32 list. On the card they run the float32 kernel's body, which
+takes the state type as a template argument and differs only in where it
+rounds (the list is in the CUDA source).
 
 Dispatch, checks and the launch counter are as in
 :mod:`repro_torch.kernels.denoise_stream`.

@@ -17,11 +17,12 @@ body rounds it (:mod:`repro_torch.kernels.ref`):
   where the three agree, and is held bitwise.
 
 The kernel stages tiles of 16 rows x 128 columns with their halo in
-shared memory. It takes one of two paths, chosen on the host by
-:func:`tile_path` and counted in ``spatial_filter_3x3.vector_launches``
-or ``.scalar_launches``: float4 loads and stores where W % 4 == 0 and
-both planes are 16-byte aligned, scalar ones otherwise. Half-precision
-frames take a kernel of one thread a pixel, counted as a scalar launch.
+shared memory, in every frame type. It takes one of two paths, chosen on
+the host by :func:`tile_path` and counted in
+``spatial_filter_3x3.vector_launches`` or ``.scalar_launches``: loads and
+stores of four pixels (16 bytes of float32, 8 of a half type) where
+W % 4 == 0 and both planes are aligned to four pixels, scalar ones
+otherwise.
 Dispatch, checks and the launch counter are as in
 :mod:`repro_torch.kernels.denoise_stream`.
 """
@@ -66,11 +67,14 @@ def _inv2s2(range_sigma: float, dtype: torch.dtype = torch.float32) -> float:
     return ref.round_const(1.0 / (2.0 * range_sigma * range_sigma), dtype)
 
 
-def tile_path(width: int, in_ptr: int, out_ptr: int) -> str:
-    """The kernel's path for rows of ``width`` pixels: ``"vector"`` (float4
-    loads and stores) when W % 4 == 0 and both planes start 16-byte aligned
-    (every row then does), ``"scalar"`` otherwise."""
-    return "vector" if width % 4 == 0 and in_ptr % 16 == 0 and out_ptr % 16 == 0 else "scalar"
+def tile_path(width: int, in_ptr: int, out_ptr: int, itemsize: int = 4) -> str:
+    """The kernel's path for rows of ``width`` pixels of ``itemsize`` bytes:
+    ``"vector"`` (loads and stores of four pixels) when W % 4 == 0 and both
+    planes start aligned to four pixels (every row then does: 16 bytes for
+    float32, 8 for a half type), ``"scalar"`` otherwise."""
+    align = 4 * itemsize
+    return ("vector" if width % 4 == 0 and in_ptr % align == 0 and out_ptr % align == 0
+            else "scalar")
 
 
 def _neighbours(frames: torch.Tensor) -> list[torch.Tensor]:
@@ -142,7 +146,7 @@ def spatial_filter_3x3(
         raise ValueError("the CUDA kernels need contiguous frames")
     p, h, w = frames.shape
     out = torch.empty_like(frames)
-    path = tile_path(w, frames.data_ptr(), out.data_ptr()) if dt == torch.float32 else "scalar"
+    path = tile_path(w, frames.data_ptr(), out.data_ptr(), frames.element_size())
     lib = _build.library()
     with torch.cuda.device(frames.device):
         rc = lib.spatial_filter_3x3_launch(

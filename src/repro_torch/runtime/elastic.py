@@ -27,7 +27,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.checkpoint.checkpoint import flat_leaves, map_tree
+from repro_torch.checkpoint.checkpoint import flat_leaves, from_host, map_tree
 from repro_torch.core.banks import BankMesh
 from repro_torch.kernels import ops
 
@@ -113,7 +113,7 @@ def state_spec_tree(state, *, axes: dict[int, str] | None = None):
     axes = axes or {}
 
     def spec(leaf):
-        t = torch.as_tensor(leaf)
+        t = from_host(leaf)
         return LeafSpec(
             shape=tuple(t.shape), dtype=t.dtype,
             axes=tuple(axes.get(d) for d in range(t.dim())),
@@ -139,7 +139,7 @@ def elastic_reshard(state, spec_tree, new_mesh: BankMesh):
 
     def place(i, dev):
         def one(leaf, spec):
-            t = torch.as_tensor(leaf)
+            t = from_host(leaf)
             if "bank" in spec.axes:
                 ax = spec.axes.index("bank")
                 if t.shape[ax] % n:

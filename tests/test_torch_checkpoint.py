@@ -18,6 +18,11 @@ case) and ``tests/test_slot_checkpoint_properties.py``.
   equals the reference's undisturbed run; and the other way round. A
   reference checkpoint also resumes a stalled session in a port
   ``FleetScheduler``.
+* bfloat16 slots: the port writes a bfloat16 leaf as the reference does
+  (2-byte void, descr ``'<V2'``, member bytes equal), restores either
+  package's such checkpoint, and a bfloat16 fleet session recovers,
+  resumes and migrates bit for bit; other dtypes keep ``np.savez``'s
+  bytes.
 
 Frames come from ``PrismSource`` with a seed, identical numpy arrays for
 both packages (``backend="xla"`` in both, as the reference's own
@@ -424,3 +429,204 @@ def test_reference_slot_checkpoint_resumes_in_the_port_fleet(tmp_path, name):
     _close(cfg, out, run_pipelined(cfg, iter(groups), device="cpu")[0])
     assert rep.restarts == 1 and rep.groups == cfg.num_groups
     assert "recover@x->ex1:steps=2+0" in fleet.events
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 slots: the host format is the reference's (2-byte void leaves).
+# ---------------------------------------------------------------------------
+
+
+def _bits(x) -> np.ndarray:
+    """The 16-bit patterns of a bfloat16 tensor, a ``V2`` host leaf or a
+    reference bfloat16 array."""
+    if isinstance(x, torch.Tensor):
+        assert x.dtype == torch.bfloat16, x.dtype
+        return x.view(torch.int16).numpy()
+    x = np.asarray(x)
+    assert x.dtype.itemsize == 2 and x.dtype.kind == "V" or x.dtype.name == "bfloat16", x.dtype
+    return x.view(np.int16)
+
+
+def _same_bits(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+
+
+def _bf16_cfg(name, **kw):
+    return _cfg(filter_name=name, accum_dtype="bfloat16", **kw)
+
+
+def _members(path) -> dict:
+    import zipfile
+
+    with zipfile.ZipFile(os.path.join(path, "leaves.npz")) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def _latest_dir(directory, session):
+    mgr = CheckpointManager(os.path.join(directory, session))
+    return os.path.join(directory, session, f"step_{mgr.latest_step():010d}")
+
+
+@pytest.mark.parametrize("name", FILTERS)
+def test_bfloat16_slot_checkpoint_has_the_reference_bytes(tmp_path, name):
+    """The port's ``leaves.npz`` of a bfloat16 slot holds, member for member,
+    the bytes the reference's writes for the same slot after the same folds
+    (descr ``'<V2'``); either restores as ``V2`` on the host and as
+    bfloat16 on a device, bit for bit."""
+    cfg = _bf16_cfg(name)
+    groups = _groups(cfg, seed=12)
+    filt, state = _slot_after(cfg, groups, 2, 1, 2)
+    sub = filt.slot_extract(state, 1)
+    jfilt, jslot = _j_slot_after(cfg, groups, 2)
+    _same_bits(sub, jslot)
+    SessionCheckpointer(str(tmp_path / "port")).save("x", filt, sub, steps=2, frames=16)
+    JCheckpointer(str(tmp_path / "ref")).save("x", jfilt, jslot, steps=2, frames=16)
+    port, ref = _latest_dir(tmp_path / "port", "x"), _latest_dir(tmp_path / "ref", "x")
+    got, want = _members(port), _members(ref)
+    assert sorted(got) == sorted(want) and got == want
+    assert all(b"'descr': '<V2'" in m for m in got.values())
+    manifest, j_manifest = read_manifest(port), read_manifest(ref)
+    for m in (manifest, j_manifest):
+        m.pop("time")
+    assert manifest == j_manifest
+    for path in (port, ref):
+        host, step = restore_tree(path)
+        assert step == 2 and all(a.dtype == np.dtype("V2") for a in _leaves(host))
+        _same_bits(host, sub)
+        dev, _ = restore_tree(path, device="cpu")
+        assert all(t.dtype == torch.bfloat16 for t in _leaves(dev))
+        _same_bits(dev, sub)
+
+
+@pytest.mark.parametrize("dtype", [np.float16, np.float32, np.int32, np.uint16])
+def test_other_leaves_are_written_as_numpy_savez_writes_them(tmp_path, dtype):
+    """float16, float32 and integer leaves keep the bytes ``np.savez`` gave
+    them before bfloat16 leaves had a writer of their own."""
+    rng = np.random.default_rng(3)
+    tree = {"a": (1000 * rng.standard_normal((3, 5))).astype(dtype),
+            "b": [torch.from_numpy((50 * rng.standard_normal(7)).astype(dtype)),
+                  np.asarray(3, dtype)]}
+    save_tree(str(tmp_path / "ck"), tree, step=1)
+    host = [_host(x) for x in _leaves(tree)]
+    np.savez(tmp_path / "want.npz", **{f"leaf_{i}": a for i, a in enumerate(host)})
+    import zipfile
+
+    with zipfile.ZipFile(tmp_path / "want.npz") as z:
+        want = {n: z.read(n) for n in z.namelist()}
+    assert _members(tmp_path / "ck") == want
+
+
+@pytest.mark.parametrize("name", FILTERS)
+def test_reference_bfloat16_slot_checkpoint_resumes_in_the_port(tmp_path, name):
+    k = 2
+    cfg = _bf16_cfg(name, num_groups=5)
+    groups = _groups(cfg, seed=8)
+    jfilt, jslot = _j_slot_after(cfg, groups, k)
+    JCheckpointer(str(tmp_path)).save("x", jfilt, jslot, steps=k, frames=k * cfg.frames_per_group)
+    filt, _ = banked_filter_init(cfg, None, banks=1, device="cpu")
+    state, steps, frames = SessionCheckpointer(str(tmp_path)).restore_latest("x", filt)
+    assert (steps, frames) == (k, k * cfg.frames_per_group)
+    assert all(t.dtype == torch.bfloat16 for t in _leaves(state))
+    for i in range(steps, cfg.num_groups):
+        state = filt.step(state, torch.from_numpy(groups[i]), step_index=i)
+    out = filt.finalize(state)
+    _same_bits(out, run_pipelined(cfg, iter(groups), device="cpu")[0])
+    _same_bits(out, _j_run(cfg, groups))
+
+
+@pytest.mark.parametrize("name", FILTERS)
+def test_reference_bfloat16_slot_checkpoint_resumes_in_the_port_fleet(tmp_path, name):
+    """As ``test_reference_slot_checkpoint_resumes_in_the_port_fleet``, in
+    bfloat16."""
+    k = 2
+    cfg = _bf16_cfg(name, num_groups=5)
+    groups = _groups(cfg, seed=8)
+    jfilt, jslot = _j_slot_after(cfg, groups, k)
+    plan, clock = FaultPlan().stall("ex0", at_step=k), FakeClock()
+    fleet = FleetScheduler(checkpoint_dir=str(tmp_path), faults=plan, clock=clock,
+                           slots_per_executor=1, max_executors=2, device="cpu")
+    try:
+        h = fleet.submit(Session(config=cfg, source=iter(groups), name="x"))
+        assert plan.wait_stalled("ex0", timeout=WAIT)
+        JCheckpointer(str(tmp_path)).save("x", jfilt, jslot, steps=k,
+                                          frames=k * cfg.frames_per_group)
+        clock.advance(61.0)
+        assert fleet.check_faults(probe=False)["recovered"] == ["x"]
+        out, rep = h.result(timeout=WAIT)
+    finally:
+        plan.poison("ex0")
+        fleet.shutdown(wait=False)
+    assert out.dtype == torch.bfloat16
+    _same_bits(out, run_pipelined(cfg, iter(groups), device="cpu")[0])
+    _same_bits(out, _j_run(cfg, groups))
+    assert rep.restarts == 1 and rep.groups == cfg.num_groups
+    assert "recover@x->ex1:steps=2+0" in fleet.events
+
+
+@pytest.mark.parametrize("name", FILTERS)
+@pytest.mark.parametrize("every", [1, 3])
+def test_bfloat16_fleet_session_recovers_from_its_checkpoint(tmp_path, name, every):
+    """A bfloat16 session's executor crashes before its 5th group; the
+    session restores its own checkpoint (``every=3``: that of fold 3 and a
+    replay) on another executor and finishes bit for bit."""
+    cfg = _bf16_cfg(name, num_groups=6)
+    groups = _groups(cfg, seed=4)
+    plan = FaultPlan().crash("ex0", at_step=4)
+    with FleetScheduler(checkpoint_dir=str(tmp_path), checkpoint_every=every, faults=plan,
+                        slots_per_executor=1, max_executors=2, device="cpu") as fleet:
+        out, rep = fleet.submit(Session(config=cfg, source=iter(groups), name="b")).result(
+            timeout=WAIT)
+    assert plan.crashed("ex0") and rep.restarts == 1 and rep.groups == cfg.num_groups
+    assert f"recover@b->ex1:{'steps=4+0' if every == 1 else 'steps=3+1'}" in fleet.events
+    host, _ = restore_tree(_latest_dir(tmp_path, "b"))
+    assert all(a.dtype == np.dtype("V2") for a in _leaves(host))
+    _same_bits(out, run_pipelined(cfg, iter(groups), device="cpu")[0])
+
+
+@pytest.mark.parametrize("name", FILTERS)
+def test_bfloat16_fleet_session_migrates_bit_for_bit(tmp_path, name):
+    import threading
+
+    cfg = _bf16_cfg(name, num_groups=5)
+    groups = _groups(cfg, seed=6)
+    gate, fed = threading.Event(), threading.Event()
+
+    def src():
+        yield from groups[:2]
+        fed.set()
+        assert gate.wait(WAIT)
+        yield from groups[2:]
+
+    with FleetScheduler(checkpoint_dir=str(tmp_path), slots_per_executor=2, max_executors=2,
+                        device="cpu") as fleet:
+        h = fleet.submit(Session(config=cfg, source=src(), name="m"))
+        assert fed.wait(WAIT)
+        assert fleet.migrate(h, timeout=WAIT) == "ex1"
+        gate.set()
+        out, rep = h.result(timeout=WAIT)
+    assert rep.migrations == 1 and fleet.events == ["migrate@m:ex0->ex1"]
+    _same_bits(out, run_pipelined(cfg, iter(groups), device="cpu")[0])
+
+
+def test_elastic_reshard_places_bfloat16_host_leaves(tmp_path):
+    """A restored bfloat16 leaf (``V2`` on the host) goes through
+    ``state_spec_tree`` and ``elastic_reshard`` as bfloat16, bit for bit,
+    whole or split along its bank axis."""
+    from repro_torch.core.banks import BankMesh
+    from repro_torch.runtime.elastic import elastic_reshard, state_spec_tree
+
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((4, 3, 8)).astype(np.float32))
+    tree = {"s": x.to(torch.bfloat16), "n": torch.arange(4, dtype=torch.int32)}
+    save_tree(str(tmp_path / "ck"), tree, step=0)
+    host, _ = restore_tree(str(tmp_path / "ck"))
+    spec = state_spec_tree(host)
+    assert spec["s"].dtype == torch.bfloat16 and spec["s"].shape == (4, 3, 8)
+    whole = elastic_reshard(host, spec, BankMesh(("cpu",)))
+    _same_bits(whole["s"], tree["s"])
+    assert torch.equal(whole["n"], tree["n"])
+    halves = elastic_reshard(host, state_spec_tree(host, axes={0: "bank"}), BankMesh(("cpu", "cpu")))
+    for i, shard in enumerate(halves):
+        _same_bits(shard["s"], tree["s"][2 * i:2 * i + 2])

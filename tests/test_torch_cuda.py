@@ -802,3 +802,90 @@ def test_half_accumulator_filters_on_the_card_match_cpu(cuda, acc, extra):
     frames = PrismSource(cfg, seed=2).all_frames()
     got = StreamingDenoiser(cfg, device=cuda)(frames)
     assert _equal(got, StreamingDenoiser(cfg, device="cpu")(frames))
+
+
+def _ema_half_run(frames, acc, fmt, pair_tile, offset, hw, cuda):
+    pairs = frames.shape[1] // 2
+    gpu = [torch.zeros(pairs, *hw, dtype=acc, device=cuda), torch.zeros(hw, dtype=acc, device=cuda),
+           torch.zeros(hw, dtype=acc, device=cuda)]
+    cpu = [t.cpu().clone() for t in gpu]
+    for g in range(frames.shape[0]):
+        kw = dict(alpha=0.3, offset=offset, prior_count=pairs * g, pair_tile=pair_tile,
+                  stream_dtype=fmt)
+        denoise_ema.ema_welford_step(*gpu, frames[g].to(cuda), **kw)
+        cpu = list(denoise_ema.ema_welford_step_plain(*cpu, frames[g], **kw))
+    for a, b in zip(gpu, cpu):
+        assert a.dtype == acc and _equal(a, b)
+    return cpu
+
+
+@pytest.mark.parametrize("pair_tile", [1, 2, 3, 4, 5, 6, 7, 8, 12, 27, 40])
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+@pytest.mark.parametrize("acc", HALF, ids=["float16", "bfloat16"])
+def test_half_ema_kernel_every_tile_and_order_bitwise_equal_plain(cuda, acc, fmt, pair_tile):
+    """Every register tile (1-8) and each long order (12: the chain, 27: the
+    8 lanes, 40: the windows) of the one EMA body in a half type, on the
+    paper's plane and a ragged one: at offset 4096 (a float16 M2 is NaN,
+    as in the reference, held NaN to NaN) and on near pairs at offset 0 (a
+    finite M2)."""
+    chunks = 9 if pair_tile <= 8 else 2  # two chunk rounds, or two long chunks
+    n = 2 * chunks * pair_tile
+    for (h, w), seed in (((80, 256), 1), ((7, 130), 2)):
+        frames = _wire((2, n, h), fmt, seed=seed + pair_tile, width=w)
+        _ema_half_run(frames, acc, fmt, pair_tile, 4096.0, (h, w), cuda)
+        near = torch.from_numpy(np.ascontiguousarray(quant.encode(
+            _near_pairs((2, n, h), seed + 7 * pair_tile, width=w), fmt)))
+        cpu = _ema_half_run(near, acc, fmt, pair_tile, 0.0, (h, w), cuda)
+        assert torch.isfinite(cpu[2]).all() and bool((cpu[2] > 0).any())
+
+
+@pytest.mark.parametrize(
+    "shape, shift, path",
+    [((3, 80, 256), 0, "vector"), ((2, 20, 132), 0, "vector"), ((2, 1, 256), 0, "vector"),
+     ((2, 80, 256), 4, "vector"), ((2, 7, 130), 0, "scalar"), ((2, 80, 256), 1, "scalar"),
+     ((2, 80, 256), 2, "scalar"), ((2, 5, 1), 0, "scalar")],
+    ids=["80x256", "partial-tiles-20x132", "H1", "80x256-view-8-bytes-in", "ragged-7x130",
+         "80x256-view-2-bytes-in", "80x256-view-4-bytes-in", "W1"],
+)
+@pytest.mark.parametrize("acc", HALF, ids=["float16", "bfloat16"])
+def test_half_spatial_kernel_paths_bitwise_equal_plain(cuda, acc, shape, shift, path):
+    """The one B9 tile body on half frames: four-pixel loads and stores
+    where W % 4 == 0 and both planes are 8-byte aligned, scalar ones
+    otherwise (W = 130, views 2 and 4 bytes off alignment); box and
+    bilateral bitwise equal to the plain version on both paths."""
+    rng = np.random.default_rng(sum(shape) + shift)
+    fn = denoise_spatial.spatial_filter_3x3
+    for base, noise in ((4096, 40), (300, 20)):
+        x = (base + noise * torch.from_numpy(rng.standard_normal(shape))).to(acc)
+        x[:, 0, -1] += 900.0  # a hot pixel on the tile edge
+        buf = torch.empty(x.numel() + shift, dtype=acc, device=cuda)
+        xd = buf[shift:].view(shape)
+        xd.copy_(x)
+        before = (fn.vector_launches, fn.scalar_launches)
+        assert _equal(fn(xd, mode="box"), denoise_spatial.spatial_filter_3x3_plain(x, mode="box"))
+        for sigma in (10.0, 60.0):
+            kw = dict(mode="bilateral", range_sigma=sigma)
+            got = fn(xd, **kw)
+            assert got.dtype == acc and _equal(got, denoise_spatial.spatial_filter_3x3_plain(x, **kw))
+        assert (fn.vector_launches - before[0], fn.scalar_launches - before[1]) == (
+            (3, 0) if path == "vector" else (0, 3))
+
+
+@pytest.mark.parametrize("every", [1, 3])
+def test_bfloat16_fleet_session_recovers_on_the_card(cuda, tmp_path, every):
+    """A bfloat16 session checkpoints on the card, its executor crashes, and
+    it restores (through the host's ``V2`` leaves) and finishes bitwise
+    equal to its run on the CPU."""
+    from repro_torch.serve import FaultPlan, FleetScheduler, Session
+
+    cfg = _fleet_cfg(filter_name="ema_variance", accum_dtype="bfloat16", pair_tile=4)
+    groups = list(PrismSource(cfg, seed=3).groups())
+    want = streaming.run_pipelined(cfg, iter(groups), device="cpu")[0]
+    plan = FaultPlan().crash("ex0", at_step=3)
+    with FleetScheduler(checkpoint_dir=str(tmp_path), checkpoint_every=every, faults=plan,
+                        slots_per_executor=1, max_executors=2) as fleet:
+        out, rep = fleet.submit(Session(config=cfg, source=iter(groups), name="b")).result(
+            timeout=120)
+    assert plan.crashed("ex0") and rep.restarts == 1
+    assert out.device.type == "cuda" and out.dtype == torch.bfloat16
+    assert torch.equal(out.cpu().view(torch.int16), want.view(torch.int16))

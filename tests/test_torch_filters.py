@@ -203,6 +203,21 @@ def test_spatial_tile_path_takes_float4_only_where_every_row_allows(width, in_pt
     assert denoise_spatial.tile_path(width, in_ptr, out_ptr) == want
 
 
+@pytest.mark.parametrize(
+    "width, in_ptr, out_ptr, want",
+    [
+        (256, 0x1000, 0x2000, "vector"),
+        (256, 0x1008, 0x2018, "vector"),   # 8-byte aligned: four half pixels
+        (132, 0x1000, 0x2000, "vector"),
+        (130, 0x1000, 0x2000, "scalar"),
+        (256, 0x1002, 0x2000, "scalar"),   # a view one half pixel in
+        (256, 0x1000, 0x2004, "scalar"),
+    ],
+)
+def test_spatial_tile_path_aligns_half_frames_to_four_pixels(width, in_ptr, out_ptr, want):
+    assert denoise_spatial.tile_path(width, in_ptr, out_ptr, itemsize=2) == want
+
+
 ERROR_CALLS = {
     "spatial_mode": lambda o, x: o.spatial_filter(x(np.zeros((1, 4, 8), np.float32)), mode="gauss"),
     "spatial_backend": lambda o, x: o.spatial_filter(x(np.zeros((1, 4, 8), np.float32)), backend="fpga"),

@@ -176,3 +176,47 @@ def test_stream_moved_between_slots_finishes_as_if_uninterrupted(label):
         banked = filt.step(banked, torch.stack(lanes), step_index=k)
     got = filt.finalize(filt.slot_extract(banked, 1))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("label", sorted(FILTERS))
+def test_bfloat16_slot_to_host_round_trips_bit_for_bit(label):
+    """A bfloat16 slot goes to the host as its bit patterns (dtype ``V2``,
+    the leaves the reference's checkpoint restores) and comes back bit for
+    bit, NaN and infinities included; the reference's host copy of the same
+    slot holds the same bits."""
+    import ml_dtypes
+
+    filt, jfilt = _pair(label, accum_dtype="bfloat16")
+    rng = np.random.default_rng(13)
+
+    def fill(t):
+        x = (4096 + 50 * rng.standard_normal(tuple(t.shape))).astype(np.float32)
+        x.reshape(-1)[:3] = (np.nan, np.inf, -0.0)
+        return torch.from_numpy(x).to(t.dtype)
+
+    banked = tree_map(fill, filt.init(banks=2))
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(banked)[0])
+    slot = filt.slot_extract(banked, 1)
+    host = filt.slot_to_host(slot)
+    for a, t in zip(tree_leaves(host)[0], tree_leaves(slot)[0]):
+        assert isinstance(a, np.ndarray) and a.dtype == np.dtype("V2")
+        assert np.array_equal(a.view(np.int16), t.view(torch.int16).numpy())
+        a.view(np.int16)[...] += 1  # a copy: the state is untouched
+        assert not np.array_equal(a.view(np.int16), t.view(torch.int16).numpy())
+    host = filt.slot_to_host(slot)
+    for device in (None, "cpu"):
+        back = filt.slot_from_host(host, device=device)
+        for b, a, t in zip(tree_leaves(back)[0], tree_leaves(host)[0], tree_leaves(slot)[0]):
+            assert b.dtype == torch.bfloat16 and torch.equal(b.view(torch.int16),
+                                                             t.view(torch.int16))
+            a.view(np.int16)[...] += 1  # the revived tensors share no memory with the snapshot
+            assert torch.equal(b.view(torch.int16), t.view(torch.int16))
+            a.view(np.int16)[...] -= 1
+    jbanked = tree_map(lambda t: jnp.asarray(t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)),
+                       banked)
+    jhost = jfilt.slot_to_host(jfilt.slot_extract(jbanked, 1))
+    jleaves = [jhost[k] for k in sorted(jhost)] if isinstance(jhost, dict) else [jhost]
+    leaves = [host[k] for k in sorted(host)] if isinstance(host, dict) else [host]
+    for a, j in zip(leaves, jleaves):
+        assert np.asarray(j).dtype.name == "bfloat16"
+        assert np.array_equal(a.view(np.int16), np.asarray(j).view(np.int16))

@@ -146,3 +146,20 @@ def test_slice_end_to_end_at_paper_frame_size():
     assert snr_db(got, truth) > 10.0
     oneshot = StreamingDenoiser(cfg, device="cpu")(PrismSource(cfg, seed=11).all_frames())
     assert np.array_equal(oneshot.numpy(), got)  # G = 8: 1/G is exact
+
+
+@pytest.mark.parametrize("extra", [dict(), dict(filter_name="ema_variance", pair_tile=2),
+                                   dict(filter_name="temporal_median", median_window=2)], ids=str)
+def test_download_consumer_takes_a_bfloat16_run(extra):
+    """A bfloat16 run's partials land on the host as their float32 widening,
+    each equal to the reference's bfloat16 partial widened."""
+    cfg, jcfg = _pair(accum_dtype="bfloat16", **extra)
+    sink, jsink = streaming.DownloadConsumer(), jstreaming.DownloadConsumer()
+    out, _ = streaming.run_pipelined(cfg, PrismSource(cfg, seed=4).groups(), consumer=sink,
+                                     device="cpu")
+    jout, _ = jstreaming.run_pipelined(jcfg, JSource(jcfg, seed=4).groups(), consumer=jsink)
+    assert len(sink.partials) == len(jsink.partials) == cfg.num_groups
+    for got, want in zip(sink.partials, jsink.partials):
+        assert np.asarray(want).dtype.name == "bfloat16" and got.dtype == np.float32
+        assert np.array_equal(got, np.asarray(want).astype(np.float32), equal_nan=True)
+    assert np.array_equal(sink.partials[-1], out.float().numpy(), equal_nan=True)
