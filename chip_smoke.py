@@ -38,7 +38,15 @@ then:
    the range weights matter, on its four-pixel and its scalar path; B8
    also on pairs within +-12 at offset 0, where a float16 M2 stays
    finite, and in every register tile and long order), and B2-B5 with p12 wire into int32
-   and uint16 sums at G = 10, their uint16 sums wrapping. Then (1b) runs the executors on
+   and uint16 sums at G = 10, their uint16 sums wrapping; the one-shots
+   B3/B5 on their vector path for u16/u8/p12 x float32/float16/bfloat16
+   x both variants, B = 1 and 2, G in {5, 8}, offset 0 and 4096, with
+   the wire formats' largest values, on a 40 x 136 plane (partial last
+   block and warp), on one vector a plane, on the scalar path for a
+   ragged plane and unaligned views (each launch on the path
+   ``oneshot_path`` names), and at every exact-divisor tile, bitwise,
+   with the bfloat16 division rule held to the true division on every
+   bfloat16 value for G = 1..64. Then (1b) runs the executors on
    the card at G = 5, where 1/G is inexact, for ``pair_average`` and the
    three other filters, so the eager true divisions (finalize, a
    consumer's partials, a ``drop_oldest`` stream made to drop one group
@@ -54,7 +62,7 @@ then:
    u16): ``PrismSource`` -> ``run_pipelined`` (ring depth 2 and 3),
    ``run_inline(prefetch=False)`` and the one-shot ``StreamingDenoiser``
    call, all bitwise equal to each other and to the CPU plain stream,
-   with every step launch on the vector path;
+   with every step and one-shot launch on the vector path;
 3. drives the banked path on one card (two banks): ``ingest_many`` and
    the 5-D one-shot call;
 4. times each kernel at the paper's shape with CUDA events (device time:
@@ -2677,6 +2685,117 @@ def main() -> int:
     record.update(half_cases=half_cases, p12_int_cases=p12_cases,
                   half_phase1_s=time.perf_counter() - t1)
 
+    # B3/B5 on their vector path and its edges, every wire format x float sum
+    # x variant, B = 1 (bank 0) and B = 2: G = 5 and 8, offset 0 and 4096, one
+    # pixel in eight at the wire's largest value (65535, 255, 4095) and one at
+    # 0, on 40 x 136 (680 u16 / 340 u8 and p12 vectors: a partial last block
+    # and warp); one vector a plane; the scalar path on a ragged 7 x 130 plane
+    # and on views 2 (p12: 3) and 8 bytes in, which p12's 8-byte loads take;
+    # every exact-divisor tile at 40 x 136 with 6 pairs, bitwise the default
+    # launch. Bitwise, the sign of zero included, NaN held to NaN.
+    t1 = time.perf_counter()
+    b3, b5 = denoise_stream.alg3_subtract_average, denoise_multibank.multibank_subtract_average
+    bits = {torch.float32: torch.int32, torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+    def same_bits(kernel: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+        same_nan(kernel, got, want, what)
+        nan = torch.isnan(want)
+        if not torch.equal(got.cpu()[~nan].view(bits[want.dtype]), want[~nan].view(bits[want.dtype])):
+            raise AssertionError(f"{kernel} {what}: a zero's sign differs from its plain version")
+
+    orng = np.random.default_rng(29)  # the later phases' draws stay as they were
+
+    def extreme_wire(shape, fmt, width):
+        px = orng.integers(0, 4096, shape + (width,)).astype(np.uint16)
+        pick = orng.random(px.shape)
+        px[pick < 0.125], px[pick > 0.875] = 4095, 0
+        out = quant.encode(px, fmt)
+        if fmt == "u16":
+            out = np.where(out == 4095, np.uint16(65535), out)
+        return torch.from_numpy(np.ascontiguousarray(out))
+
+    def oneshot_paths() -> list[tuple[int, int]]:
+        return [(f.vector_launches, f.scalar_launches) for f in (b3, b5)]
+
+    def at_shift(t: torch.Tensor, shift_bytes: int) -> torch.Tensor:
+        n = shift_bytes // t.element_size()
+        buf = torch.empty(t.numel() + n, dtype=t.dtype, device=dev)
+        view = buf[n:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def oneshot_case(banked, acc, kw, shift_bytes, what) -> str:
+        """B3 on bank 0 and B5 on both against their plain versions; returns
+        the path both took (they must agree with ``oneshot_path``)."""
+        before = oneshot_paths()
+        kw = dict(kw, accum_dtype=acc)
+        same_bits("alg3_subtract_average", b3(at_shift(banked[0], shift_bytes), **kw),
+                  denoise_stream.alg3_subtract_average_plain(banked[0], **kw), what)
+        same_bits("multibank_subtract_average", b5(at_shift(banked, shift_bytes), **kw),
+                  denoise_multibank.multibank_subtract_average_plain(banked, **kw), what)
+        h, w = banked.shape[-2], quant.logical_width(banked.shape[-1], kw["stream_dtype"])
+        path = denoise_stream.oneshot_path(h * w, kw["stream_dtype"], 4096 + shift_bytes, 4096)
+        took = [(v - v0, s - s0) for (v, s), (v0, s0) in zip(oneshot_paths(), before)]
+        if took != [(1, 0) if path == "vector" else (0, 1)] * 2:
+            raise AssertionError(f"{what}: B3/B5 took {took}, not the {path} path")
+        return path
+
+    vec_cases, edge_cases, tile_cases = 0, 0, 0
+    for fmt in quant.STREAM_DTYPES:
+        for acc in denoise_stream.FLOAT_ACCUMS:
+            tag = str(acc).replace("torch.", "")
+            for g in (5, 8):
+                banked = extreme_wire((2, g, 4, 40), fmt, 136)
+                for off in (0.0, offset):
+                    for df in (False, True):
+                        what = f"{tag} G={g} 40x136 {fmt} offset={off:g} {'v2' if df else 'v1'}"
+                        kw = dict(offset=off, divide_first=df, stream_dtype=fmt)
+                        if oneshot_case(banked, acc, kw, 0, what) != "vector":
+                            raise AssertionError(f"{what}: not the vector path")
+                        vec_cases += 1
+            for (h, w), shift in (((1, 8), 0), ((1, 16), 0), ((7, 130), 0),
+                                  ((40, 136), 3 if fmt == "p12" else 2), ((40, 136), 8)):
+                banked = extreme_wire((2, 5, 4, h), fmt, w)
+                for df in (False, True):
+                    what = f"{tag} G=5 {h}x{w} {fmt} {shift} bytes in {'v2' if df else 'v1'}"
+                    oneshot_case(banked, acc, dict(offset=offset, divide_first=df,
+                                                   stream_dtype=fmt), shift, what)
+                    edge_cases += 1
+            banked = extreme_wire((2, 3, 12, 40), fmt, 136).to(dev)
+            kw = dict(offset=offset, stream_dtype=fmt, accum_dtype=acc)
+            want3, want5 = b3(banked[0], **kw).cpu(), b5(banked, **kw).cpu()
+            same_bits("alg3_subtract_average", want3,
+                      denoise_stream.alg3_subtract_average_plain(banked[0].cpu(), **kw), tag)
+            for th in (1, 2, 4, 5, 8, 10, 20, 40):
+                for tp in (1, 2, 3, 6):
+                    what = f"{tag} G=3 40x136 {fmt} row_tile={th} pair_tile={tp}"
+                    same_bits("alg3_subtract_average", b3(banked[0], row_tile=th, pair_tile=tp, **kw),
+                              want3, what)
+                    same_bits("multibank_subtract_average",
+                              b5(banked, row_tile=th, pair_tile=tp, **kw), want5, what)
+                    tile_cases += 1
+    # the vector path's bfloat16 x / G against the true division, every
+    # bfloat16 value, G = 1..64
+    every_bf16 = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    every_dev = every_bf16.to(dev)
+    for g in range(1, 65):
+        true_q = denoise_stream.bf16_quotient_probe(every_dev, g, true_division=True)
+        same_bits("alg3_subtract_average", true_q, (every_bf16.float() / g).to(torch.bfloat16),
+                  f"bfloat16 true quotient, G={g}")
+        same_bits("alg3_subtract_average", denoise_stream.bf16_quotient_probe(every_dev, g),
+                  true_q.cpu(), f"bfloat16 quotient rule, G={g}")
+    torch.cuda.synchronize()
+    print(f"phase 1: B3/B5 bitwise equal to the CPU plain versions on the vector path in "
+          f"{vec_cases} cases (u16/u8/p12 x float32/float16/bfloat16 x v1/v2, G=5/8, offset 0 "
+          f"and 4096, extreme wire values, 40x136), on {edge_cases} edge cases (one vector a "
+          f"plane, a ragged 7x130 plane and views 2/3 and 8 bytes in, each on the path "
+          f"oneshot_path names), and in {tile_cases} tiled launches (each format and sum at 32 "
+          f"row_tile x pair_tile), bitwise the default launch; the bfloat16 quotient rule "
+          f"equal to the true division on all 65536 bfloat16 values, G=1..64 "
+          f"({time.perf_counter() - t1:.1f} s)")
+    record.update(oneshot_vector_cases=vec_cases, oneshot_edge_cases=edge_cases,
+                  oneshot_tile_cases=tile_cases, oneshot_phase1_s=time.perf_counter() - t1)
+
     # -- phase 1b: the executors at G = 5, card against CPU ----------------
     def forced_drop(cfg5, groups5, device):
         """``run_pipelined`` under ``drop_oldest`` with one stage slot, made
@@ -2866,7 +2985,8 @@ def main() -> int:
 
     for fn in wrappers.values():
         fn.launches = 0
-    for fn in steps:
+    two_path = steps + (wrappers["alg3_subtract_average"], wrappers["multibank_subtract_average"])
+    for fn in two_path:
         fn.vector_launches = fn.scalar_launches = 0
     b2 = wrappers["alg3_stream_step"]
     per_run = {}
@@ -2912,9 +3032,9 @@ def main() -> int:
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    scalar = {f.__name__: f.scalar_launches for f in steps if f.vector_launches != f.launches}
+    scalar = {f.__name__: f.scalar_launches for f in two_path if f.vector_launches != f.launches}
     if scalar:
-        raise AssertionError(f"step launches at the paper's shape took the scalar path: {scalar}")
+        raise AssertionError(f"B2-B5 launches at the paper's shape took the scalar path: {scalar}")
     out_np = outs["run_pipelined(num_slots=2)"].cpu().numpy()
     if not np.isfinite(out_np).all():
         raise AssertionError("non-finite output")
@@ -3177,6 +3297,17 @@ def main() -> int:
                         time_ms(lambda: fn(frames, **kw)),
                         plain_ms(lambda: plain_fn(frames, **kw), reps=3, inner=1),
                         b * (G * N * H * W * isz + out_px * acc_bytes),
+                        b * out_px * (G * step_flops(fmt, df) + (0 if df else 1)))
+        if fmt != "u16":  # the one-shots from u8 and p12 wire into float32 (u16: above)
+            for kernel, banks, fn, plain_fn in one_shots:
+                frames = inputs[banks]
+                b = banks[0] if banks else 1
+                for df in (False, True):
+                    kw = dict(offset=offset, divide_first=df, stream_dtype=fmt)
+                    row(kernel, f"{fmt} {'v2' if df else 'v1'} B={b}",
+                        time_ms(lambda: fn(frames, **kw)),
+                        plain_ms(lambda: plain_fn(frames, **kw), reps=3, inner=1),
+                        b * (G * N * H * W * isz + out_px * 4),
                         b * out_px * (G * step_flops(fmt, df) + (0 if df else 1)))
         del banked, inputs, frames, frames2
     u16_groups = wire((G, N, H), "u16").to(dev)

@@ -7,7 +7,7 @@ geometry, for the port of a given source tree.
 Run on the machine with the card, from the root of a checkout::
 
     python3 scripts/torch_time_steps.py [TREE] [--out FILE]
-        [--b9-save FILE] [--b9-ref FILE] [--build-times] [--sass-mix MATCH]
+        [--b9-save FILE] [--b9-ref FILE] [--build-times] [--sass-mix MATCH] [--oneshot]
 
 ``TREE`` (default: this checkout) is the root of a checkout whose
 ``src/repro_torch`` is timed; its kernels are built from its own sources.
@@ -20,9 +20,15 @@ instruction counts), and writes it to ``FILE`` too if asked.
 
 The float16 and bfloat16 instance of every kernel is timed beside the
 float32 rows, at chip_smoke.py's phase 4 labels (B2-B6 and B8 on every
-wire format, B2-B5 both variants), with two PyTorch calls as yardsticks
-in the half type: pad + ``avg_pool2d`` for B9 box and
-``torch.sum(tmp, 0)`` for B10's pass B. ``--build-times`` also
+wire format, B2-B5 both variants; the one-shots B3/B5 also into float32
+from every format in both variants, each with its byte bound), with two
+PyTorch calls as yardsticks in the half type: pad + ``avg_pool2d`` for B9
+box and ``torch.sum(tmp, 0)`` for B10's pass B. ``--oneshot`` times only
+B3/B5 in every instance, B3 at each candidate of the step family's tile
+search (the geometry a plan hands the one-shot) beside its default
+launch, and B10's pass B and B7 (K = 5) in the half types beside
+``torch.sum(tmp, 0)`` and ``torch.median``: a short run for comparing
+two trees' one-shots. ``--build-times`` also
 compiles each of the tree's sources alone, cold, with the port's flags,
 and records the seconds of each; ``--sass-mix MATCH`` counts the SASS
 opcodes of every kernel whose mangled name the regular expression
@@ -146,6 +152,61 @@ def b9_issue(segments: dict[str, list[int]], pixels: int, sm_count: int, clock_h
                 issue_floor_us=pixels * per_px / (sm_count * 4 * clock_hz) * 1e6)
 
 
+def oneshot_only(args, tree, dev, rows, timed, oneshots, wire, G, N, H, W, P, offset) -> int:
+    """``--oneshot``: B3/B5 in every instance, B3 (float32, float16 and
+    bfloat16, v1) at each candidate of the tile search for the step family
+    (the plans it hands the one-shot) beside its default launch, B10's pass
+    B and B7 (K = 5) in the half types beside ``torch.sum(tmp, 0)`` and
+    ``torch.median``; prints the JSON object and writes ``--out``."""
+    import torch
+
+    from chip_smoke import nvidia_smi
+    from repro_torch.kernels import denoise_median, denoise_stream, denoise_tmpframe
+    from repro_torch.tune import budget
+
+    oneshots((torch.float32, torch.float16, torch.bfloat16))
+    limits = budget.device_limits(dev)
+    for fmt in ("u16", "u8", "p12"):
+        frames = wire((G, N, H), fmt)
+        for acc in (torch.float32, torch.float16, torch.bfloat16):
+            tag = str(acc).split(".")[-1]
+            vector = fmt != "p12" and acc == torch.float32  # the step's path (tune.autotune)
+            for th, tp in budget.model_candidates("stream", P, H, W, stream_dtype=fmt,
+                                                  vector=vector, limits=limits):
+                timed("alg3_subtract_average", f"{fmt} v1 B=1 {tag} tiles {th}x{tp}",
+                      lambda: denoise_stream.alg3_subtract_average(
+                          frames, offset=offset, stream_dtype=fmt, accum_dtype=acc,
+                          row_tile=th, pair_tile=tp))
+        del frames
+    u16 = wire((G, N, H), "u16")
+    for acc in (torch.float16, torch.bfloat16):
+        tag = str(acc).split(".")[-1]
+        tmp = denoise_tmpframe.subtract_pass(u16, offset=offset, burst=True, accum_dtype=acc)
+        timed("alg1_subtract_average", f"pass B {tag}", lambda: denoise_tmpframe.reduce_pass(tmp))
+        timed("library", f"torch.sum(tmp, 0) {tag}", lambda: torch.sum(tmp, dim=0))
+        timed("alg1_subtract_average", f"pass B {tag}", lambda: denoise_tmpframe.reduce_pass(tmp))
+        del tmp
+        window = torch.zeros(5, P, H, W, dtype=acc, device=dev)
+        for k in range(5):
+            denoise_median.median_window_insert(window, u16[k], slot=k, offset=offset)
+        lib = torch.median(window, dim=0).values
+        if not torch.equal(lib, denoise_median.median_combine(window)):
+            raise AssertionError(f"torch.median and median_combine disagree ({tag}, K=5)")
+        timed("median_combine", f"K=5 {tag}", lambda: denoise_median.median_combine(window))
+        timed("library", f"torch.median K=5 {tag}", lambda: torch.median(window, dim=0))
+        del window, lib
+    from repro_torch.kernels import _build
+
+    out = dict(card=nvidia_smi(), tree=str(tree), torch=torch.__version__, rows=rows,
+               sass_mix=sass_mix(_build.library()._name, args.sass_mix) if args.sass_mix else None)
+    text = json.dumps(out)
+    print(text)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text + "\n")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", nargs="?", default=str(ROOT))
@@ -157,6 +218,10 @@ def main() -> int:
                     help="count the SASS opcodes of each kernel whose name this regex finds")
     ap.add_argument("--build-times", action="store_true",
                     help="compile each source alone, cold, and record its seconds")
+    ap.add_argument("--oneshot", action="store_true",
+                    help="time only the one-shots (B3/B5) in every instance and at the tile "
+                         "search's candidates, B10's pass B and B7 in the half types beside "
+                         "their library calls")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
@@ -178,7 +243,7 @@ def main() -> int:
         quant,
     )
     sys.path.insert(1, str(ROOT))
-    from chip_smoke import host_us, nvidia_smi, time_ms
+    from chip_smoke import card_peaks, host_us, nvidia_smi, time_ms
 
     if not Path(denoise_stream.__file__).is_relative_to(tree):
         raise RuntimeError(f"imported {denoise_stream.__file__}, not the tree {tree}")
@@ -197,6 +262,35 @@ def main() -> int:
         return torch.from_numpy(np.ascontiguousarray(quant.encode(px, fmt))).to(dev)
 
     rows = []
+    peak_bw = card_peaks(torch.cuda.get_device_name(0))[0]
+
+    def timed(kernel, label, call, **extra):
+        rows.append(dict(kernel=kernel, label=label, us=time_ms(call) * 1e3, **extra))
+
+    def oneshots(accs):
+        """B3 (bank 0) and B5 (B = 2) in every wire format, variant and sum
+        type of ``accs``, each beside its byte bound: the wire read once, the
+        averages written once."""
+        for fmt in ("u16", "u8", "p12"):
+            banked = wire((2, G, N, H), fmt)
+            for acc in accs:
+                tag, acc_bytes = str(acc).split(".")[-1], torch.empty((), dtype=acc).element_size()
+                for df in (False, True):
+                    kw = dict(offset=offset, divide_first=df, stream_dtype=fmt, accum_dtype=acc)
+                    for kernel, fn, frames, b in (
+                            ("alg3_subtract_average", denoise_stream.alg3_subtract_average,
+                             banked[0], 1),
+                            ("multibank_subtract_average",
+                             denoise_multibank.multibank_subtract_average, banked, 2)):
+                        nbytes = b * (G * N * H * W * quant.wire_pixel_bytes(fmt)
+                                      + P * H * W * acc_bytes)
+                        timed(kernel, f"{fmt} {'v2' if df else 'v1'} B={b} {tag}",
+                              lambda: fn(frames, **kw), bytes=nbytes,
+                              bound_us=nbytes / peak_bw * 1e6)
+            del banked
+
+    if args.oneshot:
+        return oneshot_only(args, tree, dev, rows, timed, oneshots, wire, G, N, H, W, P, offset)
     for fmt in ("u16", "u8", "p12"):
         frames, s = wire((N, H), fmt), torch.zeros(P, H, W, device=dev)
         call = lambda: denoise_stream.alg3_stream_step(  # noqa: E731
@@ -216,9 +310,6 @@ def main() -> int:
     rows.append(dict(kernel="ema_welford_step", label="u16 pair_tile=5",
                      us=time_ms(call) * 1e3, host_us=host_us(call)))
     del state, group, frames, s
-
-    def timed(kernel, label, call):
-        rows.append(dict(kernel=kernel, label=label, us=time_ms(call) * 1e3))
 
     # the step's scalar path (an unaligned view) and the integer sums (B2-B5, B10)
     buf = torch.empty(N * H * W + 1, dtype=torch.uint16, device=dev)
@@ -259,6 +350,7 @@ def main() -> int:
         timed("alg2_subtract_average" if burst else "alg1_subtract_average", "pass A",
               lambda: denoise_tmpframe.subtract_pass(frames8, offset=offset, burst=burst))
     del frames2, tmp
+    oneshots((torch.float32,))  # every wire format and variant into a float32 sum
     # the median window (B6) and its combine (B7, K = 5)
     window = torch.zeros(5, P, H, W, device=dev)
     for k in range(5):

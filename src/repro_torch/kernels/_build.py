@@ -50,9 +50,12 @@ ARGTYPES = {
         (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _F, _F, _F, _I, _I64, _I64, _I64,
          _P),
     "alg3_subtract_average_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _I, _I64, _I64, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _F, _F, _F, _I, _I64, _I64, _P),
     "multibank_subtract_average_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _I, _I64, _I64, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _F, _F, _F, _I, _I64, _I64,
+         _P),
+    "bf16_quotient_launch":
+        (_P, _P, _I64, _F, _F, _I, _P),
     "median_window_insert_launch":
         (_P, _P, _I64, _I64, _I64, _I64, _I, _F, _F, _I64, _I64, _I, _P),
     "median_combine_launch":

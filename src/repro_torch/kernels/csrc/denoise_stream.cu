@@ -15,52 +15,81 @@
 // input byte is read once and every output written once.
 //
 // Design of the step (B2/B4), chosen on the host for each launch:
-//   * vector path, for u16 and u8 where every plane allows it (H * W a
-//     multiple of 8, the frames aligned to the width of their vector load,
-//     the sum to 16 bytes): a pair's control plane frames[2p], excitation
-//     plane frames[2p + 1] and sum plane sum[p] are each one contiguous run
-//     of H * W pixels, read as 8-pixel vectors (u16: one 16-byte load per
-//     frame, u8: one 8-byte load; the sum: two float4 loads and stores). Each
-//     thread takes two vectors of a plane and issues all their loads before
-//     it computes, so four wire loads and four sum loads (up to 128 bytes)
-//     are in flight per thread. The grid is (vectors / 512, pairs): no division in the
-//     index, and at the paper's shape 2,500 blocks of 256 threads. (The
-//     scalar body below keeps one 2- to 4-byte load per thread in flight, in
-//     40,000 one-row blocks at that shape: too few bytes in flight to cover
-//     HBM latency, 68-70 % of the byte bound on the H100.)
-//   * scalar path, on every other shape (a ragged plane, an unaligned view)
-//     and for p12, whose 12-byte vector no single load takes (a warp-wide
-//     load handed round through shared memory gained about 2 % on the H100,
-//     within the spread between runs):
-//     one thread per output pixel (per pixel pair for p12, whose 3 wire bytes
-//     hold two pixels), one block per output row (pair, image row), threads
-//     along W so that a warp's loads and stores are contiguous (coalesced).
-//     It is part of the contract, not a fallback: the host sends only shapes
-//     the vector path cannot take here.
-// The one-shot forms (B3/B5) keep the scalar layout and loop over the G
-// groups inside the thread, keeping the sum in a register: this replaces the
-// TPU's sequential innermost grid axis, whose VMEM-resident accumulator has
-// no counterpart across blocks; their G independent loads per thread already
-// give them the memory-level parallelism the step lacked. The bank axis is
-// one more index folded into the pair axis, so banks never touch each
-// other's data, as on the TPU grid.
+//   * vector path, for u16 and u8 into a float32 sum where every plane
+//     allows it (H * W a multiple of 8, the frames aligned to the width of
+//     their vector load, the sum to 16 bytes): a pair's control plane
+//     frames[2p], excitation plane frames[2p + 1] and sum plane sum[p] are
+//     each one contiguous run of H * W pixels, read as 8-pixel vectors (u16:
+//     one 16-byte load per frame, u8: one 8-byte load; the sum: two float4
+//     loads and stores). Each thread takes two vectors of a plane and issues
+//     all their loads before it computes, so four wire loads and four sum
+//     loads (up to 128 bytes) are in flight per thread. The grid is
+//     (vectors / 512, pairs): no division in the index, and at the paper's
+//     shape 2,500 blocks of 256 threads. (The scalar body below keeps one 2-
+//     to 4-byte load per thread in flight, in 40,000 one-row blocks at that
+//     shape: too few bytes in flight to cover HBM latency, 68-70 % of the
+//     byte bound on the H100.)
+//   * scalar path, on every other shape (a ragged plane, an unaligned view),
+//     for half sums and for p12, whose 12-byte vector no single load takes
+//     (a warp-wide load handed round through shared memory gained about 2 %
+//     on the H100, within the spread between runs; the one-shot's p12
+//     vector below is 16 pixels): one thread per output pixel (per pixel pair
+//     for p12, whose 3 wire bytes hold two pixels), one block per output row
+//     (pair, image row), threads along W so that a warp's loads and stores
+//     are contiguous (coalesced). It is part of the contract, not a
+//     fallback: the host sends only shapes the vector path cannot take here.
 //
+// Design of the one-shot (B3/B5): the G groups are a loop inside the thread,
+// the sum in registers across it. This replaces the TPU's sequential
+// innermost grid axis, whose VMEM-resident accumulator has no counterpart
+// across blocks. The bank axis is one more index folded into the pair axis,
+// so banks never touch each other's data, as on the TPU grid. Two paths,
+// chosen on the host for each launch (denoise_stream.oneshot_path):
+//   * vector path, for every wire format and float sum where every plane
+//     allows it (H * W a multiple of the vector, the frames aligned for its
+//     loads, the output to 16 bytes): a thread owns a run of consecutive
+//     pixels of one output plane, 8 for u16 (one 16-byte load a frame) and
+//     16 for u8 (one 16-byte load) and p12 (24 bytes in three 8-byte loads,
+//     so 8-byte aligned planes: H * W a multiple of 16), and issues the 2 x
+//     4 wire loads of four groups before it folds them. Outputs leave as
+//     float4 or 16-byte stores of eight halves. One-byte loads held the
+//     scalar one-shot to 30-32 % of the byte bound for u8 and 42-52 % for
+//     p12 (slower than u16, which moves more bytes): a warp instruction moved
+//     32 bytes, and p12 took six of them a pixel pair.
+//     Half sums run in __half2 / __nv_bfloat162 pairs: each add, subtract,
+//     multiply and float16 FMA is one correctly rounded packed operation
+//     (_rn: never contracted), the bits of the scalar body's float operation
+//     rounded once to the type (quant.cuh Acc), in a fraction of its
+//     instructions; a wire value is rounded to the type in the packed
+//     conversion. bfloat16 divides x / G as x * f32(1/G) for G <= 64, which
+//     rounds to the bfloat16 the true division gives for every bfloat16 x
+//     (bf16_quotient below, held exhaustively on the card).
+//   * scalar path, on a ragged plane or an unaligned view, and for integer
+//     sums: the step's scalar layout, one thread per output pixel (pair).
+//     The kernel refuses a vector launch on planes that do not allow it
+//     (cudaErrorInvalidValue); it never reroutes one.
+
 // Launch geometry is a tuning plan's (repro_torch/tune): `row_tile` image rows
-// of `pair_tile` pairs a block on the scalar layout (for_tile_rows, quant.cuh),
-// and on the vector path a share of row_tile x W pixels a block, in whole
-// vectors, over pair_tile pairs. With no plan (0 from the host) each kernel
-// runs its untiled form, the layouts above, unchanged. A geometry moves work
-// between blocks and never changes a pixel's arithmetic: both forms run one
-// row body, so every geometry gives the same bits.
+// of `pair_tile` pairs a block on the scalar layouts (for_tile_rows,
+// quant.cuh), and on the step's vector path a share of row_tile x W pixels a
+// block, in whole vectors, over pair_tile pairs. With no plan (0 from the
+// host) each kernel runs its untiled form, the layouts above, unchanged. The
+// one-shot's vector path has one geometry and takes no plan: its vectors
+// share nothing, so a plan can only idle threads or leave a partial pass,
+// and each of the step's plans at the paper's shape made it 1-37 % slower
+// on the H100 (PERF.md section 6). A geometry moves work between blocks and
+// never changes a pixel's arithmetic: both forms run one row body, so every
+// geometry gives the same bits.
 //
 // Integer sums (int32, or uint16 wrapping at 16 bits: the paper's u16-container
 // overflow past G = 8) take u16 or p12 wire and one layout, the scalar one, in
 // kernels of their own: they are the reference's contract, not its speed path.
 // Their arithmetic is IntSum's (quant.cuh): the pair difference in int32,
 // narrowed to the sum type; the divide-first fold adds floor(d / G); the final
-// division floors. float16 and bfloat16 sums take the scalar layout's kernels,
-// templated on the sum's type (quant.cuh Acc): each operation rounded to it,
-// a float16 fold one __hfma, a bfloat16 one a true division and an add.
+// division floors. float16 and bfloat16 sums take the step's scalar layout
+// and the one-shot's two paths, templated on the sum's type (quant.cuh Acc):
+// each operation rounded to it, a float16 fold one __hfma, a bfloat16 one a
+// true division (on the one-shot's vector path bf16_quotient) and an add.
 //
 // Rounding is part of the contract: the reference's jitted kernels compute
 // (a) the u8 dequant as fma(e, S, -(c*S)) + offset (quant.cuh), (b) x / G as
@@ -265,6 +294,191 @@ __global__ void subtract_average_kernel(const uint8_t* __restrict__ frames,
     average_row<FMT, DIVIDE_FIRST, A>(frames, out, bp, r - bp * height, groups, pairs,
                                       height, items, row_bytes, offset, u8_scale, rcp);
   }
+}
+
+// B3/B5, vector path. A thread owns one vector (WireVec, quant.cuh: 8 u16
+// pixels, or 16 u8 or p12 pixels) of one output plane and keeps its sums in
+// registers across the G groups; it issues the wire loads of kGroupChunk
+// groups (2 x kGroupChunk wide loads) before it folds them, in group order.
+// Block (x, y) takes vectors [256x, 256x + 256) of bank-pair y (and y +
+// gridDim.y, ...): no division in the index.
+constexpr int kOneThreads = 256;
+constexpr int kGroupChunk = 4;
+
+// x / G rounded once to bfloat16, for a bfloat16 x (a pair difference, or a
+// sum): for G <= 64 (BY_PRODUCT) the product x * f32(1/G), which rounds to
+// the bfloat16 of the true division for every one of the 65,536 bfloat16 x,
+// else the true division. (x has 8 significant bits, so x / G is never a
+// bfloat16 midpoint: G * m for a midpoint m needs 9 or more; and it lies at
+// least 2^-9 / G of x from every midpoint, far beyond the product's 2^-23.
+// The card tests hold every x and G = 1..64 against __fdiv_rn through
+// bf16_quotient_launch.)
+template <bool BY_PRODUCT>
+__device__ __forceinline__ float bf16_quotient(float x, float groups, float rcp) {
+  return BY_PRODUCT ? __fmul_rn(x, rcp) : __fdiv_rn(x, groups);
+}
+
+// The running sums of one vector in A's arithmetic: float for float32 (the
+// scalar body's operations, operation for operation), else pairs of A
+// (Half2, quant.cuh) with one correctly rounded operation where the scalar
+// body rounds a float one to A: the same bits (quant.cuh Acc).
+template <int FMT, bool DIVIDE_FIRST, typename A, bool BY_PRODUCT>
+struct VecAverage {
+  using H = Half2<A>;
+  using T = typename H::T;
+  static constexpr int kPairs = WireVec<FMT>::kPixels / 2;
+  static constexpr bool kContracts = Acc<A>::kContracts;
+  T s[kPairs];
+  T off, scale, rcp;
+  float groups, rcp32;
+
+  __device__ __forceinline__ VecAverage(float offset, float u8_scale, float rcp_, float groups_)
+      : off(H::splat(offset)), scale(H::splat(u8_scale)), rcp(H::splat(rcp_)), groups(groups_),
+        rcp32(rcp_) {
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) s[j] = H::splat(0.0f);
+  }
+  // pixels 2j and 2j + 1 of a wire vector, each rounded to A (exact for u8)
+  static __device__ __forceinline__ T wire2(const WireVec<FMT>& x, int j) {
+    return H::pack(exact_float(wire_value<FMT>(x, 2 * j)),
+                   exact_float(wire_value<FMT>(x, 2 * j + 1)));
+  }
+  // x / G rounded once to A (bfloat16, whose host constant 1/G is float32)
+  __device__ __forceinline__ T divide(T x) const {
+    return H::pack(bf16_quotient<BY_PRODUCT>(__low2float(x), groups, rcp32),
+                   bf16_quotient<BY_PRODUCT>(__high2float(x), groups, rcp32));
+  }
+  __device__ __forceinline__ void add_group(const WireVec<FMT>& c, const WireVec<FMT>& e) {
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const T c2 = wire2(c, j), e2 = wire2(e, j);
+      T pre;
+      if constexpr (FMT == kU8 && kContracts) {  // fma(e, S, -(c*S)), one float16 FMA
+        pre = __hfma2(e2, scale, __hneg2(__hmul2_rn(c2, scale)));
+      } else if constexpr (FMT == kU8) {  // bfloat16: each operation rounded
+        pre = __hsub2_rn(__hmul2_rn(e2, scale), __hmul2_rn(c2, scale));
+      } else {
+        pre = __hsub2_rn(e2, c2);
+      }
+      const T d = __hadd2_rn(pre, off);
+      if constexpr (!DIVIDE_FIRST) {
+        s[j] = __hadd2_rn(s[j], d);
+      } else if constexpr (kContracts) {
+        s[j] = __hfma2(d, rcp, s[j]);
+      } else {
+        s[j] = __hadd2_rn(s[j], divide(d));
+      }
+    }
+  }
+  // the vector's averages as kPairs / 4 16-byte stores
+  __device__ __forceinline__ void store(A* __restrict__ plane, int64_t v) const {
+    uint32_t r[kPairs];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      T x = s[j];
+      if constexpr (!DIVIDE_FIRST) x = kContracts ? __hmul2_rn(x, rcp) : divide(x);
+      r[j] = *reinterpret_cast<const uint32_t*>(&x);
+    }
+    uint4* o = reinterpret_cast<uint4*>(plane) + v * (kPairs / 4);
+#pragma unroll
+    for (int q = 0; q < kPairs / 4; ++q)
+      o[q] = make_uint4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+  }
+};
+
+template <int FMT, bool DIVIDE_FIRST, bool BY_PRODUCT>
+struct VecAverage<FMT, DIVIDE_FIRST, float, BY_PRODUCT> {
+  static constexpr int kPixels = WireVec<FMT>::kPixels;
+  float s[kPixels];
+  float off, scale, rcp;
+
+  __device__ __forceinline__ VecAverage(float offset, float u8_scale, float rcp_, float)
+      : off(offset), scale(u8_scale), rcp(rcp_) {
+#pragma unroll
+    for (int k = 0; k < kPixels; ++k) s[k] = 0.0f;
+  }
+  __device__ __forceinline__ void add_group(const WireVec<FMT>& c, const WireVec<FMT>& e) {
+#pragma unroll
+    for (int k = 0; k < kPixels; ++k) {
+      const float fc = exact_float(wire_value<FMT>(c, k));
+      const float fe = exact_float(wire_value<FMT>(e, k));
+      const float d = FMT == kU8 ? __fadd_rn(__fmaf_rn(fe, scale, -__fmul_rn(fc, scale)), off)
+                                 : __fadd_rn(__fsub_rn(fe, fc), off);
+      s[k] = fold<DIVIDE_FIRST>(s[k], d, rcp);
+    }
+  }
+  __device__ __forceinline__ void store(float* __restrict__ plane, int64_t v) const {
+    float4* o = reinterpret_cast<float4*>(plane) + v * (kPixels / 4);
+#pragma unroll
+    for (int q = 0; q < kPixels / 4; ++q) {
+      float r[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) r[k] = DIVIDE_FIRST ? s[4 * q + k] : __fmul_rn(s[4 * q + k], rcp);
+      o[q] = make_float4(r[0], r[1], r[2], r[3]);
+    }
+  }
+};
+
+// Average vector v of bank-pair bp = b * pairs + p over the G groups.
+template <int FMT, bool DIVIDE_FIRST, typename A, bool BY_PRODUCT>
+__device__ __forceinline__ void average_vector_as(const uint8_t* __restrict__ frames,
+                                                  A* __restrict__ out, int64_t bp, int64_t v,
+                                                  int groups, int pairs, int64_t vectors,
+                                                  int64_t plane_bytes, float offset,
+                                                  float u8_scale, float rcp) {
+  const int64_t b = bp / pairs;
+  const int64_t p = bp - b * pairs;
+  const int64_t group_bytes = 2 * static_cast<int64_t>(pairs) * plane_bytes;
+  const uint8_t* base = frames + b * groups * group_bytes + 2 * p * plane_bytes;
+  VecAverage<FMT, DIVIDE_FIRST, A, BY_PRODUCT> acc(offset, u8_scale, rcp,
+                                                   static_cast<float>(groups));
+  for (int g0 = 0; g0 < groups; g0 += kGroupChunk) {
+    WireVec<FMT> c[kGroupChunk], e[kGroupChunk];
+#pragma unroll
+    for (int u = 0; u < kGroupChunk; ++u) {  // every load of the chunk before any use
+      if (g0 + u < groups) {
+        const uint8_t* ctl = base + (g0 + u) * group_bytes;
+        c[u] = load_vec<FMT>(ctl, v);
+        e[u] = load_vec<FMT>(ctl + plane_bytes, v);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGroupChunk; ++u)
+      if (g0 + u < groups) acc.add_group(c[u], e[u]);
+  }
+  acc.store(out + bp * vectors * WireVec<FMT>::kPixels, v);
+}
+
+template <int FMT, bool DIVIDE_FIRST, typename A>
+__global__ void __launch_bounds__(kOneThreads)
+    subtract_average_vec_kernel(const uint8_t* __restrict__ frames, A* __restrict__ out,
+                                int64_t bank_pairs, int groups, int pairs, int64_t vectors,
+                                int64_t plane_bytes, float offset, float u8_scale, float rcp) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * kOneThreads + threadIdx.x;
+  if (v >= vectors) return;
+  // bfloat16 divides by the product up to G = 64: one branch a vector, not a division
+  const bool by_product = !std::is_same_v<A, __nv_bfloat16> || groups <= 64;
+  for (int64_t bp = blockIdx.y; bp < bank_pairs; bp += gridDim.y) {
+    if (by_product) {
+      average_vector_as<FMT, DIVIDE_FIRST, A, true>(frames, out, bp, v, groups, pairs, vectors,
+                                                    plane_bytes, offset, u8_scale, rcp);
+    } else if constexpr (std::is_same_v<A, __nv_bfloat16>) {
+      average_vector_as<FMT, DIVIDE_FIRST, A, false>(frames, out, bp, v, groups, pairs, vectors,
+                                                     plane_bytes, offset, u8_scale, rcp);
+    }
+  }
+}
+
+// The card tests' probe of bf16_quotient: out[i] = d[i] / G rounded to
+// bfloat16, by bf16_quotient (rule = 1) or by a true division (rule = 0).
+__global__ void bf16_quotient_kernel(const __nv_bfloat16* __restrict__ d,
+                                     __nv_bfloat16* __restrict__ out, int64_t n, float groups,
+                                     float rcp, bool rule) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float x = __bfloat162float(d[i]);
+  out[i] = Acc<__nv_bfloat16>::store(rule && groups <= 64.0f ? bf16_quotient<true>(x, groups, rcp)
+                                                              : bf16_quotient<false>(x, groups, rcp));
 }
 
 // B2/B4 and B3/B5 with an integer sum T (scalar layout, u16 or p12 wire): the
@@ -477,16 +691,45 @@ cudaError_t launch_step(const void* frames, void* sum, int64_t pairs, int height
 // Alignment (bytes) of a plane start that the vector path's loads need.
 int vector_align(int fmt) { return fmt == kU16 ? 16 : 8; }
 
+// The one-shot's vector path: whether its loads and stores can take planes of
+// plane_px pixels at these pointers (the host's oneshot_path rule).
+bool oneshot_vector_ok(int fmt, int64_t plane_px, const void* frames, const void* out) {
+  const auto ok = [&](auto vec) {
+    using V = decltype(vec);
+    return plane_px % V::kPixels == 0 && reinterpret_cast<uintptr_t>(frames) % V::kAlign == 0 &&
+           reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  };
+  switch (fmt) {
+    case kU16: return ok(WireVec<kU16>{});
+    case kU8: return ok(WireVec<kU8>{});
+    case kP12: return ok(WireVec<kP12>{});
+  }
+  return false;
+}
+
+// The vector path's one geometry (256 vectors a block, every bank-pair), or
+// the scalar layout's rows in the plan's tiles t.
 template <int FMT, bool DF, typename A>
 cudaError_t launch_oneshot(const void* frames, void* out, int64_t bank_pairs,
                            int groups, int pairs, int height, int items,
-                           int64_t row_bytes, Tiles t, float offset, float u8_scale,
-                           float rcp, cudaStream_t stream) {
+                           int64_t row_bytes, Tiles t, float offset,
+                           float u8_scale, float rcp, bool vector, cudaStream_t stream) {
+  const uint8_t* f = static_cast<const uint8_t*>(frames);
+  A* o = static_cast<A*>(out);
+  if (vector) {
+    const int64_t vectors = static_cast<int64_t>(height) * items * Item<FMT>::kPixels /
+                            WireVec<FMT>::kPixels;
+    const dim3 grid(static_cast<unsigned>((vectors + kOneThreads - 1) / kOneThreads),
+                    static_cast<unsigned>(bank_pairs < 65535 ? bank_pairs : 65535));
+    subtract_average_vec_kernel<FMT, DF, A><<<grid, kOneThreads, 0, stream>>>(
+        f, o, bank_pairs, groups, pairs, vectors, height * row_bytes, offset, u8_scale, rcp);
+    return cudaGetLastError();
+  }
   return in_form(t.tiled, [&](auto form) {
     subtract_average_kernel<FMT, DF, decltype(form)::value, A>
         <<<t.blocks(bank_pairs, height), threads_for(items), 0, stream>>>(
-            static_cast<const uint8_t*>(frames), static_cast<A*>(out), bank_pairs, groups,
-            pairs, height, items, row_bytes, t.rt, t.pt, offset, u8_scale, rcp);
+            f, o, bank_pairs, groups, pairs, height, items, row_bytes, t.rt, t.pt, offset,
+            u8_scale, rcp);
   });
 }
 
@@ -547,7 +790,7 @@ int step(const void* frames, void* sum, int64_t pairs, int64_t height,
 
 int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
             int64_t pairs, int64_t height, int64_t items, int64_t row_bytes,
-            int fmt, int divide_first, float offset, float u8_scale, float rcp,
+            int fmt, int divide_first, int vector, float offset, float u8_scale, float rcp,
             int acc, int64_t row_tile, int64_t pair_tile, void* stream) {
   const int64_t rows = banks * pairs * height;
   if (rows == 0 || items == 0) return cudaSuccess;
@@ -560,7 +803,11 @@ int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
   const int g = static_cast<int>(groups), p = static_cast<int>(pairs);
   const int h = static_cast<int>(height), it = static_cast<int>(items);
   const int64_t bp = banks * pairs;
-  if (integer_acc(acc)) {  // integer sums: u16 or p12 wire
+  // the host chose the vector path; a shape it cannot take is refused, never rerouted
+  const int64_t plane_px = height * items * (fmt == kP12 ? 2 : 1);
+  if (vector && (integer_acc(acc) || !oneshot_vector_ok(fmt, plane_px, frames, out)))
+    return cudaErrorInvalidValue;
+  if (integer_acc(acc)) {  // integer sums: u16 or p12 wire, the scalar layout only
     if (groups < 1) return cudaErrorInvalidValue;
     const int32_t off = static_cast<int32_t>(offset);
     return on_int_sum(acc, fmt, [&](auto f, auto zero) {
@@ -568,10 +815,11 @@ int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
           frames, out, bp, g, p, h, it, row_bytes, t, off, divide_first, s);
     });
   }
+  const bool vec = vector != 0;
   return on_float_sum(acc, [&](auto zero) {
     using A = decltype(zero);
 #define ONESHOT(F, D) \
-  launch_oneshot<F, D, A>(frames, out, bp, g, p, h, it, row_bytes, t, offset, u8_scale, rcp, s)
+  launch_oneshot<F, D, A>(frames, out, bp, g, p, h, it, row_bytes, t, offset, u8_scale, rcp, vec, s)
     switch (fmt) {
       case kU16: return divide_first ? ONESHOT(kU16, true) : ONESHOT(kU16, false);
       case kU8: return divide_first ? ONESHOT(kU8, true) : ONESHOT(kU8, false);
@@ -588,15 +836,16 @@ int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
 // the cudaError_t of its launch (0 = launched). `items` is the number of
 // thread items per output row: W, or W/2 for p12. `row_bytes` is the wire
 // row length in bytes. `row_tile` and `pair_tile` (0 = the default geometry)
-// set the image rows and pairs a block covers: on a step's vector path a
-// block's share is row_tile x items pixels in whole vectors (512 vectors by
-// default); a launch the grid cannot hold returns cudaErrorInvalidValue. A
-// step's `vector` flag selects the vector path; the host sets it only where
-// the planes allow it (denoise_stream.step_path), and
-// a launch that asks for it on planes that do not returns
-// cudaErrorMisalignedAddress. `acc` is the sum's AccumCode (quant.cuh): an
-// integer sum takes u16 wire and the scalar layout (else
-// cudaErrorInvalidValue), and a step's `groups` is G.
+// set the image rows and pairs a block covers: on the step's vector path a
+// block's share is row_tile x W pixels in whole vectors (512 vectors by
+// default), and the one-shot's vector path takes none; a launch the grid
+// cannot hold returns cudaErrorInvalidValue. The `vector` flag selects the vector path; the host
+// sets it only where the planes allow it (denoise_stream.step_path,
+// oneshot_path), and a launch that asks for it on planes that do not returns
+// cudaErrorMisalignedAddress (a step) or cudaErrorInvalidValue (a one-shot).
+// `acc` is the sum's AccumCode (quant.cuh): an integer sum takes u16 or p12
+// wire and the scalar layout (else cudaErrorInvalidValue), and a step's
+// `groups` is G.
 extern "C" {
 
 int alg3_stream_step_launch(const void* frames, void* sum, int64_t pairs,
@@ -623,22 +872,35 @@ int multibank_stream_step_launch(const void* frames, void* sum, int64_t banks,
 
 int alg3_subtract_average_launch(const void* frames, void* out, int64_t groups,
                                  int64_t pairs, int64_t height, int64_t items,
-                                 int64_t row_bytes, int fmt, int divide_first,
+                                 int64_t row_bytes, int fmt, int divide_first, int vector,
                                  float offset, float u8_scale, float rcp, int acc,
                                  int64_t row_tile, int64_t pair_tile, void* stream) {
   return oneshot(frames, out, 1, groups, pairs, height, items, row_bytes, fmt,
-                 divide_first, offset, u8_scale, rcp, acc, row_tile, pair_tile, stream);
+                 divide_first, vector, offset, u8_scale, rcp, acc, row_tile, pair_tile, stream);
 }
 
 int multibank_subtract_average_launch(const void* frames, void* out,
                                       int64_t banks, int64_t groups,
                                       int64_t pairs, int64_t height,
                                       int64_t items, int64_t row_bytes,
-                                      int fmt, int divide_first, float offset,
+                                      int fmt, int divide_first, int vector, float offset,
                                       float u8_scale, float rcp, int acc,
                                       int64_t row_tile, int64_t pair_tile, void* stream) {
   return oneshot(frames, out, banks, groups, pairs, height, items, row_bytes,
-                 fmt, divide_first, offset, u8_scale, rcp, acc, row_tile, pair_tile, stream);
+                 fmt, divide_first, vector, offset, u8_scale, rcp, acc, row_tile, pair_tile,
+                 stream);
+}
+
+// The bf16_quotient probe over n bfloat16 values (tests only; not a kernel of
+// the denoising path). rcp is f32(1/G).
+int bf16_quotient_launch(const void* d, void* out, int64_t n, float groups, float rcp, int rule,
+                         void* stream) {
+  if (n <= 0) return cudaSuccess;
+  bf16_quotient_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(d), static_cast<__nv_bfloat16*>(out), n, groups, rcp,
+      rule != 0);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -262,6 +262,91 @@ __device__ __forceinline__ void pair_diff8(const Wire8<FMT>& ctl, const Wire8<FM
   }
 }
 
+// Vector helpers of the one-shot kernels' vector path (denoise_stream.cu): a
+// thread's run of kPixels consecutive pixels of one wire plane, in wide loads.
+//   u16: 8 pixels, one 16-byte load;  u8: 16 pixels, one 16-byte load;
+//   p12: 16 pixels (8 three-byte items), 24 bytes in three 8-byte loads.
+// Vector v of a plane starts at byte v * kBytes, so a plane whose start is
+// aligned to kAlign has every vector aligned for its loads.
+template <int FMT>
+struct WireVec;
+template <>
+struct WireVec<kU16> {
+  static constexpr int kPixels = 8, kBytes = 16, kAlign = 16;
+  uint32_t w[4];
+};
+template <>
+struct WireVec<kU8> {
+  static constexpr int kPixels = 16, kBytes = 16, kAlign = 16;
+  uint32_t w[4];
+};
+template <>
+struct WireVec<kP12> {
+  static constexpr int kPixels = 16, kBytes = 24, kAlign = 8;
+  uint32_t w[6];
+};
+
+template <int FMT>
+__device__ __forceinline__ WireVec<FMT> load_vec(const uint8_t* __restrict__ plane, int64_t v) {
+  WireVec<FMT> x;
+  if constexpr (FMT == kP12) {
+    const uint2* q = reinterpret_cast<const uint2*>(plane) + 3 * v;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const uint2 a = q[i];
+      x.w[2 * i] = a.x;
+      x.w[2 * i + 1] = a.y;
+    }
+  } else {
+    const uint4 a = reinterpret_cast<const uint4*>(plane)[v];
+    x.w[0] = a.x, x.w[1] = a.y, x.w[2] = a.z, x.w[3] = a.w;
+  }
+  return x;
+}
+
+// The wire value of pixel k of a loaded vector (k a compile-time index once
+// unrolled). A p12 item j sits at bytes 3j..3j+2 of the vector: one funnel
+// shift brings its 24 bits down, low pixel in bits 0-11, high in 12-23.
+template <int FMT>
+__device__ __forceinline__ uint32_t wire_value(const WireVec<FMT>& x, int k) {
+  if constexpr (FMT == kU16) {
+    return (k & 1) ? x.w[k >> 1] >> 16 : x.w[k >> 1] & 0xFFFFu;
+  } else if constexpr (FMT == kU8) {
+    return (x.w[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+  } else {
+    const int byte = 3 * (k >> 1), i = byte >> 2, shift = 8 * (byte & 3);
+    const uint32_t t = shift <= 8 ? x.w[i] >> shift : __funnelshift_r(x.w[i], x.w[i + 1], shift);
+    return (k & 1) ? (t >> 12) & 0xFFFu : t & 0xFFFu;
+  }
+}
+
+// An integer below 2^23 as a float, exactly: its bits under the exponent of
+// 2^23, less 2^23 (two full-rate operations instead of a quarter-rate I2F).
+__device__ __forceinline__ float exact_float(uint32_t x) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | x), 8388608.0f);
+}
+
+// Pairs of a half type: __half2 or __nv_bfloat162, for the vector path's
+// packed arithmetic. The _rn operations are each correctly rounded and never
+// contracted, so each gives the bits of Acc<A>'s float operation rounded
+// once (see Acc above); pack rounds two floats in one packed conversion.
+template <typename A>
+struct Half2;
+template <>
+struct Half2<__half> {
+  using T = __half2;
+  static __device__ __forceinline__ T pack(float lo, float hi) { return __floats2half2_rn(lo, hi); }
+  static __device__ __forceinline__ T splat(float x) { return __float2half2_rn(x); }
+};
+template <>
+struct Half2<__nv_bfloat16> {
+  using T = __nv_bfloat162;
+  static __device__ __forceinline__ T pack(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ T splat(float x) { return __float2bfloat162_rn(x); }
+};
+
 // Integer sums (int32, or uint16 that wraps at 16 bits), u16 wire only: the
 // plain versions' integer arithmetic (repro_torch/kernels/ref.py), which
 // computes in int32 and wraps back. The pair difference exc - ctl + offset is

@@ -12,9 +12,9 @@ share one launch and never touch each other's data.
 
 Both run kernels of ``csrc/denoise_stream.cu`` (the bank axis is a stride
 of the same templated bodies) through launchers and launch counters of
-their own. The step takes the vector or the scalar path, as
-:func:`repro_torch.kernels.denoise_stream.step_path` picks, counted in
-``multibank_stream_step.vector_launches`` / ``.scalar_launches``.
+their own. Each takes the vector or the scalar path, as
+:func:`repro_torch.kernels.denoise_stream.step_path` or ``oneshot_path``
+picks, counted in ``<wrapper>.vector_launches`` / ``.scalar_launches``.
 Dispatch and checks are as in :mod:`repro_torch.kernels.denoise_stream`.
 """
 
@@ -22,15 +22,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, quant, ref
+from repro_torch.kernels import quant, ref
 from repro_torch.kernels.denoise_stream import (
-    ACCUM_CODES,
-    acc_constants,
     check_step_shapes,
     alg3_stream_step_plain,
     alg3_subtract_average_plain,
     check_kernel_operands,
-    check_launch,
+    launch_oneshot,
     launch_step,
     on_cuda,
 )
@@ -111,16 +109,12 @@ def multibank_subtract_average(
         dtype=ref.as_torch_dtype(accum_dtype), device=frames.device,
     )
     fmt, items, row_bytes = check_kernel_operands(frames, out, stream_dtype, integer_sums=True)
-    lib = _build.library()
-    with torch.cuda.device(frames.device):
-        rc = lib.multibank_subtract_average_launch(
-            frames.data_ptr(), out.data_ptr(), b, g, n // 2, h, items,
-            row_bytes, fmt, int(divide_first), *acc_constants(out.dtype, offset, g),
-            ACCUM_CODES[out.dtype], *tiles, torch.cuda.current_stream().cuda_stream,
-        )
-    check_launch(rc, "multibank_subtract_average")
-    multibank_subtract_average.launches += 1
+    launch_oneshot(multibank_subtract_average, "multibank_subtract_average_launch", frames, out,
+                   (b, g, n // 2, h, items, row_bytes), fmt=fmt, divide_first=divide_first,
+                   offset=offset, stream_dtype=stream_dtype, tiles=tiles)
     return out
 
 
 multibank_subtract_average.launches = 0
+multibank_subtract_average.vector_launches = 0
+multibank_subtract_average.scalar_launches = 0

@@ -11,13 +11,29 @@ its own CUDA kernel in ``csrc/denoise_stream.cu``:
   each input byte is read once, the sum stays in registers across the
   group loop, only the averaged ``(N/2, H, W)`` frames are written.
 
-The step kernel has two paths, chosen on the host by :func:`step_path`
-and passed to the kernel as a flag: a vector path (eight pixels a thread,
-16-byte loads for u16, 8-byte for u8) wherever every plane allows it, and
-the scalar path (one pixel a thread, one block per row) on every other
-shape, for p12 and for sums that are not float32. Each launch
-is counted in ``<wrapper>.vector_launches`` or ``<wrapper>.scalar_launches``
-as well as in ``<wrapper>.launches``.
+Each kernel has two paths, chosen on the host and passed to the kernel
+as a flag; the kernel refuses a vector launch on planes that do not allow
+it and never reroutes one:
+
+* the step's vector path (:func:`step_path`: eight pixels a thread,
+  16-byte loads for u16, 8-byte for u8, into a float32 sum) wherever every
+  plane allows it; its scalar path (one pixel a thread, one block per row)
+  on every other shape, for p12 and for sums that are not float32;
+* the one-shot's vector path (:func:`oneshot_path`: a run of consecutive
+  pixels a thread, its sums in registers across the groups; 8 u16 pixels
+  in one 16-byte load, 16 u8 pixels in one, 16 p12 pixels in three 8-byte
+  loads) for every wire format into float32, float16 and bfloat16 wherever
+  every plane allows it, and its scalar layout on a ragged plane, an
+  unaligned view and for integer sums. On the vector path a half sum runs
+  in packed pairs (``__half2``, ``__nv_bfloat162``): one correctly rounded
+  operation on two half values gives the bits of the float operation
+  rounded once, so each add, multiply and float16 FMA rounds as the plain
+  version's; bfloat16's ``x / G`` is ``x * f32(1/G)`` for G <= 64, which
+  rounds to the true division's bfloat16 for every bfloat16 ``x``
+  (:func:`bf16_quotient_probe`, held on the card for all of them).
+
+Each launch is counted in ``<wrapper>.vector_launches`` or
+``<wrapper>.scalar_launches`` as well as in ``<wrapper>.launches``.
 
 Dispatch is by the tensors' device: on a CUDA tensor the wrapper checks
 device, dtype, shape and contiguity, launches its kernel on the current
@@ -32,9 +48,12 @@ versions' integer arithmetic (``ref.fold``), floor divisions included.
 Every wrapper takes a launch geometry, ``row_tile`` image rows of
 ``pair_tile`` pairs a block (on the step's vector path, a share of
 ``row_tile * W`` pixels in whole vectors), from a tuning plan
-(:mod:`repro_torch.tune`); ``None`` keeps the kernel's default layout. An
-explicit tile must divide H or N/2 (``ValueError``, on every device, as
-the reference's). The geometry never changes a bit of the result.
+(:mod:`repro_torch.tune`); ``None`` keeps the kernel's default layout.
+The one-shot's vector path has one layout and takes no plan: its vectors
+share nothing, and each plan of the step family made it slower on the
+H100 (``PERF.md`` section 6). An explicit tile must divide H or N/2
+(``ValueError``, on every device, as the reference's). The geometry never
+changes a bit of the result.
 """
 
 from __future__ import annotations
@@ -49,6 +68,7 @@ __all__ = [
     "alg3_stream_step_plain",
     "alg3_subtract_average",
     "alg3_subtract_average_plain",
+    "oneshot_path",
     "step_path",
 ]
 
@@ -138,6 +158,68 @@ def step_path(plane_px: int, stream_dtype: str, frames_ptr: int, sum_ptr: int) -
     align = VECTOR_ALIGN.get(quant.validate_stream_dtype(stream_dtype))
     aligned = align is not None and frames_ptr % align == 0 and sum_ptr % 16 == 0
     return "vector" if plane_px % 8 == 0 and aligned else "scalar"
+
+
+#: the one-shot's vector, per wire format: pixels a thread (one 16-byte load
+#: of u16 or u8, three 8-byte loads of p12) and the plane-start alignment
+#: (bytes) of those loads
+ONESHOT_VECTOR = {"u16": (8, 16), "u8": (16, 16), "p12": (16, 8)}
+
+
+def oneshot_path(plane_px: int, stream_dtype: str, frames_ptr: int, out_ptr: int) -> str:
+    """The one-shot kernel's path for planes of ``plane_px`` = H*W pixels.
+
+    ``"vector"`` (8 u16 or 16 u8/p12 pixels a thread) when H*W is a
+    multiple of that vector, the frames start on the alignment of its loads
+    (16 bytes, 8 for p12) and the output on 16 bytes: every plane then
+    starts so aligned. ``"scalar"`` otherwise.
+    """
+    px, align = ONESHOT_VECTOR[quant.validate_stream_dtype(stream_dtype)]
+    aligned = frames_ptr % align == 0 and out_ptr % 16 == 0
+    return "vector" if plane_px % px == 0 and aligned else "scalar"
+
+
+def launch_oneshot(fn, entry: str, frames, out, dims, *, fmt: int, divide_first: bool,
+                   offset: float, stream_dtype: str, tiles: tuple[int, int]) -> None:
+    """Launch the one-shot kernel through the C entry point ``entry`` on the
+    path :func:`oneshot_path` picks (the scalar one for an integer sum), and
+    count the launch on the wrapper ``fn``. ``dims`` are the launcher's
+    sizes from the bank or group count to ``row_bytes``; G is
+    ``frames.shape[-4]``."""
+    *_, h, w = out.shape
+    g = frames.shape[-4]
+    path = "vector" if out.dtype in FLOAT_ACCUMS and oneshot_path(
+        h * w, stream_dtype, frames.data_ptr(), out.data_ptr()) == "vector" else "scalar"
+    lib = _build.library()
+    with torch.cuda.device(frames.device):
+        rc = getattr(lib, entry)(
+            frames.data_ptr(), out.data_ptr(), *dims, fmt, int(divide_first),
+            int(path == "vector"), *acc_constants(out.dtype, offset, g), ACCUM_CODES[out.dtype],
+            *tiles, torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(rc, fn.__name__)
+    fn.launches += 1
+    setattr(fn, f"{path}_launches", getattr(fn, f"{path}_launches") + 1)
+
+
+def bf16_quotient_probe(d: torch.Tensor, num_groups: int, *,
+                        true_division: bool = False) -> torch.Tensor:
+    """``d / G`` rounded to bfloat16 on the card, by the rule the one-shot's
+    vector path divides bfloat16 values with (``x * f32(1/G)`` for
+    G <= 64, else a true division) or by a true division: the probe with
+    which the card tests hold that rule to the true division on every
+    bfloat16 value. No kernel of the denoising path; ``d`` is a contiguous
+    bfloat16 CUDA tensor."""
+    if d.dtype != torch.bfloat16 or d.device.type != "cuda" or not d.is_contiguous():
+        raise ValueError("bf16_quotient_probe takes a contiguous bfloat16 CUDA tensor")
+    out = torch.empty_like(d)
+    with torch.cuda.device(d.device):
+        rc = _build.library().bf16_quotient_launch(
+            d.data_ptr(), out.data_ptr(), d.numel(), float(num_groups),
+            ref.reciprocal(num_groups, torch.bfloat16), int(not true_division),
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "bf16_quotient_probe")
+    return out
 
 
 def launch_step(fn, entry: str, group_frames, sum_frame, dims, *, fmt: int,
@@ -294,16 +376,12 @@ def alg3_subtract_average(
         dtype=ref.as_torch_dtype(accum_dtype), device=frames.device,
     )
     fmt, items, row_bytes = check_kernel_operands(frames, out, stream_dtype, integer_sums=True)
-    lib = _build.library()
-    with torch.cuda.device(frames.device):
-        rc = lib.alg3_subtract_average_launch(
-            frames.data_ptr(), out.data_ptr(), g, n // 2, h, items, row_bytes,
-            fmt, int(divide_first), *acc_constants(out.dtype, offset, g),
-            ACCUM_CODES[out.dtype], *tiles, torch.cuda.current_stream().cuda_stream,
-        )
-    check_launch(rc, "alg3_subtract_average")
-    alg3_subtract_average.launches += 1
+    launch_oneshot(alg3_subtract_average, "alg3_subtract_average_launch", frames, out,
+                   (g, n // 2, h, items, row_bytes), fmt=fmt, divide_first=divide_first,
+                   offset=offset, stream_dtype=stream_dtype, tiles=tiles)
     return out
 
 
 alg3_subtract_average.launches = 0
+alg3_subtract_average.vector_launches = 0
+alg3_subtract_average.scalar_launches = 0

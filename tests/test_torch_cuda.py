@@ -122,6 +122,150 @@ def test_step_kernel_refuses_a_vector_launch_its_planes_do_not_allow(cuda, monke
                                         num_groups=2)
 
 
+FLOATS = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def _extreme_wire(shape, fmt, seed, width):
+    """Seeded wire frames with one pixel in eight at the format's largest
+    value and one in eight at 0: a float16 sum of u16 wire then meets inf
+    (65535 rounds up) and inf - inf."""
+    rng = np.random.default_rng(seed)
+    px = rng.integers(0, 4096, shape + (width,)).astype(np.uint16)
+    pick = rng.random(px.shape)
+    px[pick < 0.125] = 4095
+    px[pick > 0.875] = 0
+    wire = quant.encode(px, fmt)
+    if fmt == "u16":
+        wire = np.where(wire == 4095, np.uint16(65535), wire)
+    return torch.from_numpy(np.ascontiguousarray(wire))
+
+
+_BITS = {torch.float32: torch.int32, torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def _same_bits(got, want):
+    """Bitwise equal (the sign of a zero included), NaN held to NaN in the
+    same places: a NaN's payload is the arithmetic's, not the contract's."""
+    got = got.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    nan = torch.isnan(want)
+    bits = _BITS[want.dtype]
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(bits), want[~nan].view(bits)))
+
+
+def _oneshots(frames, place, acc, kw):
+    """B3 on bank 0 and B5 on both banks of ``frames`` (B, G, N, H, wire_W),
+    placed on the card by ``place``; each result beside its plain version."""
+    b3, b5 = denoise_stream.alg3_subtract_average, denoise_multibank.multibank_subtract_average
+    return [(b3(place(frames[0]), accum_dtype=acc, **kw),
+             denoise_stream.alg3_subtract_average_plain(frames[0], accum_dtype=acc, **kw)),
+            (b5(place(frames), accum_dtype=acc, **kw),
+             denoise_multibank.multibank_subtract_average_plain(frames, accum_dtype=acc, **kw))]
+
+
+def _oneshot_paths():
+    fns = (denoise_stream.alg3_subtract_average, denoise_multibank.multibank_subtract_average)
+    return [(f.vector_launches, f.scalar_launches) for f in fns]
+
+
+@pytest.mark.parametrize("g", [5, 8])
+@pytest.mark.parametrize("acc", FLOATS, ids=["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+def test_oneshot_vector_path_bitwise_equal_plain(cuda, fmt, acc, g):
+    # 40 x 136 is 680 u16 vectors (a full block of 256 and a partial one, a
+    # partial warp) and 340 u8 / p12 vectors (one full block, one partial);
+    # extreme wire values; G = 5 exposes the rounding of x / G
+    frames = _extreme_wire((2, g, 4, 40), fmt, seed=g, width=136)
+    before = _oneshot_paths()
+    for offset in (0.0, 4096.0):
+        for divide_first in (False, True):
+            kw = dict(offset=offset, divide_first=divide_first, stream_dtype=fmt)
+            for got, want in _oneshots(frames, lambda t: t.to(cuda), acc, kw):
+                assert _same_bits(got, want), (offset, divide_first)
+    assert [(v - v0, s - s0) for (v, s), (v0, s0) in zip(_oneshot_paths(), before)] == [(4, 0)] * 2
+
+
+@pytest.mark.parametrize("acc", FLOATS, ids=["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+@pytest.mark.parametrize(
+    "hw, shift_bytes",
+    [((1, 8), 0), ((1, 16), 0), ((7, 130), 0), ((40, 136), 2), ((40, 136), 8)],
+    ids=["one-u16-vector", "one-vector", "ragged-7x130", "view-2-bytes-in", "view-8-bytes-in"],
+)
+def test_oneshot_takes_the_path_its_planes_allow(cuda, fmt, acc, hw, shift_bytes):
+    # a plane of one vector (8 u16 pixels, 16 u8/p12 ones), a ragged plane and
+    # views 2 and 8 bytes into a buffer: p12's three 8-byte loads take a view
+    # 8 bytes in, the 16-byte u16 and u8 loads do not
+    h, w = hw
+    if fmt == "p12" and shift_bytes == 2:
+        shift_bytes = 3  # a whole p12 item in; 3 bytes is not 8-aligned either
+    frames = _extreme_wire((2, 5, 4, h), fmt, seed=h * w + shift_bytes, width=w)
+    plane_px = h * w
+    want_path = denoise_stream.oneshot_path(plane_px, fmt, 4096 + shift_bytes, 4096)
+    assert want_path == ("vector" if plane_px % denoise_stream.ONESHOT_VECTOR[fmt][0] == 0
+                         and shift_bytes % denoise_stream.ONESHOT_VECTOR[fmt][1] == 0
+                         else "scalar")
+
+    def place(t):
+        n = shift_bytes // t.element_size()
+        buf = torch.empty(t.numel() + n, dtype=t.dtype, device=cuda)
+        view = buf[n:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    before = _oneshot_paths()
+    for divide_first in (False, True):
+        kw = dict(offset=4096.0, divide_first=divide_first, stream_dtype=fmt)
+        for got, want in _oneshots(frames, place, acc, kw):
+            assert _same_bits(got, want), divide_first
+    took = [(v - v0, s - s0) for (v, s), (v0, s0) in zip(_oneshot_paths(), before)]
+    assert took == [(2, 0) if want_path == "vector" else (0, 2)] * 2
+
+
+@pytest.mark.parametrize("acc", FLOATS, ids=["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+def test_oneshot_every_tile_bitwise_equal_default(cuda, fmt, acc):
+    # every (row_tile, pair_tile) a plan may name at 40 x 136 with 6 pairs
+    # (exact divisors) launches, on the vector path (which keeps its one
+    # layout under any plan), bitwise the default launch
+    frames = _extreme_wire((2, 3, 12, 40), fmt, seed=7, width=136).to(cuda)
+    b3, b5 = denoise_stream.alg3_subtract_average, denoise_multibank.multibank_subtract_average
+    kw = dict(offset=4096.0, stream_dtype=fmt, accum_dtype=acc)
+    want3 = denoise_stream.alg3_subtract_average_plain(frames[0].cpu(), **kw)
+    want5 = denoise_multibank.multibank_subtract_average_plain(frames.cpu(), **kw)
+    assert _same_bits(b3(frames[0], **kw), want3) and _same_bits(b5(frames, **kw), want5)
+    before = _oneshot_paths()
+    geoms = [(th, tp) for th in (1, 2, 4, 5, 8, 10, 20, 40) for tp in (1, 2, 3, 6)]
+    for th, tp in geoms:
+        tiles = dict(row_tile=th, pair_tile=tp)
+        assert _same_bits(b3(frames[0], **tiles, **kw), want3), tiles
+        assert _same_bits(b5(frames, **tiles, **kw), want5), tiles
+    took = [(v - v0, s - s0) for (v, s), (v0, s0) in zip(_oneshot_paths(), before)]
+    assert took == [(len(geoms), 0)] * 2
+
+
+def test_bf16_quotient_rule_equals_true_division_on_every_bfloat16(cuda):
+    # the vector path's bfloat16 x / G (x * f32(1/G) for G <= 64) against
+    # round_bf16(__fdiv_rn(x, G)) and the CPU's float32 division, for all
+    # 65,536 bfloat16 values (NaNs held to NaN) and G = 1..64
+    d = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    dc = d.to(cuda)
+    for g in range(1, 65):
+        want = denoise_stream.bf16_quotient_probe(dc, g, true_division=True)
+        assert _same_bits(want, (d.float() / g).to(torch.bfloat16)), g
+        assert _same_bits(denoise_stream.bf16_quotient_probe(dc, g), want.cpu()), g
+
+
+def test_oneshot_kernel_refuses_a_vector_launch_its_planes_do_not_allow(cuda, monkeypatch):
+    # the path is the host's choice; the kernel raises on a wrong one, never reroutes
+    monkeypatch.setattr(denoise_stream, "oneshot_path", lambda *a: "vector")
+    frames = _wire((2, 12, 7), "u16", seed=3, width=130).to(cuda)
+    with pytest.raises(RuntimeError, match="alg3_subtract_average: CUDA launch failed"):
+        denoise_stream.alg3_subtract_average(frames)
+
+
 @pytest.mark.parametrize(
     "pairs, pair_tile, hw, groups",
     [(500, 1, (16, 256), 2), (40, 40, (80, 256), 2), (60, 4, (7, 130), 3)]

@@ -18,7 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import quant as jquant
-from repro_torch.kernels import denoise_multibank, denoise_stream, ops, quant
+from repro_torch.kernels import denoise_multibank, denoise_stream, ops, quant, ref
 
 FORMATS = ("u16", "u8", "p12")
 VARIANTS = ("divide_last", "divide_first")
@@ -264,6 +264,71 @@ def test_ignored_tile_arguments_do_not_change_results():
 def test_step_path_takes_vectors_only_where_every_plane_allows(
         plane_px, fmt, frames_ptr, sum_ptr, want):
     assert denoise_stream.step_path(plane_px, fmt, frames_ptr, sum_ptr) == want
+
+
+@pytest.mark.parametrize(
+    "plane_px, fmt, frames_ptr, out_ptr, want",
+    [
+        (80 * 256, "u16", 0x1000, 0x2000, "vector"),   # the paper's plane, allocator-aligned
+        (80 * 256, "u8", 0x1000, 0x2000, "vector"),
+        (80 * 256, "p12", 0x1000, 0x2000, "vector"),
+        (80 * 256, "p12", 0x1008, 0x2000, "vector"),   # p12's 8-byte loads: 8-byte starts
+        (80 * 256, "p12", 0x1004, 0x2000, "scalar"),
+        (80 * 256, "p12", 0x1003, 0x2000, "scalar"),   # a view one p12 item in
+        (80 * 256, "u8", 0x1008, 0x2000, "scalar"),    # u8's 16-byte loads: 16-byte starts
+        (80 * 256, "u16", 0x1008, 0x2000, "scalar"),   # a u16 view 8 bytes in
+        (80 * 256, "u16", 0x1002, 0x2000, "scalar"),   # a u16 view one pixel in
+        (80 * 256, "u16", 0x1000, 0x2008, "scalar"),   # the output 8 bytes in
+        (80 * 256, "p12", 0x1000, 0x2004, "scalar"),
+        (7 * 130, "u16", 0x1000, 0x2000, "scalar"),    # ragged: H*W not a multiple of 8
+        (7 * 130, "p12", 0x1000, 0x2000, "scalar"),
+        (4 * 130, "u16", 0x1000, 0x2000, "vector"),    # 65 vectors of 8
+        (4 * 130, "u8", 0x1000, 0x2000, "scalar"),     # 520 is no multiple of 16
+        (4 * 130, "p12", 0x1000, 0x2000, "scalar"),
+        (40 * 136, "u8", 0x1000, 0x2000, "vector"),    # 340 vectors: a partial block and warp
+        (8, "u16", 0x1000, 0x2000, "vector"),          # one vector per plane
+        (8, "u8", 0x1000, 0x2000, "scalar"),           # half a u8 vector
+        (16, "p12", 0x1000, 0x2000, "vector"),
+    ],
+)
+def test_oneshot_path_takes_vectors_only_where_every_plane_allows(
+        plane_px, fmt, frames_ptr, out_ptr, want):
+    assert denoise_stream.oneshot_path(plane_px, fmt, frames_ptr, out_ptr) == want
+
+
+def test_oneshot_path_of_real_tensors_follows_their_storage():
+    # every plane of a contiguous (G, N, H, wire_W) tensor starts where the
+    # first does plus a multiple of the vector's bytes, so the base pointer
+    # decides; PyTorch's allocators align a fresh tensor to 64 bytes or more
+    out = torch.zeros(4, 80, 256)
+    for fmt, elements_in, want in (("u16", 8, "vector"), ("u16", 4, "scalar"),
+                                   ("u8", 16, "vector"), ("u8", 8, "scalar"),
+                                   ("p12", 8, "vector"), ("p12", 3, "scalar")):
+        wire_w = quant.wire_width(256, fmt)
+        dtype = quant.container_torch_dtype(fmt)
+        frames = torch.zeros(3, 8, 80, wire_w, dtype=dtype)
+        assert denoise_stream.oneshot_path(80 * 256, fmt, frames.data_ptr(),
+                                           out.data_ptr()) == "vector"
+        view = torch.zeros(frames.numel() + elements_in, dtype=dtype)[elements_in:]
+        view = view.view(frames.shape)
+        assert denoise_stream.oneshot_path(80 * 256, fmt, view.data_ptr(), out.data_ptr()) == want
+    with pytest.raises(ValueError):
+        denoise_stream.oneshot_path(80 * 256, "u12", 0, 0)
+
+
+def test_bf16_reciprocal_product_rounds_as_the_true_division():
+    # the rule the one-shot's vector path divides bfloat16 values by: for
+    # G <= 64, round_bf16(x * f32(1/G)) == round_bf16(f32(x / G)) for every
+    # one of the 65,536 bfloat16 x (NaN to NaN), in IEEE float32 arithmetic
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    x = x.float()
+    nan = torch.isnan(x)
+    for g in range(1, 65):
+        rcp = torch.tensor(ref.reciprocal(g, torch.bfloat16), dtype=torch.float32)
+        got = (x * rcp).to(torch.bfloat16)
+        want = (x / torch.tensor(g, dtype=torch.float32)).to(torch.bfloat16)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16)), g
 
 
 @pytest.mark.parametrize(
