@@ -2273,6 +2273,11 @@ def main() -> int:
     def step_paths() -> list[tuple[int, int]]:
         return [(f.vector_launches, f.scalar_launches) for f in steps]
 
+    def tmpframe_paths() -> list[tuple[int, int]]:
+        """B10's (vector, scalar) launches of pass A and of pass B."""
+        return [(f.vector_launches, f.scalar_launches)
+                for f in (denoise_tmpframe.subtract_pass, denoise_tmpframe.reduce_pass)]
+
     # -- phase 1: each kernel against its plain version on the CPU -------
     t1 = time.perf_counter()
     cases = [(g, fmt, df, 64) for g in (5, 8) for fmt in quant.STREAM_DTYPES for df in (False, True)]
@@ -2472,14 +2477,40 @@ def main() -> int:
         took = (spatial.vector_launches - before[0], spatial.scalar_launches - before[1])
         if took != ((2, 0) if path == "vector" else (0, 2)):
             raise AssertionError(f"B9 {what}: launches {took} on (vector, scalar), want the {path} path")
-    for g in (5, 8):  # B10: a division by G would differ at G = 5
-        frames = wire((g, 64, H), "u16")
-        want = denoise_tmpframe.alg1_subtract_average_plain(frames, offset=offset)
-        got = {k: wrappers[k](frames.to(dev), offset=offset) for k in BASELINE_PATH}
-        for k, out in got.items():
-            same(k, out, want, f"G={g} N=64 u16")
-        if not torch.equal(got["alg1_subtract_average"], got["alg2_subtract_average"]):
-            raise AssertionError(f"G={g}: Alg 1 and Alg 2 differ on the card")
+    # B10, Alg 1 and Alg 2, in every float type at G = 3/5/8 (a division by G
+    # would differ at G = 3 and 5) and 65/100 (bfloat16's true division on the
+    # vector path): on the paper's plane (N = 64; 16 above G = 64), on 40x132
+    # (a row of 16 half vectors and 4 pixels over, the next starting mid-vector;
+    # a partial warp), on 7x130 (H*W = 910: both passes' scalar paths) and at
+    # the main path's N = 1000, G = 8; each pass's path counted, pass B also on
+    # a tmpFrame view one element into its buffer (its scalar path)
+    b10_cases = 0
+    b10_planes = [((n, H, W), "vector") for n in (64, 16)] + [
+        ((14, 40, 132), "vector"), ((6, 7, 130), "scalar")]
+    b10_runs = [(g, plane, path) for g in (3, 5, 8, 65, 100) for plane, path in b10_planes
+                if (plane[0] == 16) == (g > 8)] + [(8, (1000, H, W), "vector")]
+    b10_rng = np.random.default_rng(31)
+    for g, (n, h, w), path in b10_runs:
+        if (g, n, h, w) in ((5, 64, H, W), (8, 64, H, W)):
+            frames = wire((g, n, h), "u16")  # the draws of the later phases stay as they were
+        else:
+            frames = torch.from_numpy(b10_rng.integers(0, 4096, (g, n, h, w)).astype(np.uint16))
+        for acc in denoise_stream.FLOAT_ACCUMS:
+            what = f"{str(acc).replace('torch.', '')} G={g} N={n} {h}x{w} u16"
+            kw = dict(offset=offset, accum_dtype=acc)
+            before = tmpframe_paths()
+            want = denoise_tmpframe.alg1_subtract_average_plain(frames, **kw)
+            for k in BASELINE_PATH:
+                same(k, wrappers[k](frames.to(dev), **kw), want, what)
+            tmp = shifted(denoise_tmpframe.subtract_pass_plain(frames, **kw))
+            same("alg1_subtract_average", denoise_tmpframe.reduce_pass(tmp), want,
+                 f"{what}, pass B on a view one element in")
+            took = [(v - v0, s - s0) for (v, s), (v0, s0) in zip(tmpframe_paths(), before)]
+            if took != ([(2, 0), (2, 1)] if path == "vector" else [(0, 2), (0, 3)]):
+                raise AssertionError(f"B10 {what}: passes A, B took {took} (vector, scalar) "
+                                     f"launches, want the {path} paths")
+            b10_cases += 1
+        del frames, tmp
     torch.cuda.synchronize()
     print(f"phase 1: B6/B7/B8 bitwise equal to the CPU plain versions in {new_cases} cases "
           f"(u16/u8/p12, G=5/8, K=1/4/5; B8 also with 500 chunks, one chunk of 32 pairs, "
@@ -2487,9 +2518,11 @@ def main() -> int:
           f"and B8 at N=1000 with 100 chunks; B7 "
           f"at K=65/100 (selection path); B9 on {len(b9_planes)} planes (both tile paths) box bitwise, "
           f"bilateral max relative diff {bilateral_rel:.3g} (declared "
-          f"{denoise_spatial.BILATERAL_RTOL:g}); B10 Alg 1 and Alg 2 (u16, G=5/8) bitwise "
-          f"equal to the CPU plain version and to each other ({time.perf_counter() - t1:.1f} s)")
-    record["bilateral_max_rel"] = bilateral_rel
+          f"{denoise_spatial.BILATERAL_RTOL:g}); B10 Alg 1 and Alg 2 bitwise equal to the CPU "
+          f"plain version in {b10_cases} cases (float32/float16/bfloat16, G=3/5/8/65/100 on "
+          f"80x256, 40x132 and 7x130, G=8 at N=1000; each pass on the path its planes allow, "
+          f"pass B also on an unaligned view) ({time.perf_counter() - t1:.1f} s)")
+    record.update(bilateral_max_rel=bilateral_rel, b10_cases=b10_cases)
 
     # B2-B10 with float16 and bfloat16 accumulators (the scalar paths), and
     # B2-B5 with p12 wire into int32/uint16 sums, against their plain versions
@@ -2586,11 +2619,16 @@ def main() -> int:
                         for a, b in zip(gpu, cpu):
                             same_nan("ema_welford_step", a, b, f"{what} pair_tile={tp}")
                     half_cases += 1
-            frames = wire((g, 64, H), "u16")  # B10, Alg 1 and Alg 2
+            frames = wire((g, 64, H), "u16")  # B10, Alg 1 and Alg 2, on the vector paths
             want = denoise_tmpframe.alg1_subtract_average_plain(frames, offset=offset, accum_dtype=acc)
+            before = tmpframe_paths()
             for k in BASELINE_PATH:
                 same_nan(k, wrappers[k](frames.to(dev), offset=offset, accum_dtype=acc), want,
                          f"{tag} G={g} N=64 u16")
+            took = [(v - v0, s - s0) for (v, s), (v0, s0) in zip(tmpframe_paths(), before)]
+            if took != [(2, 0)] * 2:
+                raise AssertionError(f"B10 {tag} G={g} N=64: passes A, B took {took} (vector, "
+                                     f"scalar) launches, want the vector paths")
         for g in (5, 8):  # B8 on pairs within +-12 at offset 0: a finite float16 M2
             for fmt in quant.STREAM_DTYPES:
                 for n, (h, w), tps in ((64, (H, W), (2, 8)), (12, (7, 130), (3,))):
@@ -2744,7 +2782,7 @@ def main() -> int:
     for fmt in quant.STREAM_DTYPES:
         for acc in denoise_stream.FLOAT_ACCUMS:
             tag = str(acc).replace("torch.", "")
-            for g in (5, 8):
+            for g in (5, 8) + ((65, 100) if acc == torch.bfloat16 else ()):  # bfloat16: / G
                 banked = extreme_wire((2, g, 4, 40), fmt, 136)
                 for off in (0.0, offset):
                     for df in (False, True):
@@ -2786,8 +2824,8 @@ def main() -> int:
                   true_q.cpu(), f"bfloat16 quotient rule, G={g}")
     torch.cuda.synchronize()
     print(f"phase 1: B3/B5 bitwise equal to the CPU plain versions on the vector path in "
-          f"{vec_cases} cases (u16/u8/p12 x float32/float16/bfloat16 x v1/v2, G=5/8, offset 0 "
-          f"and 4096, extreme wire values, 40x136), on {edge_cases} edge cases (one vector a "
+          f"{vec_cases} cases (u16/u8/p12 x float32/float16/bfloat16 x v1/v2, G=5/8 and "
+          f"bfloat16 also G=65/100, offset 0 and 4096, extreme wire values, 40x136), on {edge_cases} edge cases (one vector a "
           f"plane, a ragged 7x130 plane and views 2/3 and 8 bytes in, each on the path "
           f"oneshot_path names), and in {tile_cases} tiled launches (each format and sum at 32 "
           f"row_tile x pair_tile), bitwise the default launch; the bfloat16 quotient rule "

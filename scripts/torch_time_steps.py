@@ -8,6 +8,7 @@ Run on the machine with the card, from the root of a checkout::
 
     python3 scripts/torch_time_steps.py [TREE] [--out FILE]
         [--b9-save FILE] [--b9-ref FILE] [--build-times] [--sass-mix MATCH] [--oneshot]
+        [--tmpframe]
 
 ``TREE`` (default: this checkout) is the root of a checkout whose
 ``src/repro_torch`` is timed; its kernels are built from its own sources.
@@ -28,7 +29,10 @@ B3/B5 in every instance, B3 at each candidate of the step family's tile
 search (the geometry a plan hands the one-shot) beside its default
 launch, and B10's pass B and B7 (K = 5) in the half types beside
 ``torch.sum(tmp, 0)`` and ``torch.median``: a short run for comparing
-two trees' one-shots. ``--build-times`` also
+two trees' one-shots. ``--tmpframe`` times only B10, in float32, float16
+and bfloat16: pass A of each algorithm, pass B beside
+``torch.sum(tmp, 0)``, and each algorithm in total, each with its byte
+bound. ``--build-times`` also
 compiles each of the tree's sources alone, cold, with the port's flags,
 and records the seconds of each; ``--sass-mix MATCH`` counts the SASS
 opcodes of every kernel whose mangled name the regular expression
@@ -207,6 +211,47 @@ def oneshot_only(args, tree, dev, rows, timed, oneshots, wire, G, N, H, W, P, of
     return 0
 
 
+def tmpframe_only(args, tree, rows, timed, wire, G, N, H, W, P, offset, peak_bw) -> int:
+    """``--tmpframe``: B10 at the paper's shape in each float type, pass A of
+    Alg 1 and of Alg 2, pass B (both algorithms) beside ``torch.sum(tmp,
+    0)`` and each algorithm in total, each with its byte bound (the frames
+    and the tmpFrame read once, the tmpFrame and the averages written once);
+    prints the JSON object and writes ``--out``."""
+    import torch
+
+    from chip_smoke import nvidia_smi
+    from repro_torch.kernels import denoise_tmpframe
+
+    frames = wire((G, N, H), "u16")
+    tmp_px, out_px = G * P * H * W, P * H * W
+    for acc in (torch.float32, torch.float16, torch.bfloat16):
+        tag, b = str(acc).split(".")[-1], torch.empty((), dtype=acc).element_size()
+        bytes_a = G * N * H * W * 2 + tmp_px * b
+        bytes_b = tmp_px * b + out_px * b
+        for alg, burst in (("alg1", False), ("alg2", True)):
+            timed(f"{alg}_subtract_average", f"pass A {tag}",
+                  lambda: denoise_tmpframe.subtract_pass(frames, offset=offset, burst=burst,
+                                                         accum_dtype=acc),
+                  bytes=bytes_a, bound_us=bytes_a / peak_bw * 1e6)
+        tmp = denoise_tmpframe.subtract_pass(frames, offset=offset, burst=True, accum_dtype=acc)
+        timed("alg1_subtract_average", f"pass B {tag}", lambda: denoise_tmpframe.reduce_pass(tmp),
+              bytes=bytes_b, bound_us=bytes_b / peak_bw * 1e6)
+        timed("library", f"torch.sum(tmp, 0) {tag}", lambda: torch.sum(tmp, dim=0))
+        del tmp
+        for alg in ("alg1", "alg2"):
+            fn = getattr(denoise_tmpframe, f"{alg}_subtract_average")
+            timed(f"{alg}_subtract_average", f"total {tag}",
+                  lambda: fn(frames, offset=offset, accum_dtype=acc), bytes=bytes_a + bytes_b,
+                  bound_us=(bytes_a + bytes_b) / peak_bw * 1e6)
+    out = dict(card=nvidia_smi(), tree=str(tree), torch=torch.__version__, rows=rows)
+    text = json.dumps(out)
+    print(text)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text + "\n")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", nargs="?", default=str(ROOT))
@@ -222,6 +267,9 @@ def main() -> int:
                     help="time only the one-shots (B3/B5) in every instance and at the tile "
                          "search's candidates, B10's pass B and B7 in the half types beside "
                          "their library calls")
+    ap.add_argument("--tmpframe", action="store_true",
+                    help="time only B10: each pass and each algorithm in float32, float16 and "
+                         "bfloat16, pass B beside torch.sum(tmp, 0)")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
@@ -289,6 +337,8 @@ def main() -> int:
                               bound_us=nbytes / peak_bw * 1e6)
             del banked
 
+    if args.tmpframe:
+        return tmpframe_only(args, tree, rows, timed, wire, G, N, H, W, P, offset, peak_bw)
     if args.oneshot:
         return oneshot_only(args, tree, dev, rows, timed, oneshots, wire, G, N, H, W, P, offset)
     for fmt in ("u16", "u8", "p12"):

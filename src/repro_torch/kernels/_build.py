@@ -65,9 +65,9 @@ ARGTYPES = {
     "spatial_filter_3x3_launch":
         (_P, _P, _I64, _I64, _I64, _I, _I, _F, _F, _I, _P),
     "tmpframe_subtract_launch":
-        (_P, _P, _I64, _I64, _I64, _I, _F, _I, _I64, _I64, _P),
+        (_P, _P, _I64, _I64, _I64, _I, _I, _F, _I, _I64, _I64, _P),
     "tmpframe_reduce_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _F, _I, _I64, _I64, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I, _F, _I, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()

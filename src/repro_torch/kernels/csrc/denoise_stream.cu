@@ -63,7 +63,7 @@
 //     instructions; a wire value is rounded to the type in the packed
 //     conversion. bfloat16 divides x / G as x * f32(1/G) for G <= 64, which
 //     rounds to the bfloat16 the true division gives for every bfloat16 x
-//     (bf16_quotient below, held exhaustively on the card).
+//     (bf16_quotient, quant.cuh, held exhaustively on the card).
 //   * scalar path, on a ragged plane or an unaligned view, and for integer
 //     sums: the step's scalar layout, one thread per output pixel (pair).
 //     The kernel refuses a vector launch on planes that do not allow it
@@ -304,19 +304,6 @@ __global__ void subtract_average_kernel(const uint8_t* __restrict__ frames,
 // gridDim.y, ...): no division in the index.
 constexpr int kOneThreads = 256;
 constexpr int kGroupChunk = 4;
-
-// x / G rounded once to bfloat16, for a bfloat16 x (a pair difference, or a
-// sum): for G <= 64 (BY_PRODUCT) the product x * f32(1/G), which rounds to
-// the bfloat16 of the true division for every one of the 65,536 bfloat16 x,
-// else the true division. (x has 8 significant bits, so x / G is never a
-// bfloat16 midpoint: G * m for a midpoint m needs 9 or more; and it lies at
-// least 2^-9 / G of x from every midpoint, far beyond the product's 2^-23.
-// The card tests hold every x and G = 1..64 against __fdiv_rn through
-// bf16_quotient_launch.)
-template <bool BY_PRODUCT>
-__device__ __forceinline__ float bf16_quotient(float x, float groups, float rcp) {
-  return BY_PRODUCT ? __fmul_rn(x, rcp) : __fdiv_rn(x, groups);
-}
 
 // The running sums of one vector in A's arithmetic: float for float32 (the
 // scalar body's operations, operation for operation), else pairs of A

@@ -347,6 +347,20 @@ struct Half2<__nv_bfloat16> {
   static __device__ __forceinline__ T splat(float x) { return __float2bfloat162_rn(x); }
 };
 
+// x / G rounded once to bfloat16, for a bfloat16 x (a pair difference, or a
+// sum): for G <= 64 (BY_PRODUCT) the product x * f32(1/G), which rounds to
+// the bfloat16 of the true division for every one of the 65,536 bfloat16 x,
+// else the true division. (x has 8 significant bits, so x / G is never a
+// bfloat16 midpoint: G * m for a midpoint m needs 9 or more; and it lies at
+// least 2^-9 / G of x from every midpoint, far beyond the product's 2^-23.
+// The card tests hold every x and G = 1..64 against __fdiv_rn through
+// bf16_quotient_launch, denoise_stream.cu.) The one-shots' vector path
+// (denoise_stream.cu) and B10's pass B (denoise_tmpframe.cu) divide by it.
+template <bool BY_PRODUCT>
+__device__ __forceinline__ float bf16_quotient(float x, float groups, float rcp) {
+  return BY_PRODUCT ? __fmul_rn(x, rcp) : __fdiv_rn(x, groups);
+}
+
 // Integer sums (int32, or uint16 that wraps at 16 bits), u16 wire only: the
 // plain versions' integer arithmetic (repro_torch/kernels/ref.py), which
 // computes in int32 and wraps back. The pair difference exc - ctl + offset is

@@ -13,10 +13,22 @@ stay two kernels and two launches (``csrc/denoise_tmpframe.cu``):
   order, then multiplied by ``f32(1/G)`` (the reference's jitted ``/ G``).
 
 :func:`alg1_subtract_average` runs pass A at Alg 1's granularity (one
-image row per block, one element per thread), :func:`alg2_subtract_average`
-at Alg 2's (wide tiles, 16-byte stores); both share pass B. The tile
-changes no number, so the two are bitwise equal, to each other and to
-Alg 3's one-shot kernel.
+image row per block), :func:`alg2_subtract_average` at Alg 2's (wide
+tiles); both share pass B, one image row per block. The tile changes no
+number, so the two are bitwise equal, to each other and to Alg 3's
+one-shot kernel.
+
+Each pass has two paths, chosen on the host (:func:`tmpframe_path`) and
+passed to the kernel as a flag; the kernel refuses a vector launch its
+operands do not allow and never reroutes one. The vector path takes a
+float32, float16 or bfloat16 tmpFrame (a thread's vector is 16 bytes of
+it: four float32 pixels or eight half ones) wherever every plane starts on
+a vector and both operands are 16-byte aligned; half types run there in
+packed pairs, each operation rounded as the plain version rounds it. The
+scalar path (one pixel a thread) takes integer tmpFrames, ragged planes
+and unaligned views. Each pass counts its launches by path in
+``subtract_pass.vector_launches`` / ``.scalar_launches`` and
+``reduce_pass.vector_launches`` / ``.scalar_launches``.
 
 Dispatch is as in :mod:`repro_torch.kernels.denoise_stream`: on a CUDA
 tensor the wrapper checks its operands, launches both kernels on the
@@ -26,7 +38,8 @@ kernels ingest u16 frames only, as the reference's Pallas baselines have
 no dequant path, into a float32, float16 or bfloat16 accumulator or an
 int32 or uint16 one. The tmpFrame then has that type: every operation
 rounds to a half type, and pass B scales by ``f16(1/G)`` or divides a
-bfloat16 sum truly (``ref.scale_reciprocal``); it floors an integer
+bfloat16 sum truly (``ref.scale_reciprocal``; on the vector path by
+``x * f32(1/G)`` for G <= 64, which rounds alike); it floors an integer
 division by G, as the plain version does.
 """
 
@@ -53,7 +66,29 @@ __all__ = [
     "subtract_pass",
     "subtract_pass_plain",
     "reduce_pass_plain",
+    "tmpframe_path",
 ]
+
+#: pixels of a thread's vector on both passes' vector paths, per tmpFrame
+#: type: 16 bytes of it (``kVecPixels``, ``csrc/denoise_tmpframe.cu``);
+#: integer tmpFrames have no vector path
+VECTOR_PIXELS = {torch.float32: 4, torch.float16: 8, torch.bfloat16: 8}
+
+
+def tmpframe_path(plane_px: int, dtype: torch.dtype, *ptrs: int) -> str:
+    """A pass's path for a tmpFrame of ``dtype`` whose planes hold
+    ``plane_px`` pixels (H*W for pass A, N/2*H*W for pass B). ``"vector"``
+    for a float type when the planes are a multiple of its vector and every
+    operand at ``ptrs`` is 16-byte aligned: every plane then starts on a
+    vector. ``"scalar"`` otherwise."""
+    pixels = VECTOR_PIXELS.get(dtype)
+    aligned = all(p % 16 == 0 for p in ptrs)
+    return "vector" if pixels and plane_px % pixels == 0 and aligned else "scalar"
+
+
+def _count(fn, path: str) -> None:
+    fn.launches += 1
+    setattr(fn, f"{path}_launches", getattr(fn, f"{path}_launches") + 1)
 
 
 def _check_frames(frames: torch.Tensor) -> None:
@@ -103,14 +138,21 @@ def subtract_pass(frames: torch.Tensor, *, offset: float = 0.0, burst: bool,
     g, n, h, w = frames.shape
     acc = ref.as_torch_dtype(accum_dtype)
     tmp = torch.empty((g, n // 2, h, w), dtype=acc, device=frames.device)
+    path = tmpframe_path(h * w, acc, frames.data_ptr(), tmp.data_ptr())
     with torch.cuda.device(frames.device):
         rc = _build.library().tmpframe_subtract_launch(
             frames.data_ptr(), tmp.data_ptr(), g * (n // 2), h, w, int(burst),
-            acc_constants(acc, offset)[0], ACCUM_CODES[acc], *tiles,
+            int(path == "vector"), acc_constants(acc, offset)[0], ACCUM_CODES[acc], *tiles,
             torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "tmpframe_subtract")
+    _count(subtract_pass, path)
     return tmp
+
+
+subtract_pass.launches = 0
+subtract_pass.vector_launches = 0
+subtract_pass.scalar_launches = 0
 
 
 def reduce_pass(tmp: torch.Tensor, *, tiles: tuple[int, int] = (0, 0)) -> torch.Tensor:
@@ -123,13 +165,21 @@ def reduce_pass(tmp: torch.Tensor, *, tiles: tuple[int, int] = (0, 0)) -> torch.
         )
     g, p, h, w = tmp.shape
     out = torch.empty((p, h, w), dtype=tmp.dtype, device=tmp.device)
+    path = tmpframe_path(p * h * w, tmp.dtype, tmp.data_ptr(), out.data_ptr())
     with torch.cuda.device(tmp.device):
         rc = _build.library().tmpframe_reduce_launch(
-            tmp.data_ptr(), out.data_ptr(), g, p, h, w, acc_constants(tmp.dtype, 0.0, g)[2],
-            ACCUM_CODES[tmp.dtype], *tiles, torch.cuda.current_stream().cuda_stream,
+            tmp.data_ptr(), out.data_ptr(), g, p, h, w, int(path == "vector"),
+            acc_constants(tmp.dtype, 0.0, g)[2], ACCUM_CODES[tmp.dtype], *tiles,
+            torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "tmpframe_reduce")
+    _count(reduce_pass, path)
     return out
+
+
+reduce_pass.launches = 0
+reduce_pass.vector_launches = 0
+reduce_pass.scalar_launches = 0
 
 
 def _two_pass(fn, frames, *, offset, accum_dtype, burst, row_tile, pair_tile):

@@ -263,15 +263,37 @@ def multibank_subtract_average(
             stream_dtype=stream_dtype, group_axis=1,
         )
     if backend == "xla":
-        return denoise_multibank.multibank_subtract_average_plain(
-            frames, offset=offset, divide_first=divide_first,
-            accum_dtype=accum_dtype, stream_dtype=stream_dtype,
-        )
+        return _xla_fused_banked(frames, offset=offset, divide_first=divide_first,
+                                 accum_dtype=accum_dtype, stream_dtype=stream_dtype)
     return denoise_multibank.multibank_subtract_average(
         frames, offset=offset, divide_first=divide_first,
         accum_dtype=accum_dtype, stream_dtype=stream_dtype,
         row_tile=row_tile, pair_tile=pair_tile,
     )
+
+
+def _xla_fused_banked(frames, *, offset, divide_first, accum_dtype, stream_dtype):
+    """The reference's fused XLA one-shot over banks (``B, G, N, H, wire_W``).
+
+    Up to ``ref.XLA_REDUCE_WINDOW`` groups it is the kernel's plain version,
+    the reference's order there at G <= 8 (at 9-32 groups its compiler
+    orders some float32 and float16 sums otherwise, ``ROADMAP.md`` queue C).
+    Above that XLA's CPU compiler materializes the differences (Alg 3 v2:
+    each already divided by G, uncontracted) and sums them over the groups in
+    windows (``ref.xla_sum``); integer sums are exact in any order.
+    """
+    g = frames.shape[1]
+    acc = ref.as_torch_dtype(accum_dtype)
+    if g <= ref.XLA_REDUCE_WINDOW or not acc.is_floating_point:
+        return denoise_multibank.multibank_subtract_average_plain(
+            frames, offset=offset, divide_first=divide_first,
+            accum_dtype=accum_dtype, stream_dtype=stream_dtype,
+        )
+    d = ref.pair_diff(frames, offset=offset, accum_dtype=acc, stream_dtype=stream_dtype)
+    if divide_first:
+        d = ref.scale_reciprocal(d, g)
+    total = ref.xla_sum(list(d.unbind(1)))
+    return total if divide_first else ref.scale_reciprocal(total, g)
 
 
 def multibank_stream_init(

@@ -194,6 +194,39 @@ def scale_reciprocal(total: torch.Tensor, num_groups: int) -> torch.Tensor:
     return total * torch.tensor(reciprocal(num_groups, total.dtype), dtype=total.dtype)
 
 
+#: XLA's CPU compiler sums a reduction over more than this many elements
+#: in windows of this many (its tree reduction rewrite)
+XLA_REDUCE_WINDOW = 32
+
+
+def xla_windows(n: int) -> list[tuple[int, int]]:
+    """The windows ``[lo, hi)`` in which XLA's CPU compiler sums a reduction
+    over ``n`` elements: one, up to :data:`XLA_REDUCE_WINDOW`; above it, the
+    axis padded with zeros to a multiple of the window (half the padding,
+    rounded down, before it) and cut into windows."""
+    w = XLA_REDUCE_WINDOW
+    if n <= w:
+        return [(0, n)]
+    low = (-n % w) // 2
+    return [(max(k, 0), min(k + w, n)) for k in range(-low, n, w)]
+
+
+def xla_sum(terms: list[torch.Tensor]) -> torch.Tensor:
+    """``sum(terms)`` in the order XLA's CPU compiler sums a reduction over
+    them, each add rounded to their type: each window (:func:`xla_windows`)
+    from zero in order, then the window sums the same way."""
+    while True:
+        sums = []
+        for lo, hi in xla_windows(len(terms)):
+            total = torch.zeros_like(terms[0])
+            for t in terms[lo:hi]:
+                total = total + t
+            sums.append(total)
+        if len(sums) == 1:
+            return sums[0]
+        terms = sums
+
+
 def _split_pairs(frames: torch.Tensor) -> torch.Tensor:
     """(..., N, H, W) -> (..., N/2, 2, H, W) pairs view."""
     n = frames.shape[-3]

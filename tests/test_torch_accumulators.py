@@ -144,6 +144,59 @@ def test_subtract_average_b3_b5_half(acc, fmt, g):
                   jops.multibank_subtract_average(jnp.asarray(wire), **kw))
 
 
+@pytest.mark.parametrize("g", [8, 32, 33, 65, 100, 1100])
+def test_xla_windows_are_the_reference_compilers(g):
+    # the reference's banked XLA one-shot sums over G with jnp.sum; above 32
+    # groups XLA's CPU compiler cuts that reduction into padded windows
+    # (a reduce-window of 32), which ref.xla_windows reproduces
+    import re
+
+    import jax
+
+    x = jnp.zeros((g, 2, 128), jnp.float32)
+    hlo = jax.jit(lambda a: a.sum(axis=0)).lower(x).compile().as_text()
+    windows = ref.xla_windows(g)
+    pads = re.findall(r"reduce-window\(.*window=\{size=(\d+)x\S+ stride=\S+ pad=(\d+)_(\d+)", hlo)
+    if g <= ref.XLA_REDUCE_WINDOW:
+        assert not pads and windows == [(0, g)]
+        return
+    size, low, high = map(int, pads[0])
+    assert size == ref.XLA_REDUCE_WINDOW
+    assert windows[0] == (0, size - low) and windows[-1][1] == g
+    assert len(windows) == (g + low + high) // size
+    assert all(hi - lo == size for lo, hi in windows[1:-1])
+    assert windows[-1][1] - windows[-1][0] == size - high
+
+
+@pytest.mark.parametrize("g", [65, 100])
+@pytest.mark.parametrize("acc", HALF)
+@pytest.mark.parametrize("kernel", ["b10", "b3_b5-u16", "b3_b5-u8", "b3_b5-p12"])
+def test_half_above_64_groups(kernel, acc, g):
+    # G > 64, where the card's vector paths divide bfloat16 truly rather than
+    # by x * f32(1/G): B10 (Alg 1/2, u16) and B3/B5 (Alg 3 and v2, each wire
+    # format) against the reference's Pallas interpret mode and XLA path, on
+    # a small plane (N = 2, H = 2) so that the interpret grid stays short
+    n, h = 2, 2
+    if kernel == "b10":
+        wire = _wire((g, n, h), "u16", seed=30 + g)
+        for algorithm in ("alg1", "alg2"):
+            for backend in ("pallas", "xla"):
+                kw = dict(offset=OFFSET, algorithm=algorithm, backend=backend, accum_dtype=acc)
+                _same(ops.subtract_average(torch.from_numpy(wire), **kw),
+                      jops.subtract_average(jnp.asarray(wire), **kw))
+        return
+    fmt = kernel.split("-")[1]
+    wire = _wire((2, g, n, h), fmt, seed=40 + g)
+    for algorithm in ("alg3", "alg3_v2"):
+        for backend in ("pallas", "xla"):
+            kw = dict(offset=OFFSET, algorithm=algorithm, backend=backend, accum_dtype=acc,
+                      stream_dtype=fmt)
+            _same(ops.subtract_average(torch.from_numpy(wire[0]), **kw),
+                  jops.subtract_average(jnp.asarray(wire[0]), **kw))
+            _same(ops.multibank_subtract_average(torch.from_numpy(wire), **kw),
+                  jops.multibank_subtract_average(jnp.asarray(wire), **kw))
+
+
 @pytest.mark.parametrize("g", [4, 5, 8])
 @pytest.mark.parametrize("acc", HALF)
 def test_alg1_alg2_b10_half(acc, g):

@@ -170,13 +170,21 @@ def _oneshot_paths():
     return [(f.vector_launches, f.scalar_launches) for f in fns]
 
 
-@pytest.mark.parametrize("g", [5, 8])
-@pytest.mark.parametrize("acc", FLOATS, ids=["float32", "float16", "bfloat16"])
+#: (accumulator, G) of the one-shot's vector-path cases: every float sum at
+#: G = 5 and 8, and bfloat16 at G = 65 and 100, where the vector path divides
+#: truly instead of by x * f32(1/G) (bf16_quotient)
+ONESHOT_VECTOR_CASES = [(acc, g) for acc in FLOATS for g in (5, 8)] + [
+    (torch.bfloat16, 65), (torch.bfloat16, 100)]
+
+
+@pytest.mark.parametrize("acc, g", ONESHOT_VECTOR_CASES,
+                         ids=[f"{str(a).split('.')[-1]}-{g}" for a, g in ONESHOT_VECTOR_CASES])
 @pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
 def test_oneshot_vector_path_bitwise_equal_plain(cuda, fmt, acc, g):
     # 40 x 136 is 680 u16 vectors (a full block of 256 and a partial one, a
     # partial warp) and 340 u8 / p12 vectors (one full block, one partial);
-    # extreme wire values; G = 5 exposes the rounding of x / G
+    # extreme wire values; G = 5 exposes the rounding of x / G; bfloat16 at
+    # G = 65 and 100 runs the vector path's true division
     frames = _extreme_wire((2, g, 4, 40), fmt, seed=g, width=136)
     before = _oneshot_paths()
     for offset in (0.0, 4096.0):
@@ -499,26 +507,76 @@ def test_filter_executors_on_the_card_match_cpu(cuda, extra):
     assert torch.equal(StreamingDenoiser(cfg)(frames).cpu(), want)
 
 
-@pytest.mark.parametrize("shape", [(5, 16, 80, 256), (5, 6, 7, 130)], ids=["80x256", "ragged"])
-def test_tmpframe_kernels_bitwise_equal_plain(cuda, shape):
-    # G = 5: a division by G instead of the multiply by f32(1/G) would differ
-    frames = torch.from_numpy(
-        np.random.default_rng(13).integers(0, 4096, shape).astype(np.uint16))
-    want = denoise_tmpframe.alg1_subtract_average_plain(frames, offset=4096.0)
+def _tmpframe_paths():
+    passes = (denoise_tmpframe.subtract_pass, denoise_tmpframe.reduce_pass)
+    return [(f.vector_launches, f.scalar_launches) for f in passes]
+
+
+#: B10's planes (N, H, W) and the path both passes take on them: 80 x 256,
+#: whole vectors; 40 x 132 (a half row of 16 vectors and 4 pixels over, the
+#: next row starting mid-vector: a scalar head and tail; 17 vectors, a
+#: partial warp); 8 x 130 (partial vectors in every type); 7 x 130, whose
+#: H*W = 910 is no multiple of a vector: the scalar paths
+TMPFRAME_SHAPES = {"80x256": ((16, 80, 256), "vector"), "ragged": ((6, 7, 130), "scalar"),
+                   "partial": ((14, 40, 132), "vector"), "rows-130": ((6, 8, 130), "vector")}
+
+
+@pytest.mark.parametrize("g", [3, 5, 8, 65, 100])
+@pytest.mark.parametrize("acc", FLOATS, ids=["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(TMPFRAME_SHAPES))
+def test_tmpframe_kernels_bitwise_equal_plain(cuda, shape, acc, g):
+    # G = 3 and 5: a division by G instead of the multiply by f32(1/G) would
+    # differ; G = 65 and 100: bfloat16's true division on the vector path.
+    # Seeded frames, and for G <= 8 also frames with 65535 and 0 (a float16
+    # tmpFrame meets inf and inf - inf)
+    (n, h, w), path = TMPFRAME_SHAPES[shape]
+    f32 = acc == torch.float32
+    inputs = [torch.from_numpy(
+        np.random.default_rng(13 + g).integers(0, 4096, (g, n, h, w)).astype(np.uint16))]
+    if g <= 8:
+        inputs.append(_extreme_wire((g, n, h), "u16", seed=g, width=w))
     before = [denoise_tmpframe.alg1_subtract_average.launches,
               denoise_tmpframe.alg2_subtract_average.launches]
-    got1 = denoise_tmpframe.alg1_subtract_average(frames.to(cuda), offset=4096.0).cpu()
-    got2 = denoise_tmpframe.alg2_subtract_average(frames.to(cuda), offset=4096.0).cpu()
-    assert torch.equal(got1, want) and torch.equal(got2, want)
+    paths = _tmpframe_paths()
+    for frames in inputs:
+        kw = dict(offset=4096.0, accum_dtype=acc)
+        want = denoise_tmpframe.alg1_subtract_average_plain(frames, **kw)
+        got1 = denoise_tmpframe.alg1_subtract_average(frames.to(cuda), **kw)
+        got2 = denoise_tmpframe.alg2_subtract_average(frames.to(cuda), **kw)
+        assert _same_bits(got1, want) and _same_bits(got2, want)
+        tmp = denoise_tmpframe.subtract_pass(frames.to(cuda), burst=True, **kw)
+        want_tmp = denoise_tmpframe.subtract_pass_plain(frames, **kw)
+        assert _same_bits(tmp, want_tmp)
+        # a tmpFrame view one element (2 bytes in a half type) into its buffer
+        assert _same_bits(denoise_tmpframe.reduce_pass(_shifted(want_tmp, cuda)), want)
     assert [denoise_tmpframe.alg1_subtract_average.launches,
-            denoise_tmpframe.alg2_subtract_average.launches] == [b + 2 for b in before]
-    tmp = denoise_tmpframe.subtract_pass(frames.to(cuda), offset=4096.0, burst=True)
-    assert torch.equal(tmp.cpu(), denoise_tmpframe.subtract_pass_plain(frames, offset=4096.0))
-    with pytest.raises(ValueError, match="'u8' ingest"):
-        ops.subtract_average(frames[:, :, :, :128].to(torch.uint8).to(cuda), algorithm="alg1",
-                             stream_dtype="u8")
-    with pytest.raises(NotImplementedError, match="float32, float16 and bfloat16"):
-        denoise_tmpframe.alg1_subtract_average(frames.to(cuda), accum_dtype=torch.float64)
+            denoise_tmpframe.alg2_subtract_average.launches] == [
+                b + 2 * len(inputs) for b in before]
+    k = len(inputs)
+    took = [(v - v0, s - s0) for (v, s), (v0, s0) in zip(_tmpframe_paths(), paths)]
+    assert took[0] == ((3 * k, 0) if path == "vector" else (0, 3 * k))  # pass A
+    assert took[1] == ((2 * k, k) if path == "vector" else (0, 3 * k))  # pass B, the view scalar
+    if f32 and g == 5 and shape == "80x256":
+        frames = inputs[0]
+        with pytest.raises(ValueError, match="'u8' ingest"):
+            ops.subtract_average(frames[:, :, :, :128].to(torch.uint8).to(cuda),
+                                 algorithm="alg1", stream_dtype="u8")
+        with pytest.raises(NotImplementedError, match="float32, float16 and bfloat16"):
+            denoise_tmpframe.alg1_subtract_average(frames.to(cuda), accum_dtype=torch.float64)
+
+
+def test_tmpframe_kernels_refuse_a_vector_launch_their_operands_do_not_allow(cuda, monkeypatch):
+    # the path is the host's choice; the kernels raise on a wrong one, never reroute
+    monkeypatch.setattr(denoise_tmpframe, "tmpframe_path", lambda *a: "vector")
+    frames = _wire((3, 6, 7), "u16", seed=3, width=130).to(cuda)
+    for burst in (False, True):
+        with pytest.raises(RuntimeError, match="tmpframe_subtract: CUDA launch failed"):
+            denoise_tmpframe.subtract_pass(frames, burst=burst)
+    tmp = torch.zeros(3, 3, 7, 130, device=cuda)
+    with pytest.raises(RuntimeError, match="tmpframe_reduce: CUDA launch failed"):
+        denoise_tmpframe.reduce_pass(tmp)
+    with pytest.raises(RuntimeError, match="tmpframe_reduce: CUDA launch failed"):
+        denoise_tmpframe.reduce_pass(tmp.to(torch.int32))
 
 
 @pytest.mark.parametrize(
@@ -738,6 +796,10 @@ GEOMETRY_CASES = {
     "B6-p12": ("median_insert", "p12", False),
     "B10-alg1": ("stream", "u16", False),
     "B10-alg2": ("stream", "u16", False),
+    "B10-alg1-float16": ("stream", "u16", False),
+    "B10-alg1-bfloat16": ("stream", "u16", False),
+    "B10-alg2-float16": ("stream", "u16", False),
+    "B10-alg2-bfloat16": ("stream", "u16", False),
 }
 
 
@@ -769,9 +831,11 @@ def _geometry_call(case, frames, device, tiles):
                              device=device)
         return denoise_median.median_window_insert(window, one, slot=1, **kw)
     kw.pop("stream_dtype")
-    fn = denoise_tmpframe.alg1_subtract_average if case == "B10-alg1" else \
+    fn = denoise_tmpframe.alg1_subtract_average if case.startswith("B10-alg1") else \
         denoise_tmpframe.alg2_subtract_average
-    return fn(f[0], **kw)
+    acc = {"float16": torch.float16, "bfloat16": torch.bfloat16}.get(case.split("-")[-1],
+                                                                     torch.float32)
+    return fn(f[0], accum_dtype=acc, **kw)
 
 
 @pytest.mark.parametrize("case", sorted(GEOMETRY_CASES))
@@ -797,12 +861,16 @@ def test_every_admitted_geometry_bitwise_equal_plain(cuda, case, shape):
     assert len(geoms) > 1
     b2 = denoise_stream.alg3_stream_step
     paths = (b2.vector_launches, b2.scalar_launches)
+    b10_paths = _tmpframe_paths()
     for th, tp in geoms:
         got = _geometry_call(case, frames, cuda, dict(row_tile=th, pair_tile=tp))
         assert torch.equal(got, want), (case, shape, th, tp)
     if case.startswith("B2"):  # every geometry on the path the case names
         taken = (b2.vector_launches - paths[0], b2.scalar_launches - paths[1])
         assert taken == ((len(geoms), 0) if vector else (0, len(geoms)))
+    if case.startswith("B10"):  # both passes on their vector paths in every geometry
+        taken = [(v - v0, s - s0) for (v, s), (v0, s0) in zip(_tmpframe_paths(), b10_paths)]
+        assert taken == [(len(geoms), 0)] * 2
 
 
 # ---------------------------------------------------------------------------
@@ -820,7 +888,7 @@ def _equal(a, b):
 @pytest.mark.parametrize("shape", [(2, 16, 80, 256), (2, 8, 7, 130)], ids=["80x256", "ragged"])
 @pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
 @pytest.mark.parametrize("acc", HALF, ids=["float16", "bfloat16"])
-@pytest.mark.parametrize("g", [5, 8])
+@pytest.mark.parametrize("g", [5, 8, 65, 100])
 def test_half_accumulator_kernels_b2_b5_b10_bitwise_equal_plain(cuda, g, acc, fmt, shape):
     b, n, h, w = shape
     frames = _wire((b, g, n, h), fmt, seed=g, width=w)
@@ -836,11 +904,14 @@ def test_half_accumulator_kernels_b2_b5_b10_bitwise_equal_plain(cuda, g, acc, fm
             denoise_multibank.multibank_stream_step(chunk.to(cuda), s, num_groups=g, **kw)
             sc = denoise_multibank.multibank_stream_step_plain(chunk, sc, num_groups=g, **kw)
         assert _equal(s, sc)
-    if fmt == "u16":
+    if fmt == "u16":  # B10: 7 x 130 (H*W = 910) takes pass A's scalar path
         x = frames[0]
         want = denoise_tmpframe.alg1_subtract_average_plain(x, offset=4096.0, accum_dtype=acc)
+        paths = _tmpframe_paths()
         for fn in (denoise_tmpframe.alg1_subtract_average, denoise_tmpframe.alg2_subtract_average):
             assert _equal(fn(x.to(cuda), offset=4096.0, accum_dtype=acc), want)
+        took = [(v - v0, s - s0) for (v, s), (v0, s0) in zip(_tmpframe_paths(), paths)]
+        assert took == [(2, 0) if px % 8 == 0 else (0, 2) for px in (h * w, n // 2 * h * w)]
 
 
 @pytest.mark.parametrize("accum", [torch.int32, torch.uint16], ids=["int32", "uint16"])

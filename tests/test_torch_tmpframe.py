@@ -151,3 +151,27 @@ def test_wrappers_check_shapes_and_leave_launch_counts_on_the_cpu():
     assert [f.launches for f in counters] == before
     tmp = denoise_tmpframe.subtract_pass_plain(x, offset=OFFSET)
     assert tmp.shape == (3, N // 2, H, W) and tmp.dtype == torch.float32
+    passes = (denoise_tmpframe.subtract_pass, denoise_tmpframe.reduce_pass)
+    assert all(f.launches == f.vector_launches + f.scalar_launches for f in passes)
+
+
+@pytest.mark.parametrize(
+    "dtype, plane_px, ptrs, path",
+    [(torch.float32, 80 * 256, (4096, 4096), "vector"),
+     (torch.float16, 40 * 132, (4096, 8192), "vector"),
+     (torch.bfloat16, 8 * 130, (0, 16), "vector"),
+     (torch.float32, 7 * 130, (4096, 4096), "scalar"),  # 910: no whole float4s
+     (torch.float16, 2 * 130, (4096, 4096), "scalar"),  # 260: no whole vectors of 8
+     (torch.float32, 80 * 256, (4100, 4096), "scalar"),  # a view one float in
+     (torch.bfloat16, 80 * 256, (4096, 4098), "scalar"),  # a view one half in
+     (torch.int32, 80 * 256, (4096, 4096), "scalar"),
+     (torch.uint16, 80 * 256, (4096, 4096), "scalar")],
+    ids=["f32", "f16-40x132", "bf16-8x130", "f32-ragged", "f16-ragged", "f32-view",
+         "bf16-view", "int32", "uint16"],
+)
+def test_tmpframe_path_takes_the_vector_path_where_every_plane_allows_it(
+        dtype, plane_px, ptrs, path):
+    # pass A's and pass B's vector: 16 bytes of tmpFrame, four float32 pixels
+    # or eight half ones; integer tmpFrames have none
+    assert denoise_tmpframe.VECTOR_PIXELS.get(dtype, 0) * dtype.itemsize in (0, 16)
+    assert denoise_tmpframe.tmpframe_path(plane_px, dtype, *ptrs) == path
