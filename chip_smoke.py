@@ -46,7 +46,12 @@ then:
    ragged plane and unaligned views (each launch on the path
    ``oneshot_path`` names), and at every exact-divisor tile, bitwise,
    with the bfloat16 division rule held to the true division on every
-   bfloat16 value for G = 1..64. Then (1b) runs the executors on
+   bfloat16 value for G = 1..64; B6 (median insert) on both its paths for
+   u16/u8/p12 x float32/float16/bfloat16, 8 groups into a 5-slot window
+   that wraps, in the default layout and two plan geometries: the paper's
+   80 x 256 plane on the vector path, a ragged 7 x 130 plane and a view 2
+   (p12: 3) bytes in on the scalar path, each launch on the path
+   ``insert_path`` names. Then (1b) runs the executors on
    the card at G = 5, where 1/G is inexact, for ``pair_average`` and the
    three other filters, so the eager true divisions (finalize, a
    consumer's partials, a ``drop_oldest`` stream made to drop one group
@@ -72,7 +77,8 @@ then:
    times its plain version and, where one PyTorch call computes the same
    function, that call (B2 and B4 also on their scalar path, u16 and u8,
    in the same run, B2-B5 and B10 with int32 and uint16 sums, B2-B10 with
-   float16 and bfloat16 accumulators, B2 and B3 with p12 wire into int32
+   float16 and bfloat16 accumulators, B6 in every wire format and window
+   type, B2 and B3 with p12 wire into int32
    and uint16 sums, and the host time per call of the B2, B4 and B8
    wrappers); and times the pipelined
    executor per group against the
@@ -81,8 +87,8 @@ then:
    with its 5-slot window, ``ema_variance``, ``spatial_box`` in box and
    bilateral mode): ``run_pipelined`` (depth 2),
    ``run_inline(prefetch=False)`` and the one-shot call, each equal to
-   the CPU plain stream, and prints each filter's SNR against the
-   noise-free signal;
+   the CPU plain stream, every B6 launch on its vector path, and prints
+   each filter's SNR against the noise-free signal;
 6. runs the paper's Alg 1 and Alg 2 baselines at the paper's size
    through the one-shot ``StreamingDenoiser`` call (B10: the tmpFrame
    written to HBM and read back), each bitwise equal to the CPU plain
@@ -1313,8 +1319,9 @@ def tune_phase(cfg, groups, reset_counters, read_counters, device="cuda"):
                            heuristic_us=entry["heuristic_s"] * 1e6,
                            winner=autotune.candidate_label(winner),
                            winner_us=entry["measured_s"] * 1e6)
-                heur = autotune.tile_candidates(fam, p, h, w, vector=autotune.vector_path(c),
-                                                limits=tune.budget.device_limits(dev))[0]
+                heur = autotune.tile_candidates(
+                    fam, p, h, w, vector=autotune.family_vector_path(fam, c),
+                    limits=tune.budget.device_limits(dev))[0]
                 if winner != heur:  # the gain again, with time_ms, in this call
                     step, init = autotune.family_step(fam, c, backend, dev)
                     for geom, key in ((heur, "heuristic_time_ms_us"), (winner, "winner_time_ms_us"),
@@ -2822,6 +2829,46 @@ def main() -> int:
                   f"bfloat16 true quotient, G={g}")
         same_bits("alg3_subtract_average", denoise_stream.bf16_quotient_probe(every_dev, g),
                   true_q.cpu(), f"bfloat16 quotient rule, G={g}")
+    # B6 on both paths: every format and window type, 8 groups into a 5-slot
+    # window that wraps, the default layout and two plan geometries, each
+    # launch on the path insert_path names
+    ins = wrappers["median_window_insert"]
+    b6_cases = 0
+    b6_shapes = (((64, H, W), 0, ((8, 4), (H, 2))), ((12, 7, 130), 0, ((7, 3), (1, 2))),
+                 ((12, 40, 136), None, ((8, 3), (40, 1))))
+    for fmt in quant.STREAM_DTYPES:
+        for acc in denoise_stream.FLOAT_ACCUMS:
+            tag = str(acc).replace("torch.", "")
+            for (n, h, w), shift, geoms in b6_shapes:
+                shift = (3 if fmt == "p12" else 2) if shift is None else shift
+                frames = extreme_wire((8, n, h), fmt, w)
+                want_w = torch.zeros(5, n // 2, h, w, dtype=acc)
+                for k in range(8):
+                    denoise_median.median_window_insert_plain(
+                        want_w, frames[k], slot=k % 5, offset=offset, stream_dtype=fmt)
+                path = denoise_median.insert_path(h * w, fmt, 4096 + shift, 4096)
+                if path != ("vector" if (h, w) == (H, W) else "scalar"):
+                    raise AssertionError(f"B6 {fmt} {h}x{w} {shift} bytes in: {path} path")
+                placed = [at_shift(frames[k], shift) for k in range(8)]
+                for th, tp in ((None, None),) + geoms:
+                    what = (f"{tag} G=8 N={n} {h}x{w} {fmt} {shift} bytes in "
+                            f"row_tile={th} pair_tile={tp}")
+                    before = (ins.vector_launches, ins.scalar_launches)
+                    got_w = torch.zeros(5, n // 2, h, w, dtype=acc, device=dev)
+                    for k in range(8):
+                        ins(got_w, placed[k], slot=k % 5, offset=offset, stream_dtype=fmt,
+                            row_tile=th, pair_tile=tp)
+                    same_bits("median_window_insert", got_w, want_w, what)
+                    took = (ins.vector_launches - before[0], ins.scalar_launches - before[1])
+                    if took != ((8, 0) if path == "vector" else (0, 8)):
+                        raise AssertionError(f"B6 {what}: took {took}, not the {path} path")
+                    b6_cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 1: B6 bitwise equal to its plain version in {b6_cases} cases (u16/u8/p12 x "
+          f"float32/float16/bfloat16, 8 groups into a 5-slot window, the default layout and "
+          f"two plan geometries each): 80x256 on the vector path, 7x130 and a view 2 (p12: 3) "
+          f"bytes in on the scalar path, the launches counted")
+    record.update(insert_cases=b6_cases)
     torch.cuda.synchronize()
     print(f"phase 1: B3/B5 bitwise equal to the CPU plain versions on the vector path in "
           f"{vec_cases} cases (u16/u8/p12 x float32/float16/bfloat16 x v1/v2, G=5/8 and "
@@ -3349,6 +3396,17 @@ def main() -> int:
                         b * out_px * (G * step_flops(fmt, df) + (0 if df else 1)))
         del banked, inputs, frames, frames2
     u16_groups = wire((G, N, H), "u16").to(dev)
+    window = torch.zeros(5, P, H, W, device=dev)
+    for fmt in ("u8", "p12"):  # B6 from u8 and p12 wire into float32 (u16: above)
+        group_f = first_group[fmt]
+        kw = dict(slot=2, offset=offset, stream_dtype=fmt)
+        row("median_window_insert", fmt, time_ms(
+            lambda: denoise_median.median_window_insert(window, group_f, **kw)),
+            plain_ms(lambda: denoise_median.median_window_insert_plain(window, group_f, **kw),
+                     reps=5, inner=2),
+            N * H * W * quant.wire_pixel_bytes(fmt) + out_px * 4,
+            out_px * (2 + (3 if fmt == "u8" else 0)))
+    del window
     for acc in HALF_TYPES:
         tag = str(acc).replace("torch.", "")
         kw = dict(offset=offset, accum_dtype=acc)
@@ -3451,6 +3509,8 @@ def main() -> int:
     wants = {label: StreamingDenoiser(c, device="cpu").run(groups) for label, c in cfgs.items()}
     for fn in wrappers.values():
         fn.launches = 0
+    ins = wrappers["median_window_insert"]
+    ins.vector_launches = ins.scalar_launches = 0
     outs5 = {
         label: {
             "run_pipelined(num_slots=2)": streaming.run_pipelined(c, iter(groups), num_slots=2)[0],
@@ -3464,6 +3524,9 @@ def main() -> int:
     missing = [k for k, n in filter_launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the filters' path: {missing}")
+    if ins.scalar_launches or ins.vector_launches != ins.launches:
+        raise AssertionError(f"B6 at the paper's shape: {ins.scalar_launches} of {ins.launches} "
+                             f"launches took the scalar path")
     snrs, bilateral_path_rel = {}, 0.0
     for label, runs5 in outs5.items():
         for how, out in runs5.items():

@@ -8,7 +8,7 @@ Run on the machine with the card, from the root of a checkout::
 
     python3 scripts/torch_time_steps.py [TREE] [--out FILE]
         [--b9-save FILE] [--b9-ref FILE] [--build-times] [--sass-mix MATCH] [--oneshot]
-        [--tmpframe]
+        [--tmpframe] [--median]
 
 ``TREE`` (default: this checkout) is the root of a checkout whose
 ``src/repro_torch`` is timed; its kernels are built from its own sources.
@@ -32,7 +32,11 @@ launch, and B10's pass B and B7 (K = 5) in the half types beside
 two trees' one-shots. ``--tmpframe`` times only B10, in float32, float16
 and bfloat16: pass A of each algorithm, pass B beside
 ``torch.sum(tmp, 0)``, and each algorithm in total, each with its byte
-bound. ``--build-times`` also
+bound. ``--median`` times only B6, the median window's insert, in every
+wire format into a float32, float16 and bfloat16 window (each with its
+byte bound), at the launch model's candidates for its plans, and on its
+scalar path (an unaligned view), with B3/B5 from u16 wire in each float
+type as the control for the pair difference they share. ``--build-times`` also
 compiles each of the tree's sources alone, cold, with the port's flags,
 and records the seconds of each; ``--sass-mix MATCH`` counts the SASS
 opcodes of every kernel whose mangled name the regular expression
@@ -252,6 +256,65 @@ def tmpframe_only(args, tree, rows, timed, wire, G, N, H, W, P, offset, peak_bw)
     return 0
 
 
+def median_only(args, tree, dev, rows, timed, wire, G, N, H, W, P, offset, peak_bw) -> int:
+    """``--median``: B6 at the paper's shape, one group into slot 2 of a
+    5-slot window, in every wire format and window type (the wire read
+    once, the slot written once), at each candidate of its family's tile
+    search, and on an unaligned view (the scalar path) from u16 into
+    float32; B3 and B5 (B = 2) from u16 wire, v1, in each float type;
+    prints the JSON object and writes ``--out``."""
+    import torch
+
+    from chip_smoke import nvidia_smi
+    from repro_torch.kernels import denoise_median, denoise_multibank, denoise_stream, quant
+    from repro_torch.tune import budget
+
+    limits = budget.device_limits(dev)
+    out_px = P * H * W
+    for fmt in ("u16", "u8", "p12"):
+        group = wire((N, H), fmt)
+        for acc in (torch.float32, torch.float16, torch.bfloat16):
+            tag, b = str(acc).split(".")[-1], torch.empty((), dtype=acc).element_size()
+            window = torch.zeros(5, P, H, W, dtype=acc, device=dev)
+            nbytes = N * H * W * quant.wire_pixel_bytes(fmt) + out_px * b
+            timed("median_window_insert", f"{fmt} {tag}",
+                  lambda: denoise_median.median_window_insert(window, group, slot=2,
+                                                              offset=offset, stream_dtype=fmt),
+                  bytes=nbytes, bound_us=nbytes / peak_bw * 1e6)
+            for th, tp in budget.model_candidates("median_insert", P, H, W, stream_dtype=fmt,
+                                                  vector=True, limits=limits)[1:]:
+                timed("median_window_insert", f"{fmt} {tag} tiles {th}x{tp}",
+                      lambda: denoise_median.median_window_insert(
+                          window, group, slot=2, offset=offset, stream_dtype=fmt,
+                          row_tile=th, pair_tile=tp))
+            del window
+    buf = torch.empty(N * H * W + 1, dtype=torch.uint16, device=dev)
+    view = buf[1:].view(N, H, W)
+    view.copy_(wire((N, H), "u16"))
+    window = torch.zeros(5, P, H, W, device=dev)
+    timed("median_window_insert", "u16 float32 scalar (unaligned)",
+          lambda: denoise_median.median_window_insert(window, view, slot=2, offset=offset))
+    del buf, view, window
+    banked = wire((2, G, N, H), "u16")
+    for acc in (torch.float32, torch.float16, torch.bfloat16):
+        tag, b = str(acc).split(".")[-1], torch.empty((), dtype=acc).element_size()
+        kw = dict(offset=offset, accum_dtype=acc)
+        for kernel, fn, frames, banks in (
+                ("alg3_subtract_average", denoise_stream.alg3_subtract_average, banked[0], 1),
+                ("multibank_subtract_average", denoise_multibank.multibank_subtract_average,
+                 banked, 2)):
+            nbytes = banks * (G * N * H * W * 2 + out_px * b)
+            timed(kernel, f"u16 v1 B={banks} {tag}", lambda: fn(frames, **kw), bytes=nbytes,
+                  bound_us=nbytes / peak_bw * 1e6)
+    out = dict(card=nvidia_smi(), tree=str(tree), torch=torch.__version__, rows=rows)
+    text = json.dumps(out)
+    print(text)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text + "\n")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", nargs="?", default=str(ROOT))
@@ -270,6 +333,9 @@ def main() -> int:
     ap.add_argument("--tmpframe", action="store_true",
                     help="time only B10: each pass and each algorithm in float32, float16 and "
                          "bfloat16, pass B beside torch.sum(tmp, 0)")
+    ap.add_argument("--median", action="store_true",
+                    help="time only B6 in every wire format and window type, at its plans' "
+                         "candidates and on its scalar path, with B3/B5 from u16 wire")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
@@ -341,6 +407,8 @@ def main() -> int:
         return tmpframe_only(args, tree, rows, timed, wire, G, N, H, W, P, offset, peak_bw)
     if args.oneshot:
         return oneshot_only(args, tree, dev, rows, timed, oneshots, wire, G, N, H, W, P, offset)
+    if args.median:
+        return median_only(args, tree, dev, rows, timed, wire, G, N, H, W, P, offset, peak_bw)
     for fmt in ("u16", "u8", "p12"):
         frames, s = wire((N, H), fmt), torch.zeros(P, H, W, device=dev)
         call = lambda: denoise_stream.alg3_stream_step(  # noqa: E731

@@ -57,7 +57,7 @@ ARGTYPES = {
     "bf16_quotient_launch":
         (_P, _P, _I64, _F, _F, _I, _P),
     "median_window_insert_launch":
-        (_P, _P, _I64, _I64, _I64, _I64, _I, _F, _F, _I64, _I64, _I, _P),
+        (_P, _P, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _I64, _I64, _I, _P),
     "median_combine_launch":
         (_P, _P, _I64, _I64, _I, _P),
     "ema_welford_step_launch":

@@ -325,11 +325,6 @@ struct VecAverage {
 #pragma unroll
     for (int j = 0; j < kPairs; ++j) s[j] = H::splat(0.0f);
   }
-  // pixels 2j and 2j + 1 of a wire vector, each rounded to A (exact for u8)
-  static __device__ __forceinline__ T wire2(const WireVec<FMT>& x, int j) {
-    return H::pack(exact_float(wire_value<FMT>(x, 2 * j)),
-                   exact_float(wire_value<FMT>(x, 2 * j + 1)));
-  }
   // x / G rounded once to A (bfloat16, whose host constant 1/G is float32)
   __device__ __forceinline__ T divide(T x) const {
     return H::pack(bf16_quotient<BY_PRODUCT>(__low2float(x), groups, rcp32),
@@ -338,16 +333,7 @@ struct VecAverage {
   __device__ __forceinline__ void add_group(const WireVec<FMT>& c, const WireVec<FMT>& e) {
 #pragma unroll
     for (int j = 0; j < kPairs; ++j) {
-      const T c2 = wire2(c, j), e2 = wire2(e, j);
-      T pre;
-      if constexpr (FMT == kU8 && kContracts) {  // fma(e, S, -(c*S)), one float16 FMA
-        pre = __hfma2(e2, scale, __hneg2(__hmul2_rn(c2, scale)));
-      } else if constexpr (FMT == kU8) {  // bfloat16: each operation rounded
-        pre = __hsub2_rn(__hmul2_rn(e2, scale), __hmul2_rn(c2, scale));
-      } else {
-        pre = __hsub2_rn(e2, c2);
-      }
-      const T d = __hadd2_rn(pre, off);
+      const T d = vec_diff2<FMT, A>(c, e, j, off, scale);
       if constexpr (!DIVIDE_FIRST) {
         s[j] = __hadd2_rn(s[j], d);
       } else if constexpr (kContracts) {
@@ -386,13 +372,8 @@ struct VecAverage<FMT, DIVIDE_FIRST, float, BY_PRODUCT> {
   }
   __device__ __forceinline__ void add_group(const WireVec<FMT>& c, const WireVec<FMT>& e) {
 #pragma unroll
-    for (int k = 0; k < kPixels; ++k) {
-      const float fc = exact_float(wire_value<FMT>(c, k));
-      const float fe = exact_float(wire_value<FMT>(e, k));
-      const float d = FMT == kU8 ? __fadd_rn(__fmaf_rn(fe, scale, -__fmul_rn(fc, scale)), off)
-                                 : __fadd_rn(__fsub_rn(fe, fc), off);
-      s[k] = fold<DIVIDE_FIRST>(s[k], d, rcp);
-    }
+    for (int k = 0; k < kPixels; ++k)
+      s[k] = fold<DIVIDE_FIRST>(s[k], vec_diff<FMT>(c, e, k, off, scale), rcp);
   }
   __device__ __forceinline__ void store(float* __restrict__ plane, int64_t v) const {
     float4* o = reinterpret_cast<float4*>(plane) + v * (kPixels / 4);
@@ -678,22 +659,6 @@ cudaError_t launch_step(const void* frames, void* sum, int64_t pairs, int height
 // Alignment (bytes) of a plane start that the vector path's loads need.
 int vector_align(int fmt) { return fmt == kU16 ? 16 : 8; }
 
-// The one-shot's vector path: whether its loads and stores can take planes of
-// plane_px pixels at these pointers (the host's oneshot_path rule).
-bool oneshot_vector_ok(int fmt, int64_t plane_px, const void* frames, const void* out) {
-  const auto ok = [&](auto vec) {
-    using V = decltype(vec);
-    return plane_px % V::kPixels == 0 && reinterpret_cast<uintptr_t>(frames) % V::kAlign == 0 &&
-           reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  };
-  switch (fmt) {
-    case kU16: return ok(WireVec<kU16>{});
-    case kU8: return ok(WireVec<kU8>{});
-    case kP12: return ok(WireVec<kP12>{});
-  }
-  return false;
-}
-
 // The vector path's one geometry (256 vectors a block, every bank-pair), or
 // the scalar layout's rows in the plan's tiles t.
 template <int FMT, bool DF, typename A>
@@ -792,7 +757,7 @@ int oneshot(const void* frames, void* out, int64_t banks, int64_t groups,
   const int64_t bp = banks * pairs;
   // the host chose the vector path; a shape it cannot take is refused, never rerouted
   const int64_t plane_px = height * items * (fmt == kP12 ? 2 : 1);
-  if (vector && (integer_acc(acc) || !oneshot_vector_ok(fmt, plane_px, frames, out)))
+  if (vector && (integer_acc(acc) || !wire_vectors_ok(fmt, plane_px, frames, out)))
     return cudaErrorInvalidValue;
   if (integer_acc(acc)) {  // integer sums: u16 or p12 wire, the scalar layout only
     if (groups < 1) return cudaErrorInvalidValue;

@@ -6,7 +6,8 @@
 // denoise_ema.cu) inline, so a wire byte is read once, in the kernel that
 // uses it. pair_diff reads one thread item (one pixel, or two for p12);
 // pair_diff8 and its loaders, below it, read eight pixels with vector loads
-// and round exactly as pair_diff does.
+// and round exactly as pair_diff does; vec_diff and vec_diff2 do the same on
+// the wider vectors of the one-shot's and the insert's vector paths.
 //
 // Rounding is part of the contract: the reference's jitted prologue computes
 // the u8 dequant as fma(e, S, -(c*S)) + offset. It is written here with _rn
@@ -346,6 +347,68 @@ struct Half2<__nv_bfloat16> {
   }
   static __device__ __forceinline__ T splat(float x) { return __float2bfloat162_rn(x); }
 };
+
+// The one pair difference of the vector paths (B3/B5's one-shot and B6's
+// insert): exc - ctl + offset of the pixels of a wire vector pair, rounded as
+// pair_diff_as rounds it. float32 (vec_diff): pixel k as pair_diff computes
+// it. A half type A (vec_diff2): pixels 2j and 2j + 1 in A's packed
+// arithmetic, one correctly rounded operation where pair_diff_acc rounds a
+// float one to A: u8 into float16 is one __hfma2 of fma(e, S, -(c*S)), as XLA
+// contracts it; bfloat16 contracts nothing; a u16 value is rounded to A in the
+// packed conversion. `off` and `scale` are the host's offset and u8 scale,
+// already rounded to the sum's type.
+template <int FMT>
+__device__ __forceinline__ float vec_diff(const WireVec<FMT>& c, const WireVec<FMT>& e, int k,
+                                          float off, float scale) {
+  const float fc = exact_float(wire_value<FMT>(c, k));
+  const float fe = exact_float(wire_value<FMT>(e, k));
+  return FMT == kU8 ? __fadd_rn(__fmaf_rn(fe, scale, -__fmul_rn(fc, scale)), off)
+                    : __fadd_rn(__fsub_rn(fe, fc), off);
+}
+
+// pixels 2j and 2j + 1 of a wire vector, each rounded to A (exact for u8)
+template <int FMT, typename A>
+__device__ __forceinline__ typename Half2<A>::T wire_pair(const WireVec<FMT>& x, int j) {
+  return Half2<A>::pack(exact_float(wire_value<FMT>(x, 2 * j)),
+                        exact_float(wire_value<FMT>(x, 2 * j + 1)));
+}
+
+template <int FMT, typename A>
+__device__ __forceinline__ typename Half2<A>::T vec_diff2(const WireVec<FMT>& c,
+                                                          const WireVec<FMT>& e, int j,
+                                                          typename Half2<A>::T off,
+                                                          typename Half2<A>::T scale) {
+  using T = typename Half2<A>::T;
+  const T c2 = wire_pair<FMT, A>(c, j), e2 = wire_pair<FMT, A>(e, j);
+  T pre;
+  if constexpr (FMT == kU8 && Acc<A>::kContracts) {  // fma(e, S, -(c*S)), one float16 FMA
+    pre = __hfma2(e2, scale, __hneg2(__hmul2_rn(c2, scale)));
+  } else if constexpr (FMT == kU8) {  // bfloat16: each operation rounded
+    pre = __hsub2_rn(__hmul2_rn(e2, scale), __hmul2_rn(c2, scale));
+  } else {
+    pre = __hsub2_rn(e2, c2);
+  }
+  return __hadd2_rn(pre, off);
+}
+
+// Whether the vector paths' loads and stores can take planes of plane_px
+// pixels at these pointers: plane_px a multiple of the vector, the frames
+// aligned for its loads (WireVec kAlign) and the output on 16 bytes; every
+// plane then starts so aligned (the host's denoise_stream.oneshot_path and
+// denoise_median.insert_path rule).
+inline bool wire_vectors_ok(int fmt, int64_t plane_px, const void* frames, const void* out) {
+  const auto ok = [&](auto vec) {
+    using V = decltype(vec);
+    return plane_px % V::kPixels == 0 && reinterpret_cast<uintptr_t>(frames) % V::kAlign == 0 &&
+           reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  };
+  switch (fmt) {
+    case kU16: return ok(WireVec<kU16>{});
+    case kU8: return ok(WireVec<kU8>{});
+    case kP12: return ok(WireVec<kP12>{});
+  }
+  return false;
+}
 
 // x / G rounded once to bfloat16, for a bfloat16 x (a pair difference, or a
 // sum): for G <= 64 (BY_PRODUCT) the product x * f32(1/G), which rounds to

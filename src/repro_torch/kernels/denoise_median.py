@@ -14,8 +14,21 @@
 
 The window is float32, float16 or bfloat16 (the even-K add rounds to
 its type). Dispatch, checks and launch counters are as in
-:mod:`repro_torch.kernels.denoise_stream`, and so is the insert's launch
-geometry (``row_tile`` rows of ``pair_tile`` pairs a block). The combine
+:mod:`repro_torch.kernels.denoise_stream`. The insert has two paths, chosen
+on the host (:func:`insert_path`) and passed to the kernel as a flag, which
+refuses a vector launch on operands that do not allow it and never
+reroutes one: the vector path takes the one-shot's wire vectors (8 u16
+pixels a thread in one 16-byte load, 16 u8 in one, 16 p12 in three 8-byte
+loads), computes their differences as the one-shot does (packed pairs for
+a half window) and stores 16-byte words of the slot; the scalar path takes
+a ragged plane or an unaligned view. Each launch is counted in
+``median_window_insert.vector_launches`` or ``.scalar_launches`` as well
+as in ``.launches``. The scalar path takes a plan's geometry,
+``row_tile`` rows of ``pair_tile`` pairs a block; the vector path has one
+layout (512 vectors of a pair a block) and validates a plan's tiles
+without taking them: each geometry the launch model offers ran slower on
+the H100, or equal within noise (``PERF.md`` section 6). Every geometry
+gives the same bits. The combine
 has one geometry, a flat grid of 256-thread blocks: it validates the
 tiles a plan gives it, as the reference does, and launches that one. The CUDA combine runs the
 network for K <= :data:`NETWORK_WINDOW` and, above it, an exact selection
@@ -36,11 +49,13 @@ from repro_torch.kernels.denoise_stream import (
     check_kernel_operands,
     check_launch,
     on_cuda,
+    oneshot_path,
 )
 from repro_torch.tune.budget import launch_tiles
 
 __all__ = [
     "NETWORK_WINDOW",
+    "insert_path",
     "median_window_insert",
     "median_window_insert_plain",
     "median_combine",
@@ -67,6 +82,20 @@ def _check_insert(window, group_frames, slot, stream_dtype):
         )
     if not 0 <= slot < k:
         raise ValueError(f"slot {slot} outside window of {k}")
+
+
+def insert_path(plane_px: int, stream_dtype: str, frames_ptr: int, slot_ptr: int) -> str:
+    """The insert kernel's path for planes of ``plane_px`` = H*W pixels.
+
+    ``"vector"`` (the one-shot's vector: 8 u16 or 16 u8/p12 pixels a
+    thread) when H*W is a multiple of that vector, the group's frames start
+    on the alignment of its loads (16 bytes, 8 for p12) and the window slot
+    on 16 bytes: every plane then starts so aligned. ``"scalar"``
+    otherwise: a ragged plane, an unaligned view. The rule is the
+    one-shot's (:func:`~repro_torch.kernels.denoise_stream.oneshot_path`),
+    for every float window.
+    """
+    return oneshot_path(plane_px, stream_dtype, frames_ptr, slot_ptr)
 
 
 def median_window_insert_plain(
@@ -100,19 +129,25 @@ def median_window_insert(
     dst = window[slot]
     fmt, items, row_bytes = check_kernel_operands(group_frames, window, stream_dtype)
     n, h, _ = group_frames.shape
+    path = insert_path(h * window.shape[-1], stream_dtype, group_frames.data_ptr(),
+                       dst.data_ptr())
     lib = _build.library()
     with torch.cuda.device(window.device):
         rc = lib.median_window_insert_launch(
-            group_frames.data_ptr(), dst.data_ptr(), n // 2, h, items, row_bytes,
-            fmt, *acc_constants(window.dtype, offset)[:2], *tiles, ACCUM_CODES[window.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            group_frames.data_ptr(), dst.data_ptr(), n // 2, h, items, row_bytes, fmt,
+            int(path == "vector"), *acc_constants(window.dtype, offset)[:2], *tiles,
+            ACCUM_CODES[window.dtype], torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "median_window_insert")
     median_window_insert.launches += 1
+    setattr(median_window_insert, f"{path}_launches",
+            getattr(median_window_insert, f"{path}_launches") + 1)
     return window
 
 
 median_window_insert.launches = 0
+median_window_insert.vector_launches = 0
+median_window_insert.scalar_launches = 0
 
 
 def median_combine_plain(window: torch.Tensor) -> torch.Tensor:

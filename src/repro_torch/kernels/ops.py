@@ -275,21 +275,25 @@ def multibank_subtract_average(
 def _xla_fused_banked(frames, *, offset, divide_first, accum_dtype, stream_dtype):
     """The reference's fused XLA one-shot over banks (``B, G, N, H, wire_W``).
 
-    Up to ``ref.XLA_REDUCE_WINDOW`` groups it is the kernel's plain version,
-    the reference's order there at G <= 8 (at 9-32 groups its compiler
-    orders some float32 and float16 sums otherwise, ``ROADMAP.md`` queue C).
-    Above that XLA's CPU compiler materializes the differences (Alg 3 v2:
-    each already divided by G, uncontracted) and sums them over the groups in
-    windows (``ref.xla_sum``); integer sums are exact in any order.
+    XLA's CPU compiler materializes nothing here but orders the group sum
+    by G: up to ``ref.XLA_REDUCE_WINDOW`` groups as its LLVM unrolls or
+    vectorizes the group loop (``ref.xla_group_sum``); above that in windows
+    (``ref.xla_sum``; Alg 3 v2: each difference already divided by G,
+    uncontracted). bfloat16 sums in order there, as the kernel's plain
+    version; integer sums are exact in any order.
     """
     g = frames.shape[1]
     acc = ref.as_torch_dtype(accum_dtype)
-    if g <= ref.XLA_REDUCE_WINDOW or not acc.is_floating_point:
+    small = g <= ref.XLA_REDUCE_WINDOW
+    if not acc.is_floating_point or (small and acc not in (torch.float32, torch.float16)):
         return denoise_multibank.multibank_subtract_average_plain(
             frames, offset=offset, divide_first=divide_first,
             accum_dtype=accum_dtype, stream_dtype=stream_dtype,
         )
     d = ref.pair_diff(frames, offset=offset, accum_dtype=acc, stream_dtype=stream_dtype)
+    if small:
+        return ref.xla_group_sum(d, divide_first=divide_first,
+                                 stream_dtype=stream_dtype, offset=offset)
     if divide_first:
         d = ref.scale_reciprocal(d, g)
     total = ref.xla_sum(list(d.unbind(1)))

@@ -227,6 +227,154 @@ def xla_sum(terms: list[torch.Tensor]) -> torch.Tensor:
         terms = sums
 
 
+# XLA's CPU compiler on the banked one-shot's group sum at up to 32 groups
+# (``jnp.sum`` over G of the fused differences, one fusion). Everything below
+# is read off that fusion's ``*.ir-with-opt.ll`` (``XLA_FLAGS=--xla_dump_to=DIR``,
+# jaxlib 0.9.0, a 2 x 4 x 4 x 64 plane) and held bitwise to the reference's
+# outputs in ``tests/test_torch_accumulators.py``.
+
+#: LLVM's vector width in XLA's CPU fusions: ``"prefer-vector-width"="256"``
+#: in the attributes of every function of the fusion's ``ir-with-opt.ll``
+XLA_VECTOR_BITS = 256
+
+#: the loop vectorizer's lanes for a float32 or float16 group loop: float32
+#: lanes of :data:`XLA_VECTOR_BITS` (float16 is computed in float32 on the
+#: host CPU); ``<8 x float>`` and ``<8 x half>`` adds in the IR
+XLA_LANES = XLA_VECTOR_BITS // 32
+
+#: How the group loop is summed from the first G at which LLVM stops
+#: unrolling it and vectorizes it instead; below that G it is unrolled and
+#: summed in order. Keyed by (accumulator, wire format, divide_first): rows of
+#: (first G, last G, even pixels' (lanes, epilogue), odd pixels'), the
+#: parities differing for p12, whose two pixels of a triplet unpack on
+#: separate branches. ``lanes`` is :data:`XLA_LANES` (``<8 x ...>`` adds
+#: into one accumulator) or twice it (two interleaved ``<8 x ...>``
+#: accumulators, or ``<16 x half>``), ``epilogue`` the lanes of the
+#: vectorized remainder loop (``vec.epilog.vector.body``), 0 for none
+#: (:func:`xla_lane_sum`). u16 Alg 3 sums in order at every G: LLVM
+#: vectorizes the pixel loop around it. bfloat16 is never vectorized. These
+#: rows hold for a nonzero offset (read at offset 100; the tests hold them
+#: at 100.5, 4094, 4095, 4096, 16383 and 16384).
+XLA_GROUP_LOOPS = {
+    ("float32", "u16", True): ((30, 32, (8, 0), (8, 0)),),
+    ("float32", "u8", False): ((28, 32, (8, 0), (8, 0)),),
+    ("float32", "u8", True): ((25, 32, (8, 0), (8, 0)),),
+    ("float32", "p12", False): ((17, 27, (8, 4), (8, 4)), (28, 32, (8, 0), (8, 0))),
+    ("float32", "p12", True): ((17, 27, (8, 4), (8, 4)), (28, 32, (8, 0), (8, 0))),
+    ("float16", "u16", True): ((30, 31, (8, 0), (8, 0)), (32, 32, (16, 0), (16, 0))),
+    ("float16", "u8", False): ((28, 31, (8, 0), (8, 0)), (32, 32, (16, 0), (16, 0))),
+    ("float16", "u8", True): ((25, 31, (8, 0), (8, 0)), (32, 32, (16, 0), (16, 0))),
+    ("float16", "p12", False): (
+        (16, 23, (8, 0), (8, 4)), (24, 31, (16, 8), (8, 0)), (32, 32, (16, 0), (16, 0))),
+    ("float16", "p12", True): (
+        (16, 23, (16, 4), (16, 4)), (24, 31, (8, 0), (8, 0)), (32, 32, (16, 0), (16, 0))),
+}
+
+#: :data:`XLA_GROUP_LOOPS` at offset 0, read off the IR at offset 0: the
+#: loop body has no offset add, so LLVM unrolls it up to a larger G
+XLA_GROUP_LOOPS_NO_OFFSET = {
+    ("float32", "u8", False): ((30, 32, (8, 0), (8, 0)),),
+    ("float32", "u8", True): ((28, 32, (8, 0), (8, 0)),),
+    ("float32", "p12", False): ((17, 17, (1, 0), (8, 4)), (18, 27, (8, 4), (8, 4)),
+                                (28, 32, (8, 0), (8, 0))),
+    ("float32", "p12", True): ((17, 17, (1, 0), (8, 4)), (18, 27, (8, 4), (8, 4)),
+                               (28, 32, (8, 0), (8, 0))),
+    ("float16", "u8", False): ((30, 31, (8, 0), (8, 0)), (32, 32, (16, 0), (16, 0))),
+    ("float16", "u8", True): ((28, 31, (8, 0), (8, 0)), (32, 32, (16, 0), (16, 0))),
+    ("float16", "p12", False): ((16, 16, (1, 0), (16, 8)), (17, 32, (16, 0), (16, 8))),
+    ("float16", "p12", True): (
+        (16, 23, (16, 8), (16, 4)), (24, 31, (16, 8), (8, 0)), (32, 32, (16, 0), (16, 0))),
+}
+
+#: float32 p12 Alg 3 v2 with an integer offset in this range: the
+#: difference is computed in i16 and converted by ``uitofp nneg``, so LLVM
+#: drops the sum's ``+ 0.0`` start and the first two terms' products meet in
+#: one add, which contracts as ``fma(d0, 1/G, f32(d1 / G))``
+XLA_NONNEG_P12_OFFSETS = (4095, 16383)
+
+#: ... except on the one branch that LLVM leaves a rolled loop from 0.0:
+#: the odd pixels at this G
+XLA_ROLLED_P12_ODD_G = 15
+
+
+def xla_lane_sum(n: int, lanes: int, epilogue: int, step) -> torch.Tensor:
+    """The sum of ``n`` terms as LLVM's loop vectorizer orders it.
+
+    ``lanes`` strided accumulators (lane k takes terms k, k + lanes, ...)
+    over the whole multiples of ``lanes``, halved into one (lanes k and
+    k + lanes/2 added, and again); then an ``epilogue`` of that many lanes,
+    the running sum in its lane 0, over the whole multiples left; then the
+    rest in order. ``lanes`` 1 sums in order. ``step(acc, k)`` adds term k
+    to ``acc`` (``None`` at a lane's first term), rounded as the caller's
+    type rounds it.
+    """
+
+    def halve(acc):
+        while len(acc) > 1:
+            h = len(acc) // 2
+            acc = [acc[i] + acc[i + h] for i in range(h)]
+        return acc[0]
+
+    total, pos = None, 0
+    if lanes > 1 and n >= lanes:
+        acc = [None] * lanes
+        for pos in range(0, n - n % lanes, lanes):
+            acc = [step(acc[k], pos + k) for k in range(lanes)]
+        pos += lanes
+        total = halve(acc)
+        if epilogue and n - pos >= epilogue:
+            acc = [total] + [None] * (epilogue - 1)
+            for pos in range(pos, n - (n - pos) % epilogue, epilogue):
+                acc = [step(acc[k], pos + k) for k in range(epilogue)]
+            pos += epilogue
+            total = halve(acc)
+    for k in range(pos, n):
+        total = step(total, k)
+    return total
+
+
+def xla_group_sum(
+    diffs: torch.Tensor, *, divide_first: bool, stream_dtype: str, offset: float
+) -> torch.Tensor:
+    """The reference's banked one-shot over 1-32 groups of differences
+    ``diffs`` (``B, G, N/2, H, W``, float32 or float16) as XLA's CPU
+    compiler sums them (:data:`XLA_GROUP_LOOPS`,
+    :data:`XLA_GROUP_LOOPS_NO_OFFSET`): Alg 3 v2 as
+    ``fma(d, 1/G, acc)`` at every add of a term, Alg 3 scaled by 1/G last."""
+    g, acc = diffs.shape[1], diffs.dtype
+    terms = list(diffs.unbind(1))
+    name = str(acc).removeprefix("torch.")
+    loops = XLA_GROUP_LOOPS if offset else XLA_GROUP_LOOPS_NO_OFFSET
+    rows = loops.get((name, stream_dtype, divide_first), ())
+    even = odd = (1, 0)
+    for lo, hi, e, o in rows:
+        if lo <= g <= hi:
+            even, odd = e, o
+    r = reciprocal(g, acc)
+    lo, hi = XLA_NONNEG_P12_OFFSETS
+    swap = (acc == torch.float32 and stream_dtype == "p12" and divide_first
+            and offset == int(offset) and lo <= offset <= hi)
+
+    def step(total, k):
+        if not divide_first:
+            return terms[k].clone() if total is None else total + terms[k]
+        return terms[k] * r if total is None else fma(terms[k], r, total)
+
+    def layout(lanes, epilogue, swapped):
+        if not (swapped and lanes == 1 and g > 1):
+            return xla_lane_sum(g, lanes, epilogue, step)
+        total = fma(terms[0], r, terms[1] * r)
+        for k in range(2, g):
+            total = step(total, k)
+        return total
+
+    odd_swap = swap and g != XLA_ROLLED_P12_ODD_G
+    total = layout(*even, swap)
+    if (odd, odd_swap) != (even, swap):
+        total[..., 1::2] = layout(*odd, odd_swap)[..., 1::2]
+    return total if divide_first else scale_reciprocal(total, g)
+
+
 def _split_pairs(frames: torch.Tensor) -> torch.Tensor:
     """(..., N, H, W) -> (..., N/2, 2, H, W) pairs view."""
     n = frames.shape[-3]

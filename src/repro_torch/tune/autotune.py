@@ -64,6 +64,7 @@ __all__ = [
     "tile_candidates",
     "tune_exec_knobs",
     "tune_plan",
+    "family_vector_path",
     "vector_path",
 ]
 
@@ -113,6 +114,18 @@ def vector_path(config) -> bool:
         and as_torch_dtype(getattr(config, "accum_dtype", "float32")) == torch.float32
         and int(config.height) * int(config.width) % 8 == 0
     )
+
+
+def family_vector_path(family: str, config) -> bool:
+    """Whether ``family``'s timed launches take a vector path: the step's
+    rule (:func:`vector_path`) for ``stream``; for ``median_insert`` the
+    insert's (``denoise_median.insert_path``: H·W a multiple of the wire
+    format's vector, any float window; the timer's fresh tensors are
+    aligned). Other families have one layout."""
+    if family == "median_insert":
+        return int(config.height) * int(config.width) % budget.INSERT_VECTOR_PX[
+            _stream_dtype(config)] == 0
+    return vector_path(config)
 
 
 def tile_candidates(
@@ -312,7 +325,7 @@ def _tune_exec_knobs(config, device: torch.device) -> dict:
         sub = dataclasses.replace(replay, frames_per_group=c)
         timer = family_timer(fam, sub, backend, device)
         th, tp = budget.model_candidates(
-            fam, c // 2, h, w, stream_dtype=sd, vector=vector_path(sub),
+            fam, c // 2, h, w, stream_dtype=sd, vector=family_vector_path(fam, sub),
             limits=budget.device_limits(device),
         )[0]
         per_frame[c] = timer(th, tp) / c
@@ -424,7 +437,8 @@ def _tune_plan(config, device: torch.device, cache: PlanCache | None) -> Plan:
             else:
                 timer = family_timer(family, config, backend, device)
                 cands = tile_candidates(family, p, h, w, stream_dtype=sd,
-                                        vector=vector_path(config), limits=limits)
+                                        vector=family_vector_path(family, config),
+                                        limits=limits)
                 heur = cands[0]  # the kernel's default layout, always first
                 # two round-robined passes, min per candidate: transient
                 # host load hits every candidate instead of biasing one.

@@ -25,7 +25,9 @@ family's timed kernel makes (:data:`REGISTERS`) and the card's limits
 pairs; ``None`` is the kernel's default layout (:func:`launch_tiles`
 passes it to a launcher as 0). The row-gridded kernels honour both
 (``stream``: the step's scalar layout, and its vector path as a share of
-``row_tile * W`` pixels in whole vectors; ``median_insert``). Three
+``row_tile * W`` pixels in whole vectors; ``median_insert`` on its scalar
+path, while its vector path has one layout, 512 vectors of a pair a
+block, and validates a plan's tiles without taking them). Three
 families have one geometry: ``median_combine`` (a flat 256-thread grid),
 ``spatial`` (its 16 x 128 tile) and ``ema``, whose 32-pixel tiles with 8
 chunk lanes are sized for residency (``csrc/denoise_ema.cu``) and whose
@@ -71,10 +73,18 @@ KERNEL_FAMILIES = ("stream", "median_insert", "median_combine", "ema", "spatial"
 PLACEMENT = "compiler"
 #: the families whose launchers honour ``row_tile`` / ``pair_tile``
 TILED_FAMILIES = ("stream", "median_insert")
-#: vectors of 8 pixels one pass of the step's vector path covers (256
-#: threads x 2, ``kVecPerBlock`` in ``csrc/denoise_stream.cu``): its
-#: default share a block
+#: vectors one pass of a block covers on the step's and the insert's vector
+#: paths (256 threads x 2, ``kVecPerBlock`` in ``csrc/denoise_stream.cu``,
+#: ``kInsertPerBlock`` in ``csrc/denoise_median.cu``): the step's default
+#: share, and the insert's one layout
 VECTOR_PASS = 512
+#: pixels of one vector on the insert's vector path, per wire format: the
+#: one-shot's vector (``denoise_stream.ONESHOT_VECTOR``)
+INSERT_VECTOR_PX = {"u16": 8, "u8": 16, "p12": 16}
+#: static shared memory of the insert's vector path (bytes): the warps'
+#: staging buffers of its float32 instances from u8 and p12 wire, the most
+#: of its instances (8 warps x 32 lanes x four 16-byte words)
+INSERT_VECTOR_SMEM = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,16 +141,18 @@ def _threads_for(items: int) -> int:
 def family_launch(family: str, w: int, *, stream_dtype: str = "u16",
                   vector: bool = True) -> LaunchSpec:
     """The kernel ``family``'s timer launches for planes of width ``w``:
-    the step (B2) on its vector path or its scalar layout for ``stream``,
-    the insert (B6), the combine (B7), the EMA step (B8), the 3x3 filter
-    (B9)."""
+    the step (B2) and the insert (B6) on their vector path or their scalar
+    layout, the combine (B7), the EMA step (B8), the 3x3 filter (B9)."""
     _family(family)
     items = _items(w, stream_dtype)
     if family == "stream":
-        if vector and stream_dtype != "p12":
+        if _vector(family, stream_dtype, vector):
             return LaunchSpec("stream_step_vec_kernel", 256, REGISTERS["stream_vector"])
         return LaunchSpec("stream_step_kernel", _threads_for(items), REGISTERS["stream_scalar"])
     if family == "median_insert":
+        if _vector(family, stream_dtype, vector):
+            return LaunchSpec("insert_vec_kernel", 256, REGISTERS["median_insert_vector"],
+                              smem=INSERT_VECTOR_SMEM)
         return LaunchSpec("insert_kernel", _threads_for(items), REGISTERS["median_insert"])
     if family == "median_combine":
         return LaunchSpec("combine_kernel", 256, REGISTERS["median_combine"])
@@ -160,6 +172,7 @@ REGISTERS = {
     "stream_vector": 57,
     "stream_scalar": 32,
     "median_insert": 32,
+    "median_insert_vector": 64,
     "median_combine": 32,
     "ema": 48,
     "spatial": 58,
@@ -192,6 +205,8 @@ def launch_blocks(family: str, p: int, h: int, w: int, row_tile: int | None,
     geometry (``None``: the kernel's default layout)."""
     _family(family)
     items = _items(w, stream_dtype)
+    if family == "median_insert" and vector:  # one layout
+        return math.ceil(h * w / INSERT_VECTOR_PX[stream_dtype] / VECTOR_PASS) * p
     if _vector(family, stream_dtype, vector):
         share = (row_tile * items + 7) // 8 if row_tile else VECTOR_PASS
         return math.ceil(h * items / 8 / share) * math.ceil(p / (pair_tile or 1))
@@ -216,7 +231,7 @@ def reject_reason(family: str, p: int, h: int, w: int, row_tile: int | None,
         resolve_tiles(family, p, h, w, row_tile, pair_tile)
     except ValueError as err:
         return str(err)
-    if family not in TILED_FAMILIES and (row_tile, pair_tile) != _default(family, p, h, w):
+    if _one_geometry(family, vector) and (row_tile, pair_tile) != _default(family, p, h, w):
         return f"{spec.kernel} has one geometry, {_default(family, p, h, w)}"
     if spec.threads > limits.threads_per_block:
         return f"{spec.threads} threads a block > {limits.threads_per_block}"
@@ -251,7 +266,7 @@ def launch_shape(family: str, p: int, h: int, w: int, row_tile: int | None,
     is the scalar layout's default)."""
     blocks = launch_blocks(family, p, h, w, row_tile, pair_tile, stream_dtype=stream_dtype,
                            vector=vector)
-    if family not in TILED_FAMILIES:
+    if _one_geometry(family, vector):
         return (family, blocks, pair_tile if family == "ema" else None)
     if _vector(family, stream_dtype, vector):
         share = (row_tile * _items(w, stream_dtype) + 7) // 8 if row_tile else VECTOR_PASS
@@ -304,7 +319,17 @@ def _items(w: int, stream_dtype: str) -> int:
     return w // 2 if stream_dtype == "p12" else w
 
 
+def _one_geometry(family: str, vector: bool) -> bool:
+    """Whether ``family``'s launch takes no plan geometry: the untiled
+    families, and the insert's vector path."""
+    return family not in TILED_FAMILIES or (family == "median_insert" and vector)
+
+
 def _vector(family: str, stream_dtype: str, vector: bool) -> bool:
+    """Whether ``family`` launches a vector path: the step's takes u16 and
+    u8 wire, the insert's every format."""
+    if family == "median_insert":
+        return vector
     return family == "stream" and vector and stream_dtype != "p12"
 
 
@@ -330,7 +355,7 @@ def admitted_tiles(family: str, p: int, h: int, w: int, *, stream_dtype: str = "
     divisors of H and N/2 that :func:`reject_reason` passes. A family with
     one geometry admits that one."""
     out = [_default(family, p, h, w)]
-    if family in TILED_FAMILIES:
+    if not _one_geometry(family, vector):
         for th in _divisors(h):
             for tp in _divisors(p):
                 if reject_reason(family, p, h, w, th, tp, stream_dtype=stream_dtype,

@@ -12,9 +12,9 @@ in float16 (reciprocal multiplies, FMAs rounded once), bfloat16 rounds
 every operation and divides truly, and ``jnp.sum`` without a dtype sums
 either in float32.
 
-Tolerance: **bitwise**, output dtype included, everywhere but the one
-declared float32 band of the reference's banked XLA path (p12, Alg 3 v2,
-G not a power of two; ``ROADMAP.md`` queue C), which is held within it.
+Tolerance: **bitwise**, output dtype included, everywhere; the
+reference's banked XLA path too, whose group order the port follows
+(``ref.XLA_GROUP_LOOPS``).
 
 On the CPU the reference's ``auto`` is its XLA path and the port's
 ``auto`` the kernels' plain versions; for Alg 1/2 in a half type the
@@ -55,14 +55,11 @@ def _np(x):
     return x.astype(np.float32) if x.dtype.name == "bfloat16" else x, x.dtype.name
 
 
-def _same(got, want, rtol=0.0):
+def _same(got, want):
     (g, gd), (w, wd) = _np(got), _np(want)
     assert gd == wd and g.shape == w.shape, (gd, wd, g.shape, w.shape)
-    if rtol:
-        np.testing.assert_allclose(g, w, rtol=rtol, atol=0)
-    else:
-        assert np.array_equal(g, w, equal_nan=True), float(np.nanmax(np.abs(
-            g.astype(np.float64) - w)))
+    assert np.array_equal(g, w, equal_nan=True), float(np.nanmax(np.abs(
+        g.astype(np.float64) - w)))
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +163,108 @@ def test_xla_windows_are_the_reference_compilers(g):
     assert len(windows) == (g + low + high) // size
     assert all(hi - lo == size for lo, hi in windows[1:-1])
     assert windows[-1][1] - windows[-1][0] == size - high
+
+
+@pytest.mark.parametrize("g", [5, 9, 12, 16, 17, 24, 28, 31, 32, 33])
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("acc", ("float32",) + HALF)
+def test_banked_xla_one_shot_sums_in_the_reference_compilers_order(acc, fmt, g):
+    # At 9-32 groups XLA's CPU compiler unrolls the banked one-shot's group
+    # loop or vectorizes it (strided lanes, an epilogue, the rest in order),
+    # by type, format, variant, pixel parity and whether there is an offset
+    # (ref.XLA_GROUP_LOOPS); below and above, G = 5 and 33 stay bitwise. A
+    # plane of 2 x 4 x 4 x 64 (B, N, H, W); offsets 0 (no offset add),
+    # 100.5 (a float add) and 4096 (an integer add, for p12 provably
+    # nonnegative: ref.XLA_NONNEG_P12_OFFSETS)
+    b, n, h, w = 2, 4, 4, 64
+    px = np.random.default_rng(g).integers(0, 4096, (b, g, n, h, w)).astype(np.uint16)
+    wire = jquant.encode(px, fmt)
+    for offset in (0.0, 100.5, OFFSET):
+        for algorithm in ("alg3", "alg3_v2"):
+            kw = dict(offset=offset, algorithm=algorithm, backend="xla", accum_dtype=acc,
+                      stream_dtype=fmt)
+            _same(ops.multibank_subtract_average(torch.from_numpy(wire), **kw),
+                  jops.multibank_subtract_average(jnp.asarray(wire), **kw))
+
+
+@pytest.mark.parametrize("offset", [4094.0, 4095.0, 16383.0, 16384.0])
+def test_banked_xla_p12_v2_starts_as_the_reference_compiler_at_the_offset_bounds(offset):
+    # float32 p12 Alg 3 v2 with an integer offset of 4095-16383 (the
+    # difference provably nonnegative in i16): the sum's first two terms
+    # contract the other way round (ref.XLA_NONNEG_P12_OFFSETS), except on
+    # the odd pixels at G = 15, a rolled loop (ref.XLA_ROLLED_P12_ODD_G)
+    b, n, h, w = 2, 4, 4, 64
+    for g in (3, 9, 15, 17):
+        px = np.random.default_rng(g).integers(0, 4096, (b, g, n, h, w)).astype(np.uint16)
+        wire = jquant.encode(px, "p12")
+        kw = dict(offset=offset, algorithm="alg3_v2", backend="xla", stream_dtype="p12")
+        _same(ops.multibank_subtract_average(torch.from_numpy(wire), **kw),
+              jops.multibank_subtract_average(jnp.asarray(wire), **kw))
+
+
+#: a script that compiles the reference's banked XLA one-shot for each case of
+#: argv[2] (JSON: [accumulator, format, algorithm, G, offset]) with
+#: XLA_FLAGS=--xla_dump_to=argv[1] set before JAX starts, and prints, per
+#: case, the vector width of its fusion's functions and the widths of the
+#: vector reductions in its optimized IR
+_IR_PROBE = r"""
+import glob, json, re, sys
+import numpy as np
+import jax.numpy as jnp
+from repro.kernels import ops, quant
+
+out = []
+for acc, fmt, algorithm, g, offset in json.loads(sys.argv[2]):
+    before = set(glob.glob(sys.argv[1] + "/*ir-with-opt.ll"))
+    wire = quant.encode(np.zeros((2, g, 4, 4, 64), np.uint16), fmt)
+    ops.multibank_subtract_average(jnp.asarray(wire), offset=offset, algorithm=algorithm,
+                                   backend="xla", accum_dtype=acc,
+                                   stream_dtype=fmt).block_until_ready()
+    ir = "".join(open(f).read() for f in set(glob.glob(sys.argv[1] + "/*ir-with-opt.ll")) - before)
+    bits = re.findall(r'"prefer-vector-width"="(\d+)"', ir)
+    lanes = re.findall(r"vector\.reduce\.fadd\.v(\d+)f", ir)
+    out.append(dict(bits=sorted({int(b) for b in bits}), lanes=sorted({int(n) for n in lanes})))
+print(json.dumps(out))
+"""
+
+
+def test_xla_vector_width_and_thresholds_are_this_hosts(tmp_path):
+    # ref.XLA_GROUP_LOOPS was read off the IR of one host CPU. Its vector
+    # width (and so the lane count) and the G at which LLVM starts to
+    # vectorize each group loop come from the host's LLVM target, so this
+    # test reads them off the IR of the host it runs on, in a subprocess
+    # (the dump flag must be set before JAX starts), and says which differs.
+    import json
+    import os
+    import subprocess
+    import sys
+
+    cases, want = [], []
+    for offset, loops in ((100.0, ref.XLA_GROUP_LOOPS), (0.0, ref.XLA_GROUP_LOOPS_NO_OFFSET)):
+        for (acc, fmt, divide_first), rows in loops.items():
+            if fmt == "p12":  # its parities start apart: held by the bitwise test above
+                continue
+            first, lanes = rows[0][0], rows[0][2][0]
+            assert lanes == ref.XLA_LANES
+            algorithm = "alg3_v2" if divide_first else "alg3"
+            cases += [[acc, fmt, algorithm, g, offset] for g in (first - 1, first)]
+            want += [[], [lanes]]
+    cases.append(["float32", "u16", "alg3", 32, 100.0])  # the pixel loop vectorizes instead
+    want.append([])
+    env = dict(os.environ, XLA_FLAGS=f"--xla_dump_to={tmp_path}", JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(p for p in sys.path if p)
+    res = subprocess.run([sys.executable, "-c", _IR_PROBE, str(tmp_path), json.dumps(cases)],
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    widths = {b for row in got for b in row["bits"]}
+    assert widths == {ref.XLA_VECTOR_BITS}, (
+        f"this host's XLA emits prefer-vector-width {sorted(widths)}, the port's group order "
+        f"(ref.XLA_GROUP_LOOPS) was read at {ref.XLA_VECTOR_BITS} bits")
+    for case, row, lanes in zip(cases, got, want):
+        assert row["lanes"] == lanes, (
+            f"{case}: this host's XLA reduces in {row['lanes']} lanes, the port expects "
+            f"{lanes} (ref.XLA_GROUP_LOOPS)")
 
 
 @pytest.mark.parametrize("g", [65, 100])

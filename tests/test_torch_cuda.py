@@ -274,6 +274,83 @@ def test_oneshot_kernel_refuses_a_vector_launch_its_planes_do_not_allow(cuda, mo
         denoise_stream.alg3_subtract_average(frames)
 
 
+def _insert_paths():
+    fn = denoise_median.median_window_insert
+    return fn.vector_launches, fn.scalar_launches
+
+
+@pytest.mark.parametrize("acc", FLOATS, ids=["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+@pytest.mark.parametrize(
+    "n, hw, shift_bytes",
+    [(64, (80, 256), 0), (12, (40, 136), 0), (12, (1, 16), 0), (12, (7, 130), 0),
+     (12, (40, 136), 2), (12, (40, 136), 8)],
+    ids=["paper-plane", "partial-block", "one-vector", "ragged-7x130", "view-2-bytes-in",
+         "view-8-bytes-in"],
+)
+def test_median_insert_takes_the_path_its_operands_allow(cuda, fmt, acc, n, hw, shift_bytes):
+    # B6 into a 5-slot window that wraps (8 groups), offset 0 and 4096, the
+    # wire formats' extreme values: 80 x 256 (the paper's plane) and 40 x 136
+    # (a partial block and warp) on the vector path; one vector a plane; a
+    # ragged 7 x 130 plane and views 2 (3 for p12) and 8 bytes in, where only
+    # p12's 8-byte loads take the vector path
+    h, w = hw
+    if fmt == "p12" and shift_bytes == 2:
+        shift_bytes = 3
+    frames = _extreme_wire((8, n, h), fmt, seed=n * h + shift_bytes, width=w)
+    want_path = denoise_median.insert_path(h * w, fmt, 4096 + shift_bytes, 4096)
+    assert want_path == ("vector" if h * w % denoise_stream.ONESHOT_VECTOR[fmt][0] == 0
+                         and shift_bytes % denoise_stream.ONESHOT_VECTOR[fmt][1] == 0
+                         else "scalar")
+
+    def place(t):
+        k = shift_bytes // t.element_size()
+        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=cuda)
+        view = buf[k:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    before = _insert_paths()
+    for offset in (0.0, 4096.0):
+        window = torch.zeros(5, n // 2, h, w, dtype=acc, device=cuda)
+        wc = window.cpu()
+        for g in range(8):
+            kw = dict(slot=g % 5, offset=offset, stream_dtype=fmt)
+            denoise_median.median_window_insert(window, place(frames[g]), **kw)
+            denoise_median.median_window_insert_plain(wc, frames[g], **kw)
+        assert _same_bits(window, wc), offset
+    took = tuple(a - b for a, b in zip(_insert_paths(), before))
+    assert took == ((16, 0) if want_path == "vector" else (0, 16))
+
+
+@pytest.mark.parametrize("acc", FLOATS, ids=["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("fmt", quant.STREAM_DTYPES)
+def test_median_insert_every_tile_bitwise_equal_default(cuda, fmt, acc):
+    # every (row_tile, pair_tile) a plan may name at 40 x 136 with 6 pairs
+    # (exact divisors) launches, on the vector path (which keeps its one
+    # layout under any plan), bitwise the default launch
+    frames = _extreme_wire((2, 12, 40), fmt, seed=9, width=136).to(cuda)
+    kw = dict(slot=1, offset=4096.0, stream_dtype=fmt)
+    want = torch.zeros(2, 6, 40, 136, dtype=acc)
+    denoise_median.median_window_insert_plain(want, frames[0].cpu(), **kw)
+    before = _insert_paths()
+    geoms = [(None, None)] + [(th, tp) for th in (1, 2, 4, 5, 8, 10, 20, 40) for tp in (1, 2, 3, 6)]
+    for th, tp in geoms:
+        window = torch.zeros(2, 6, 40, 136, dtype=acc, device=cuda)
+        denoise_median.median_window_insert(window, frames[0], row_tile=th, pair_tile=tp, **kw)
+        assert _same_bits(window, want), (th, tp)
+    assert tuple(a - b for a, b in zip(_insert_paths(), before)) == (len(geoms), 0)
+
+
+def test_median_insert_refuses_a_vector_launch_its_operands_do_not_allow(cuda, monkeypatch):
+    # the path is the host's choice; the kernel raises on a wrong one, never reroutes
+    monkeypatch.setattr(denoise_median, "insert_path", lambda *a: "vector")
+    frames = _wire((1, 12, 7), "u16", seed=3, width=130)[0].to(cuda)
+    with pytest.raises(RuntimeError, match="median_window_insert: CUDA launch failed"):
+        denoise_median.median_window_insert(torch.zeros(2, 6, 7, 130, device=cuda), frames,
+                                            slot=0)
+
+
 @pytest.mark.parametrize(
     "pairs, pair_tile, hw, groups",
     [(500, 1, (16, 256), 2), (40, 40, (80, 256), 2), (60, 4, (7, 130), 3)]
@@ -794,6 +871,7 @@ GEOMETRY_CASES = {
     "B5-p12": ("stream", "p12", False),
     "B6-u16": ("median_insert", "u16", False),
     "B6-p12": ("median_insert", "p12", False),
+    "B6-scalar-unaligned-u8": ("median_insert", "u8", False),
     "B10-alg1": ("stream", "u16", False),
     "B10-alg2": ("stream", "u16", False),
     "B10-alg1-float16": ("stream", "u16", False),
@@ -826,6 +904,8 @@ def _geometry_call(case, frames, device, tiles):
         return denoise_multibank.multibank_subtract_average(f, **kw)
     if case.startswith("B6"):
         one = f[0, 0]
+        if case.endswith("unaligned-u8") and device != "cpu":
+            one = _shifted(one, device)
         n, h, wp = one.shape
         window = torch.zeros(2, n // 2, h, quant.logical_width(wp, kw["stream_dtype"]),
                              device=device)
@@ -862,12 +942,16 @@ def test_every_admitted_geometry_bitwise_equal_plain(cuda, case, shape):
     b2 = denoise_stream.alg3_stream_step
     paths = (b2.vector_launches, b2.scalar_launches)
     b10_paths = _tmpframe_paths()
+    b6_paths = _insert_paths()
     for th, tp in geoms:
         got = _geometry_call(case, frames, cuda, dict(row_tile=th, pair_tile=tp))
         assert torch.equal(got, want), (case, shape, th, tp)
     if case.startswith("B2"):  # every geometry on the path the case names
         taken = (b2.vector_launches - paths[0], b2.scalar_launches - paths[1])
         assert taken == ((len(geoms), 0) if vector else (0, len(geoms)))
+    if case.startswith("B6"):  # the vector path validates the tiles, keeps its layout
+        taken = tuple(a - b for a, b in zip(_insert_paths(), b6_paths))
+        assert taken == ((0, len(geoms)) if case.endswith("unaligned-u8") else (len(geoms), 0))
     if case.startswith("B10"):  # both passes on their vector paths in every geometry
         taken = [(v - v0, s - s0) for (v, s), (v0, s0) in zip(_tmpframe_paths(), b10_paths)]
         assert taken == [(len(geoms), 0)] * 2

@@ -167,6 +167,45 @@ def test_property_candidates_exact_divisors_within_limits():
     check()
 
 
+@pytest.mark.parametrize("fmt", ["u16", "u8", "p12"])
+def test_launch_model_gives_the_median_insert_its_vector_layout(fmt):
+    # B6's vector path: 256 threads with their staging buffers, the
+    # one-shot's vector, one layout of 512 vectors of a pair a block, which
+    # no plan geometry changes; its scalar layout: a plan's rows of pairs
+    p, h, w = 500, 80, 256
+    px = budget.INSERT_VECTOR_PX[fmt]
+    assert px == denoise_stream.ONESHOT_VECTOR[fmt][0]
+    spec = budget.family_launch("median_insert", w, stream_dtype=fmt, vector=True)
+    assert (spec.kernel, spec.threads, spec.smem) == ("insert_vec_kernel", 256,
+                                                      budget.INSERT_VECTOR_SMEM)
+    assert spec.registers == budget.REGISTERS["median_insert_vector"]
+    blocks = -(-(h * w // px) // budget.VECTOR_PASS) * p
+    kw = dict(stream_dtype=fmt)
+    for geom in ((None, None), (8, 5), (80, 1)):
+        assert budget.launch_blocks("median_insert", p, h, w, *geom, **kw) == blocks
+    assert "one geometry" in budget.reject_reason("median_insert", p, h, w, 8, 5, **kw)
+    assert budget.admitted_tiles("median_insert", p, h, w, **kw) == [(None, None)]
+    assert budget.model_candidates("median_insert", p, h, w, **kw) == [(None, None)]
+    scalar = dict(stream_dtype=fmt, vector=False)
+    assert budget.family_launch("median_insert", w, **scalar).kernel == "insert_kernel"
+    assert budget.launch_blocks("median_insert", p, h, w, 2, 5, **scalar) == (h // 2) * (p // 5)
+    assert budget.reject_reason("median_insert", p, h, w, 2, 5, **scalar) is None
+    assert len(budget.model_candidates("median_insert", p, h, w, **scalar)) > 1
+
+
+def test_tuner_takes_the_inserts_vector_rule_not_the_steps():
+    # the insert's vector path takes p12 and half windows, which the step's
+    # does not; it needs H*W to be a multiple of the format's vector
+    kw = dict(filter_name="temporal_median", frames_per_group=1000)
+    for fmt, acc, (h, w), insert, step in (
+            ("u16", "float32", (80, 256), True, True), ("p12", "float32", (80, 256), True, False),
+            ("u8", "float16", (80, 256), True, False), ("u16", "bfloat16", (4, 130), True, False),
+            ("u8", "float32", (4, 130), False, True), ("p12", "float32", (7, 130), False, False)):
+        cfg = DenoiseConfig(height=h, width=w, stream_dtype=fmt, accum_dtype=acc, **kw)
+        assert autotune.family_vector_path("median_insert", cfg) is insert, (fmt, acc, h, w)
+        assert autotune.family_vector_path("stream", cfg) is autotune.vector_path(cfg) is step
+
+
 def test_ema_heuristic_pinned_to_legacy_pick():
     for p, h, w in [(96, 80, 256), (56, 80, 256), (500, 80, 256), (10, 16, 64), (3, 8, 32)]:
         th = _pick_row_tile(h, w)
