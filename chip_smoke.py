@@ -241,6 +241,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1597,22 +1598,23 @@ def _step_param_bytes(model, decode_routes, gen: int) -> float:
     return n * 4
 
 
-def scaled_init(model, generator, device):
-    """Random parameters for 12e-12j: the reference's rules, except that
+def scaled_init(model, generator, device, mesh=None, rules=None):
+    """Random parameters for 12e-12j and 15: the reference's rules, except that
     every ``fan_in`` weight is drawn N(0, 1/d_model). The reference's
     ``fan_in`` divides by the square root of a leaf's first axis, which for
     a stacked weight is its layer count (1/sqrt(8) for mixtral's experts,
     not 1/sqrt(4096)): such a random model amplifies rounding until its
     bfloat16 forward lies O(1) of max |logit| from its float32 one, and no
     two orders of the same bfloat16 sums agree within ``BF16_CONSISTENCY``
-    (PERF.md §6)."""
+    (PERF.md §6). Over a ``mesh`` of several ranks each rank keeps its
+    shard of the same parameters."""
     from repro_torch.checkpoint.checkpoint import map_tree
     from repro_torch.distributed import sharding as sh
 
     scale = 1.0 / math.sqrt(model.cfg.d_model)
     spec = map_tree(lambda s: dataclasses.replace(s, init="normal", scale=scale)
                     if s.init == "fan_in" else s, model.spec())
-    return sh.init_params(spec, generator=generator, device=device)
+    return sh.init_params(spec, generator=generator, device=device, mesh=mesh, rules=rules)
 
 
 def serve_family_run(label, arch, depth, batch, prompt_len, gen, *, smi, peak_bw) -> dict:
@@ -2176,6 +2178,300 @@ def roofline_phase(smi: str, wrappers: dict) -> dict:
     print(f"phase 14: launches of the port's kernels {json.dumps(launches)} (none on this "
           f"path); {record['seconds']:.1f} s")
     return record
+
+#: phase 15: the dense family over a (2, 2) mesh of four ranks that share
+#: the one card, a gloo group met through a file: gemma3-1b at its published
+#: widths and depth in float32 (TF32 off, ``scaled_init``)
+MESH_SHAPE, MESH_RANKS = (2, 2), 4
+MESH_SERVE = dict(batch=4, prompt=128, gen=8)
+MESH_TRAIN = dict(batch=8, seq=128, steps=2)
+MESH_LR = 1e-3
+MESH_TIMEOUT_S = 600.0
+#: against the same weights in one process on the card (ROADMAP.md queue C):
+#: logits within this fraction of max |logit|, the loss and grad_norm
+#: relative, every new parameter within 2 lr (AdamW's first steps move each
+#: by about lr times the sign of its gradient)
+MESH_SERVE_RTOL = 3e-5
+MESH_LOSS_RTOL = 1e-6
+MESH_GN_RTOL = 5e-5
+#: each leaf's AdamW moments within this fraction of the leaf's largest
+#: (nu, a square, twice it): a gradient reduced twice or over the wrong axis
+#: moves a leaf's moments by half its largest or more, the model's own
+#: rounding by far less (queue C: 4.6e-3 between the two frameworks on
+#: smoke gemma3)
+MESH_MOMENT_RTOL = 1e-2
+
+
+class CollectiveTally:
+    """Counts the collectives the mesh's steps issue while it is entered,
+    with the bytes of each call's local input: it wraps the functional
+    collectives DTensor's placements call (the names of the card's torch,
+    2.11) and ``torch.distributed.all_reduce`` (the embedding's sum over
+    the vocabulary's split, ``models.layers._rows``)."""
+
+    def __init__(self):
+        self.calls: collections.Counter = collections.Counter()
+        self.bytes: collections.Counter = collections.Counter()
+
+    def __enter__(self):
+        import torch.distributed as dist
+        import torch.distributed._functional_collectives as funcol
+        from torch.distributed.tensor import placement_types as pt
+
+        issuers = (("all_gather_into_tensor", funcol, "all_gather_tensor"),
+                   ("reduce_scatter_tensor", funcol, "reduce_scatter_tensor"),
+                   ("all_reduce", funcol, "all_reduce"),
+                   ("all_to_all_single", pt, "shard_dim_alltoall"),
+                   ("all_reduce (torch.distributed)", dist, "all_reduce"))
+        self._saved = []
+        for name, mod, attr in issuers:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def call(t, *args, **kwargs):
+            self.calls[name] += 1
+            self.bytes[name] += t.numel() * t.element_size()
+            return fn(t, *args, **kwargs)
+
+        return call
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+    def summary(self) -> dict:
+        return {k: {"calls": self.calls[k], "bytes": self.bytes[k]} for k in sorted(self.calls)}
+
+
+def mesh_rank(rank: int, root: str) -> None:
+    """One of phase 15's four ranks (``chip_smoke.py --mesh-rank R DIR``):
+    the probe, then gemma3-1b's prefill, decode and train steps over the
+    mesh; rank 0 then runs the same in this one process without a mesh and
+    writes ``DIR/result.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpoint import flat_leaves, map_tree, to_host
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.inputs import make_train_batch
+    from repro_torch.launch.mesh import make_mesh, start_group
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import full_float32_matmul
+    from repro_torch.optim import AdamW
+
+    import faulthandler
+
+    faulthandler.enable()  # a crash in a collective leaves its stack in the rank's log
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    start_group(str(Path(root) / "store"), rank, MESH_RANKS, timeout_s=MESH_TIMEOUT_S)
+    lead = rank == 0
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_gloo_cuda_probe import probe
+
+    res: dict = {"probe": probe(dev)}
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"))
+    res["probe_functional"] = probe(dev, functional=True)
+    cfg = dataclasses.replace(get_config("gemma3-1b"), dtype="float32")
+    model = build_model(cfg)
+    rules = steps.resolve_rules(cfg, mesh)
+    b, p, gen = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_SERVE["gen"]
+    tb, ts = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+    tokens = make_train_batch(cfg, b, p, seed=1, device=dev)["tokens"]
+    data = DataPipeline(cfg, batch=tb, seq=ts, device=dev)
+    spec = model.cache_spec(b, p + gen)
+
+    def pad(t, s):
+        widths = [w for n, m in reversed(list(zip(t.shape, s.shape))) for w in (0, m - n)]
+        return torch.nn.functional.pad(t, tuple(widths),
+                                       value=s.scale if s.init == "const" else 0)
+
+    def synced(fn, *args):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def run(mesh_or_none):
+        """Serve, then train, on the mesh or (None) on one device ->
+        (logits, tokens, losses, grad norms, params, AdamW's state, times,
+        collectives)."""
+        on_mesh = mesh_or_none is not None
+        m = mesh_or_none if on_mesh else make_mesh((1, 1), ("data", "model"))
+        r = steps.resolve_rules(cfg, m)
+        params = scaled_init(model, torch.Generator(device=dev).manual_seed(0), dev,
+                             mesh=m, rules=r)
+        prefill, _ = steps.jit_prefill_step(model, m, r, batch=b, seq=p)
+        decode, _ = steps.jit_decode_step(model, m, r, batch=b, seq=p + gen)
+        opt = AdamW(learning_rate=MESH_LR)
+        train, _ = steps.jit_train_step(model, opt, m, r, microbatches=1, batch=tb, seq=ts)
+        out = dict(logits=[], tokens=[], losses=[], grad_norms=[], ms={}, collectives={})
+        with torch.no_grad(), full_float32_matmul():
+            (logits, caches), out["ms"]["prefill"] = synced(prefill, params, {"tokens": tokens})
+            out["logits"].append(to_host(logits))
+            caches = map_tree(pad, map_tree(lambda t: torch.from_numpy(to_host(t)).to(dev),
+                                            caches), spec)
+            decode_ms = []
+            for i in range(gen):
+                tok = torch.from_numpy(out["logits"][-1].argmax(-1).astype(np.int32)).to(dev)
+                out["tokens"].append(tok.cpu().numpy())
+                if i == 0 and on_mesh:
+                    with CollectiveTally() as tally:
+                        (logits, caches), ms = synced(decode, params, caches,
+                                                      {"token": tok[:, None]}, p + i)
+                    out["collectives"]["decode_step"] = tally.summary()
+                else:
+                    (logits, caches), ms = synced(decode, params, caches,
+                                                  {"token": tok[:, None]}, p + i)
+                decode_ms.append(ms)
+                out["logits"].append(to_host(logits))
+            out["ms"]["decode"] = decode_ms
+        del caches
+        opt_state = opt.init(params)
+        train_ms = []
+        with full_float32_matmul():
+            for i in range(MESH_TRAIN["steps"]):
+                batch = data.batch_at(i)
+                if i == 0 and on_mesh:
+                    with CollectiveTally() as tally:
+                        (params, opt_state, met), ms = synced(train, params, opt_state, batch)
+                    out["collectives"]["train_step"] = tally.summary()
+                else:
+                    (params, opt_state, met), ms = synced(train, params, opt_state, batch)
+                train_ms.append(ms)
+                out["losses"].append(float(met["loss"]))
+                out["grad_norms"].append(float(met["grad_norm"]))
+        out["ms"]["train"] = train_ms
+        out["params"], out["opt"] = params, opt_state
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = run(mesh)
+    res["peak_gb_rank"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["mesh"] = {k: got[k] for k in ("tokens", "losses", "grad_norms", "ms", "collectives")}
+    res["placements"] = {
+        "logits": str(steps._logits_sharding(cfg, mesh, rules, b).placements),
+        "embedding": str(got["params"]["embed"]["embedding"].placements)}
+    dist.barrier()
+    want = run(None) if lead else None
+    dist.barrier()
+    if lead:
+        res["one"] = {k: want[k] for k in ("tokens", "losses", "grad_norms", "ms")}
+        scale = max(float(np.abs(x).max()) for x in want["logits"])
+        res["logits_max_rel"] = max(float(np.abs(a - w).max()) / scale
+                                    for a, w in zip(got["logits"], want["logits"]))
+        res["tokens_equal"] = all(np.array_equal(a, w) for a, w in
+                                  zip(got["tokens"], want["tokens"]))
+    worst = {"params": 0.0, "mu": 0.0, "nu": 0.0}
+    for key in worst:
+        tree = got["params"] if key == "params" else got["opt"][key]
+        ours = flat_leaves(tree)
+        mine = (flat_leaves(want["params"] if key == "params" else want["opt"][key]) if lead
+                else [None] * len(ours))
+        for leaf, ref in zip(ours, mine):
+            full = leaf.full_tensor()  # every rank gathers; rank 0 compares
+            if lead:
+                err = float((full - ref).abs().max())
+                if key != "params":  # the moments: a fraction of each leaf's largest
+                    err /= max(float(ref.abs().max()), 1e-30)
+                worst[key] = max(worst[key], err)
+            del full
+    if lead:
+        res["params_max_abs"] = worst["params"]
+        res["moments_max_rel"] = {"mu": worst["mu"], "nu": worst["nu"]}
+        res["lr"] = MESH_LR
+        (Path(root) / "result.json").write_text(json.dumps(res, default=str))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_phase(smi: str, record: dict) -> dict:
+    """Phase 15: the dense family over a ``(2, 2)`` mesh (DTensor
+    placements over a gloo group) of four ranks that share the one card:
+    each rank is this script with ``--mesh-rank``. Prints the probe of
+    gloo's collectives on CUDA tensors, gemma3-1b's prefill, decode (ms a
+    step) and train steps (ms a step) over the mesh beside phase 12c's and
+    13a's one-process ones, the collectives and bytes of one decode and one
+    train step, and holds the logits, greedy tokens, losses, gradient norms
+    and new parameters to the same run in one process on the card. No
+    kernel of the port runs on this path (the ranks load none)."""
+    import tempfile
+
+    t15 = time.perf_counter()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    with tempfile.TemporaryDirectory(prefix="mesh-") as root:
+        logs = [open(Path(root) / f"rank{r}.log", "w") for r in range(MESH_RANKS)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                                   str(r), root], env=env, stdout=logs[r],
+                                  stderr=subprocess.STDOUT)
+                 for r in range(MESH_RANKS)]
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for f in logs:
+                f.close()
+        failed = {r: (Path(root) / f"rank{r}.log").read_text()[-4000:]
+                  for r, proc in enumerate(procs) if proc.returncode != 0}
+        if failed:
+            raise AssertionError(f"phase 15: ranks failed (exit codes "
+                                 f"{[proc.returncode for proc in procs]}): {failed}")
+        res = json.loads((Path(root) / "result.json").read_text())
+    res["seconds"] = time.perf_counter() - t15
+    res["card"] = smi
+    print(f"phase 15: gloo on CUDA tensors, 4 ranks on one card: torch.distributed "
+          f"{json.dumps(res['probe'])}; the functional ops DTensor issues, after make_mesh "
+          f"{json.dumps(res['probe_functional'])}")
+    mesh_ms, one_ms = res["mesh"]["ms"], res["one"]["ms"]
+    dec = statistics.median(mesh_ms["decode"][1:])
+    dec_one = statistics.median(one_ms["decode"][1:])
+    c12 = record.get("serve_lm", {}).get("12c", {}).get("decode_ms_per_step")
+    t13 = record.get("train", {}).get("13a", {}).get("median_step_ms")
+    print(f"phase 15: gemma3-1b full width ({MESH_SERVE}, train {MESH_TRAIN}), float32 TF32 off, "
+          f"scaled_init, over a {MESH_SHAPE} mesh of {MESH_RANKS} ranks (gloo) on {smi}: "
+          f"prefill {mesh_ms['prefill']:.1f} ms (first call), decode {dec:.2f} ms/step (median "
+          f"of steps 1-{len(mesh_ms['decode']) - 1}; step 0 {mesh_ms['decode'][0]:.1f} ms), train "
+          f"steps {[round(x, 1) for x in mesh_ms['train']]} ms; one process: decode "
+          f"{dec_one:.2f} ms/step, train {[round(x, 1) for x in one_ms['train']]} ms; phase 12c "
+          f"(bfloat16, batch 4) {c12 if c12 is None else round(c12, 3)} ms/step, phase 13a "
+          f"(bfloat16, M = 4) {t13 if t13 is None else round(t13, 1)} ms/step; peak "
+          f"{res['peak_gb_rank']:.2f} GB a rank")
+    print(f"phase 15: collectives of one decode step {json.dumps(res['mesh']['collectives']['decode_step'])}; "
+          f"of one train step {json.dumps(res['mesh']['collectives']['train_step'])}")
+    print(f"phase 15: against one process: logits {res['logits_max_rel']:.3g} of max |logit| "
+          f"(declared {MESH_SERVE_RTOL}), greedy tokens "
+          f"{'equal' if res['tokens_equal'] else 'DIFFER'}, losses {res['mesh']['losses']} vs "
+          f"{res['one']['losses']}, grad norms {res['mesh']['grad_norms']} vs "
+          f"{res['one']['grad_norms']}, new parameters within {res['params_max_abs']:.3g} "
+          f"(2 lr = {2 * MESH_LR}), AdamW's moments within {json.dumps(res['moments_max_rel'])} "
+          f"of each leaf's largest (declared mu {MESH_MOMENT_RTOL}, nu {2 * MESH_MOMENT_RTOL}); "
+          f"placements {res['placements']}; {res['seconds']:.1f} s")
+    if res["logits_max_rel"] > MESH_SERVE_RTOL or not res["tokens_equal"]:
+        raise AssertionError("phase 15: the mesh's logits or greedy tokens differ from one process")
+    for key, tol in (("losses", MESH_LOSS_RTOL), ("grad_norms", MESH_GN_RTOL)):
+        for a, w in zip(res["mesh"][key], res["one"][key]):
+            if not (math.isfinite(a) and abs(a - w) <= tol * abs(w)):
+                raise AssertionError(f"phase 15: {key} {a} vs {w} beyond {tol}")
+    if not res["params_max_abs"] <= 2 * MESH_LR * (1 + 1e-5):
+        raise AssertionError(f"phase 15: new parameters {res['params_max_abs']} beyond 2 lr")
+    for key, tol in (("mu", MESH_MOMENT_RTOL), ("nu", 2 * MESH_MOMENT_RTOL)):
+        if not res["moments_max_rel"][key] <= tol:
+            raise AssertionError(f"phase 15: AdamW's {key} {res['moments_max_rel'][key]} of a "
+                                 f"leaf's largest beyond {tol}")
+    return res
 
 
 def main() -> int:
@@ -3684,6 +3980,7 @@ def main() -> int:
     record["serve_lm"] = serve_lm_phase(smi)
     record["train"] = train_phase(smi, wrappers)
     record["roofline"] = roofline_phase(smi, wrappers)
+    record["mesh"] = mesh_phase(smi, record)
 
     main_rows = {r["kernel"]: r for r in rows if r["main"]}
     kernels = [
@@ -3711,4 +4008,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:] == ["--only-mesh"]:  # phase 15 alone
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        print(nvidia_smi())
+        mesh_phase(nvidia_smi(), {})
+        sys.exit(0)
     sys.exit(main())

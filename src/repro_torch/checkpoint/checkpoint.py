@@ -137,7 +137,11 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     migration format. numpy has no bfloat16 without ``ml_dtypes``, so a
     bfloat16 tensor becomes its 2-byte bit patterns as dtype ``V2``, which
     is what the reference's ``restore_tree`` gives back for the bfloat16
-    leaf its ``save_tree`` wrote (:func:`from_host` reads them back)."""
+    leaf its ``save_tree`` wrote (:func:`from_host` reads them back). A
+    DTensor gives its full tensor, whatever the mesh: a collective, which
+    every rank of the mesh calls."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
@@ -221,7 +225,7 @@ def save_tree(
     os.rename(tmp, path)
 
 
-def restore_tree(path: str, *, device=None):
+def restore_tree(path: str, *, device=None, shardings=None):
     """Restore a tree; returns ``(tree, step)``.
 
     With ``device=None`` the leaves are host numpy arrays, as the
@@ -229,8 +233,11 @@ def restore_tree(path: str, *, device=None):
     bfloat16 leaf is ``V2``, as the reference's). With a device
     (``"cuda"``, ``"cuda:1"``, ``"cpu"``) they are tensors there, dtype
     kept, bfloat16 too (:func:`from_host`; ``RuntimeError`` for CUDA
-    without a card). Placement over
-    several devices is :func:`repro_torch.runtime.elastic.elastic_reshard`'s.
+    without a card). ``shardings``, a tree of
+    ``distributed.sharding.NamedSharding`` matching the checkpoint's,
+    places the leaves over its mesh, on the mesh's device (every rank
+    reads the file). A bank mesh's placement is
+    :func:`repro_torch.runtime.elastic.elastic_reshard`'s.
     """
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -240,6 +247,10 @@ def restore_tree(path: str, *, device=None):
     if device is not None:
         dev = ops.resolve_device(device)
         tree = map_tree(lambda a: from_host(a).to(dev), tree)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import place
+
+        tree = place(map_tree(from_host, tree), shardings)
     return tree, manifest.get("step")
 
 
@@ -317,12 +328,12 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None = None, *, device=None):
+    def restore(self, step: int | None = None, *, device=None, shardings=None):
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
-        return restore_tree(self._step_dir(step), device=device)
+        return restore_tree(self._step_dir(step), device=device, shardings=shardings)
 
     def manifest(self, step: int | None = None) -> dict | None:
         """Manifest of ``step`` (default latest) or None if no checkpoint."""

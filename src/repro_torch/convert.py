@@ -51,6 +51,7 @@ import torch
 
 from repro_torch.checkpoint.checkpoint import map_tree
 from repro_torch.core.denoise import DenoiseConfig
+from repro_torch.distributed.sharding import place
 from repro_torch.kernels.ops import resolve_device
 
 __all__ = ["config_from_reference", "state_from_reference", "state_to_reference",
@@ -91,27 +92,33 @@ def _leaf_from_reference(a, dev) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
-def params_from_reference(tree, device=None):
+def params_from_reference(tree, device=None, shardings=None):
     """The reference's parameter tree (numpy leaves) as the port's, leaf for
     leaf, on ``device`` (CUDA unless the caller names another;
-    ``RuntimeError`` when CUDA is absent)."""
+    ``RuntimeError`` when CUDA is absent). ``shardings`` (a matching tree of
+    ``distributed.sharding.NamedSharding``, as ``named_shardings`` gives)
+    places each leaf over its mesh: every rank passes the same tree."""
     dev = resolve_device(device)
-    return map_tree(lambda a: _leaf_from_reference(a, dev), tree)
+    out = map_tree(lambda a: _leaf_from_reference(a, dev), tree)
+    return out if shardings is None else place(out, shardings)
 
 
-def caches_from_reference(tree, device=None):
+def caches_from_reference(tree, device=None, shardings=None):
     """The reference's decode caches of any family (see the module
-    docstring; numpy leaves) as the port's, on ``device``."""
-    return params_from_reference(tree, device)
+    docstring; numpy leaves) as the port's, on ``device``, placed by
+    ``shardings`` when given."""
+    return params_from_reference(tree, device, shardings)
 
 
-def opt_state_from_reference(state, device=None):
+def opt_state_from_reference(state, device=None, shardings=None):
     """The reference's AdamW state (numpy leaves: ``mu`` and ``nu`` float32
-    trees, ``step`` an int32 0-d array) as the port's, on ``device``."""
+    trees, ``step`` an int32 0-d array) as the port's, on ``device``,
+    placed by ``shardings`` (``launch.steps.train_state_shardings``' second
+    tree) when given."""
     if set(state) != {"mu", "nu", "step"}:
         raise ValueError(f"an AdamW state has keys mu, nu, step; got {sorted(state)}")
     step = np.asarray(state["step"])
     if step.shape != () or step.dtype != np.int32:
         raise ValueError(f"step must be an int32 0-d array; got {step.dtype} {step.shape}")
-    return params_from_reference(state, device)
+    return params_from_reference(state, device, shardings)
 

@@ -2,17 +2,20 @@
 ``repro.distributed.context``).
 
 The reference pins activations to mesh axes at block boundaries while it
-traces a step. On one card there is nothing to pin: :func:`constrain` is
-the identity, and :func:`activation_sharding` records the mesh and rules
-for the duration of a ``with`` block (:func:`active`), so model code reads
-as the reference's and a later multi-card slice (ROADMAP.md queue A item
-13(d)) has one place to act.
+traces a step (``with_sharding_constraint``). Here
+:func:`activation_sharding` records the mesh and rules for the duration
+of a ``with`` block (:func:`active`), and :func:`constrain` redistributes
+a DTensor activation to the placements its logical axes give on that
+mesh, so model code reads as the reference's. Outside the context, on a
+one-device mesh, and for a plain tensor it is the identity.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+
+from repro_torch.distributed.sharding import placements, partition_spec
 
 __all__ = ["activation_sharding", "active", "constrain"]
 
@@ -36,8 +39,16 @@ def active():
 
 
 def constrain(x, axes: tuple[str | None, ...]):
-    """``x`` itself; inside :func:`activation_sharding` the axes must name
-    every dimension, as the reference requires."""
-    if active() is not None and len(axes) != x.ndim:
+    """``x`` at the placements of its logical ``axes`` (inside
+    :func:`activation_sharding`, which requires the axes to name every
+    dimension, as the reference does), else ``x`` itself."""
+    ctx = active()
+    if ctx is None:
+        return x
+    mesh, rules = ctx
+    if len(axes) != x.ndim:
         raise ValueError(f"axes {axes} vs shape {tuple(x.shape)}")
-    return x
+    if not hasattr(x, "redistribute") or mesh.size == 1:
+        return x
+    spec = partition_spec(tuple(x.shape), axes, mesh.axis_sizes, rules)
+    return x.redistribute(mesh.device_mesh, placements(spec, mesh.axis_names))

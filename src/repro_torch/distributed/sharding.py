@@ -1,5 +1,5 @@
-"""Logical-axis parameter declarations (counterpart of
-``repro.distributed.sharding``).
+"""Logical-axis parameter declarations and their placement over a mesh
+(counterpart of ``repro.distributed.sharding``).
 
 Every parameter is declared once as a :class:`ParamSpec` (shape, logical
 axis names, initializer). A spec tree is nested dicts and lists of specs,
@@ -8,11 +8,14 @@ it counts, sizes and initializes without allocating anything but the
 result.
 
 The reference maps logical axes to a device mesh through a rules table.
-Here :func:`partition_spec` is that mapping as a pure function of the
-mesh's axis sizes: it returns the mesh-axis names each dimension would
-take, and nothing is placed. Placing tensors over a mesh
-(:func:`named_shardings`, :func:`logical_sharding`) needs a device mesh,
-ROADMAP.md queue A item 13(d).
+:func:`partition_spec` is that mapping as a pure function of the mesh's
+axis sizes: the mesh-axis names each dimension takes, with the
+reference's divisibility fallback. :func:`named_shardings` and
+:func:`logical_sharding` turn those entries into DTensor placements, one
+per mesh dimension (:class:`NamedSharding`, the counterpart of
+``jax.sharding.NamedSharding``), and :func:`place` distributes a tree by
+them over a mesh of several ranks (``launch.mesh.make_mesh``). On a
+one-device mesh every placement is ``Replicate`` and nothing moves.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ __all__ = [
     "partition_spec",
     "named_shardings",
     "logical_sharding",
+    "NamedSharding",
+    "placements",
+    "place",
     "stack_spec",
     "count_params",
     "spec_bytes",
@@ -107,7 +113,8 @@ def abstract_params(spec_tree, dtype=None):
     )
 
 
-def init_params(spec_tree, *, generator: torch.Generator, device=None, dtype=None):
+def init_params(spec_tree, *, generator: torch.Generator, device=None, dtype=None,
+                mesh=None, rules: dict | None = None):
     """Materialize parameters on ``device`` (CUDA unless the caller names
     another; ``RuntimeError`` without CUDA) with the reference's rules:
     ``normal`` is N(0, scale), ``fan_in`` is N(0, 1) / sqrt(shape[0]),
@@ -117,8 +124,16 @@ def init_params(spec_tree, *, generator: torch.Generator, device=None, dtype=Non
     order, on the generator's device. The numbers are not
     ``jax.random``'s: carry the reference's own parameters with
     ``repro_torch.convert.params_from_reference`` to compare the two.
+
+    With a ``mesh`` of several ranks each leaf is drawn whole, as on one
+    device (every rank seeds ``generator`` alike), and only this rank's
+    shard under :func:`named_shardings` is kept: the parameters equal the
+    one-device ones, placed.
     """
     dev = resolve_device(device)
+    shardings = None
+    if mesh is not None and mesh.size > 1:
+        shardings = named_shardings(spec_tree, mesh, rules)
 
     def one(s: ParamSpec):
         dt = dtype or s.dtype
@@ -137,7 +152,9 @@ def init_params(spec_tree, *, generator: torch.Generator, device=None, dtype=Non
             x.mul_(s.scale)
         return x.to(device=dev, dtype=dt)
 
-    return map_tree(one, spec_tree)
+    if shardings is None:
+        return map_tree(one, spec_tree)
+    return map_tree(lambda s, ns: _place(one(s), ns), spec_tree, shardings)
 
 
 def _resolve_axis(logical, dim, mesh_shape, rules, taken):
@@ -179,18 +196,76 @@ def partition_spec(
     )
 
 
+def placements(spec: tuple, axis_names: tuple[str, ...]) -> tuple:
+    """DTensor placements of :func:`partition_spec` entries over a mesh
+    with ``axis_names``: one per mesh dimension, ``Shard(d)`` for the mesh
+    axis that splits tensor dimension ``d``, ``Replicate()`` for one that
+    splits none. A dimension split over several mesh axes (``('pod',
+    'data')``) takes them major to minor, which DTensor does when they
+    come in mesh order; any other order raises ``ValueError``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(axis_names)
+    for d, entry in enumerate(spec):
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        order = [axis_names.index(n) for n in names]
+        if order != sorted(order):
+            raise ValueError(
+                f"dimension {d} is split over {names}, against the mesh's axis order "
+                f"{axis_names}"
+            )
+        for i in order:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """Where a tensor lives on ``mesh`` (``launch.mesh.Mesh``): the
+    :func:`partition_spec` entries and their DTensor placements."""
+
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh.axis_names)
+
+
+def logical_sharding(shape, axes, mesh, rules: dict | None = None) -> NamedSharding:
+    """The sharding of an activation or input by its logical axes."""
+    return NamedSharding(mesh, partition_spec(shape, axes, mesh.axis_sizes, rules))
+
+
 def named_shardings(spec_tree, mesh, rules: dict | None = None):
-    raise NotImplementedError(
-        "named_shardings places parameters over a device mesh: ROADMAP.md "
-        "queue A item 13(d); partition_spec gives the same axes as metadata"
-    )
+    """A :class:`NamedSharding` for every spec of a ParamSpec tree."""
+    return map_tree(lambda s: logical_sharding(s.shape, s.axes, mesh, rules), spec_tree)
 
 
-def logical_sharding(shape, axes, mesh, rules: dict | None = None):
-    raise NotImplementedError(
-        "logical_sharding places a tensor over a device mesh: ROADMAP.md "
-        "queue A item 13(d); partition_spec gives the same axes as metadata"
-    )
+def _place(t: torch.Tensor, ns: NamedSharding):
+    """``t``, the same full tensor on every rank, as a DTensor on
+    ``ns.mesh`` holding this rank's shard (a copy: ``t`` may be freed).
+    On a one-device mesh ``t`` itself; a DTensor is redistributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    mesh = ns.mesh
+    if mesh.size == 1:
+        return t
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh.device_mesh, ns.placements)
+    # every rank holds the full tensor, so each keeps its shard and
+    # nothing crosses the group (src_data_rank=None)
+    d = distribute_tensor(t.to(mesh.device), mesh.device_mesh, ns.placements,
+                          src_data_rank=None)
+    return DTensor.from_local(d.to_local().clone(), mesh.device_mesh, ns.placements,
+                              run_check=False, shape=d.shape, stride=d.stride())
+
+
+def place(tree, shardings):
+    """Distribute a tree of full tensors (the same on every rank) by a
+    matching tree of :class:`NamedSharding`; DTensor leaves are
+    redistributed."""
+    return map_tree(_place, tree, shardings)
 
 
 def stack_spec(spec_tree, n: int, axis_name: str = "layers"):

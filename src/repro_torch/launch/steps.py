@@ -9,15 +9,20 @@ microbatch's gradients come from autograd, are added to the sum and
 dropped; the sum is divided by M once.
 
 The reference jits each step with shardings over a device mesh. Here the
-``jit_*_step`` counterparts return the plain step (PyTorch runs it
-eagerly: no ``torch.compile``) with the reference's abstract inputs, on a
-one-device mesh (``launch.mesh.make_mesh``); a larger mesh, and the
-shardings themselves (:func:`batch_shardings`,
-:func:`train_state_shardings`), are ROADMAP.md queue A item 13(d).
+``jit_*_step`` counterparts return the step (PyTorch runs it eagerly: no
+``torch.compile``) with the reference's abstract inputs. On a one-device
+mesh it is the plain step. Over a mesh of several ranks
+(``launch.mesh.make_mesh``) the step places its inputs by the
+in-shardings (:func:`batch_shardings`, :func:`train_state_shardings`,
+DTensor placements), runs the model on DTensors, and returns its outputs
+in the out-shardings, the loss and ``grad_norm`` replicated. Only the
+dense family runs over such a mesh; the others raise naming ROADMAP.md
+queue A item 13(d).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -30,12 +35,32 @@ from repro_torch.optim import AdamW
 
 
 def _with_act_context(fn, mesh, rules):
-    """Wrap a step so activation constraints are checked while it runs."""
+    """Wrap a step so activation constraints act while it runs. Over a
+    mesh of several ranks, plain tensors the model makes (positions,
+    masks, RoPE angles) count as replicated beside the DTensors."""
 
     @functools.wraps(fn)
     def wrapped(*args):
-        with activation_sharding(mesh, rules):
+        replicate = contextlib.nullcontext()
+        if mesh.size > 1:
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            replicate = implicit_replication()
+        with activation_sharding(mesh, rules), replicate:
             return fn(*args)
+
+    return wrapped
+
+
+def _placed(fn, in_shardings, out_shardings):
+    """``fn`` with its arguments placed by ``in_shardings`` and its results
+    by ``out_shardings`` (trees of ``NamedSharding``; ``None`` leaves an
+    argument as it is)."""
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        args = [a if s is None else sh.place(a, s) for a, s in zip(args, in_shardings)]
+        return sh.place(fn(*args), out_shardings)
 
     return wrapped
 
@@ -88,12 +113,23 @@ def train_state_shardings(model, optimizer, mesh, rules):
     return params_sh, opt_sh
 
 
-def _one_device(mesh, what: str) -> None:
-    if mesh.size != 1:
+def _dense_only(model, mesh, what: str) -> None:
+    """Over a mesh of several ranks only the dense family runs: raise for
+    the others before anything is placed."""
+    if mesh.size > 1 and model.cfg.family != "dense":
         raise NotImplementedError(
-            f"{what} over a mesh of shape {mesh.shape} places state over several "
-            "devices: ROADMAP.md queue A item 13(d)"
+            f"{what} of the {model.cfg.family} family over a mesh of shape "
+            f"{mesh.shape}: ROADMAP.md queue A item 13(d); the dense family runs "
+            "over a mesh of several ranks"
         )
+
+
+def _like(g, p):
+    """A gradient at its parameter's placements (a DTensor's partial sums
+    are reduced, and scattered where the parameter is sharded)."""
+    if hasattr(g, "redistribute"):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -120,14 +156,14 @@ def build_train_step(model, optimizer: AdamW, *, microbatches: int | None = None
         def grads_of(mb):
             with torch.enable_grad():
                 loss = model.loss(live, mb)
-                return loss.detach(), torch.autograd.grad(loss, inputs)
+                grads = torch.autograd.grad(loss, inputs)
+            return loss.detach(), [_like(g, p) for g, p in zip(grads, inputs)]
 
         if m == 1:
             loss, grads = grads_of(batch)
         else:
             # running-sum gradient accumulation (paper Alg 3 at train level)
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for p in inputs]
+            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in inputs]
             losses = []
             for i in range(m):
                 l, g = grads_of({k: v[i] for k, v in batch.items()})
@@ -148,17 +184,26 @@ def build_train_step(model, optimizer: AdamW, *, microbatches: int | None = None
 
 def jit_train_step(model, optimizer, mesh, rules, *, microbatches=None,
                    batch: int = 8, seq: int = 128):
-    """The train step on a one-device ``mesh`` with the abstract inputs
-    (``meta`` tensors) the reference lowers it with."""
-    _one_device(mesh, "the train step")
+    """The train step on ``mesh`` with the abstract inputs (``meta``
+    tensors) the reference lowers it with: it places params, optimizer
+    state and batch by their shardings and returns them so placed, the
+    loss and ``grad_norm`` replicated."""
+    _dense_only(model, mesh, "the train step")
     cfg = model.cfg
     m = microbatches if microbatches is not None else max(cfg.microbatches, 1)
     step = build_train_step(model, optimizer, microbatches=m)
+    bspec = train_batch_spec(cfg, batch, seq, microbatches=m)
     abstract = (
         sh.abstract_params(model.spec()),
         sh.abstract_params(optimizer.state_spec(model.spec())),
-        train_batch_spec(cfg, batch, seq, microbatches=m),
+        bspec,
     )
+    if mesh.size > 1:
+        params_sh, opt_sh = train_state_shardings(model, optimizer, mesh, rules)
+        bsh = batch_shardings(bspec, mesh, rules, microbatched=(m > 1))
+        rep = sh.NamedSharding(mesh, ())
+        step = _placed(step, (params_sh, opt_sh, bsh),
+                       (params_sh, opt_sh, {"loss": rep, "grad_norm": rep}))
     return _with_act_context(step, mesh, rules), abstract
 
 
@@ -181,23 +226,51 @@ def build_decode_step(model):
     return decode_step
 
 
+def _logits_sharding(cfg, mesh, rules, batch):
+    return sh.logical_sharding((batch, cfg.vocab_size), ("batch", "vocab"), mesh, rules)
+
+
+def _cache_shardings(model, mesh, rules, batch, seq):
+    return sh.named_shardings(model.cache_spec(batch, seq), mesh, rules)
+
+
 def jit_prefill_step(model, mesh, rules, *, batch: int, seq: int):
-    _one_device(mesh, "the prefill step")
+    """The prefill step on ``mesh``: over several ranks it places params
+    and batch and returns the logits and caches in their shardings."""
+    _dense_only(model, mesh, "the prefill step")
     bspec = train_batch_spec(model.cfg, batch, seq)
     bspec.pop("labels")
     step = torch.no_grad()(build_prefill_step(model))
+    if mesh.size > 1:
+        step = _placed(
+            step,
+            (sh.named_shardings(model.spec(), mesh, rules),
+             batch_shardings(bspec, mesh, rules)),
+            (_logits_sharding(model.cfg, mesh, rules, batch),
+             _cache_shardings(model, mesh, rules, batch, seq)),
+        )
     return _with_act_context(step, mesh, rules), (sh.abstract_params(model.spec()), bspec)
 
 
 def jit_decode_step(model, mesh, rules, *, batch: int, seq: int):
-    """The decode step on a one-device ``mesh``; it updates the caches in
-    place (the reference donates them)."""
-    _one_device(mesh, "the decode step")
+    """The decode step on ``mesh``; it updates the caches in place (the
+    reference donates them). Over several ranks it places its inputs and
+    returns the logits and caches in their shardings."""
+    _dense_only(model, mesh, "the decode step")
+    bspec = decode_batch_spec(model.cfg, batch)
     abstract = (
         sh.abstract_params(model.spec()),
         sh.abstract_params(model.cache_spec(batch, seq)),
-        decode_batch_spec(model.cfg, batch),
+        bspec,
         torch.empty((), dtype=torch.int32, device="meta"),
     )
     step = torch.no_grad()(build_decode_step(model))
+    if mesh.size > 1:
+        cache_sh = _cache_shardings(model, mesh, rules, batch, seq)
+        step = _placed(
+            step,
+            (sh.named_shardings(model.spec(), mesh, rules), cache_sh,
+             batch_shardings(bspec, mesh, rules), None),
+            (_logits_sharding(model.cfg, mesh, rules, batch), cache_sh),
+        )
     return _with_act_context(step, mesh, rules), abstract

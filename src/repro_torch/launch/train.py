@@ -13,7 +13,13 @@ Composes the substrate as the reference does:
     the reference does.
 
 It takes the reference's flags and ``--device``: it runs on the card
-unless ``--device cpu`` is given, and raises without CUDA. Parameters are
+unless ``--device cpu`` is given, and raises without CUDA. ``--mesh 2x2``
+trains the dense family over a ``(data, model)`` mesh of four ranks: run
+it under a process group of that world size (``torchrun --standalone
+--nproc-per-node 4``, whose environment starts a gloo group, or a group
+the caller started); it raises when the sizes differ. Every rank steps;
+rank 0 alone prints and writes checkpoints, which hold full tensors in
+the reference's format. Parameters are
 drawn from a seeded ``torch.Generator`` on the device (not
 ``jax.random``'s numbers), so a fresh run starts elsewhere than the
 reference's; a run resumed from either package's checkpoint continues it.
@@ -26,12 +32,15 @@ Example (CPU, reduced config):
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.checkpoint import map_tree, to_host
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_mesh
@@ -75,7 +84,8 @@ def main(argv=None) -> Losses:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--compress", default=None, choices=(None, "int8", "topk"))
-    ap.add_argument("--mesh", default=None, help="e.g. 1x1 => (data,model); larger: item 13(d)")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. 2x2 => (data,model) over a process group of 4 ranks")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -83,25 +93,43 @@ def main(argv=None) -> Losses:
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
     shape = tuple(int(x) for x in args.mesh.split("x")) if args.mesh else (1, 1)
+    if (shape[0] * shape[1] > 1 and not torch.distributed.is_initialized()
+            and "WORLD_SIZE" in os.environ):
+        torch.distributed.init_process_group("gloo")  # torchrun's environment
     mesh = make_mesh(shape, ("data", "model"), device=device)
     rules = steps.resolve_rules(cfg, mesh)
     opt = AdamW(learning_rate=cosine_schedule(args.lr, 5, args.steps))
+    lead = mesh.size == 1 or torch.distributed.get_rank() == 0
 
     train_step, _ = steps.jit_train_step(
         model, opt, mesh, rules,
         microbatches=args.microbatches, batch=args.batch, seq=args.seq,
     )
-    params = model.init(torch.Generator(device=device).manual_seed(0), device=device)
+    params = sh.init_params(model.spec(), generator=torch.Generator(device=device).manual_seed(0),
+                            device=device, mesh=mesh, rules=rules)
     opt_state = opt.init(params)
     residual = C.ef_init(params) if args.compress else None
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    state_sh = None
+    if mesh.size > 1:
+        params_sh, opt_sh = steps.train_state_shardings(model, opt, mesh, rules)
+        state_sh = {"params": params_sh, "opt": opt_sh}
+
+    def save(step, blocking=False):
+        state = {"params": params, "opt": opt_state}
+        if mesh.size > 1:
+            state = map_tree(to_host, state)  # every rank gathers; rank 0 writes
+        if lead:
+            mgr.save(step, state, blocking=blocking)
+
     start = 0
     if mgr is not None and mgr.latest_step() is not None:
-        state, start = mgr.restore(device=device)
+        state, start = mgr.restore(device=device, shardings=state_sh)
         params, opt_state = state["params"], state["opt"]
         start += 1
-        print(f"[train] resumed from step {start}")
+        if lead:
+            print(f"[train] resumed from step {start}")
 
     data = make_data_stream(cfg, args.batch, args.seq, args.microbatches, device=device)
     straggler = StragglerDetector()
@@ -120,16 +148,17 @@ def main(argv=None) -> Losses:
         losses.step_s.append(dt)
         losses.grad_norms.append(float(metrics["grad_norm"]))
         straggler.record("worker0", dt)
-        print(f"[train] step {step} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
+        if lead:
+            print(f"[train] step {step} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
         if mgr is not None and step % args.ckpt_every == 0:
-            mgr.save(step, {"params": params, "opt": opt_state})
+            save(step)
     if mgr is not None:
-        mgr.save(args.steps - 1, {"params": params, "opt": opt_state},
-                 blocking=True)
-    print(
-        f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}; "
-        f"stragglers={straggler.stragglers()}"
-    )
+        save(args.steps - 1, blocking=True)
+    if lead:
+        print(
+            f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}; "
+            f"stragglers={straggler.stragglers()}"
+        )
     return losses
 
 

@@ -210,6 +210,57 @@ def _full_attention_core(q, k, v, window: int, cfg):
 
 
 # ---------------------------------------------------------------------------
+# Over a mesh of several ranks: the attention core on each rank's shard
+# ---------------------------------------------------------------------------
+
+
+def _shard_placements(q, k):
+    """Placements under which each rank's attention needs nothing of the
+    others: on each mesh dimension the batch split (dim 0) as it is, the
+    heads split (dim 2) where q's and k's heads split alike (or k has one
+    head, every q head's), anything else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    qp, kp = [], []
+    for a, b in zip(q.placements, k.placements):
+        if a == b and (a == Shard(0) or a == Shard(2)):
+            qp.append(a)
+            kp.append(b)
+        elif a == Shard(2) and b == Replicate() and k.shape[2] == 1:
+            qp.append(a)
+            kp.append(b)
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+    return tuple(qp), tuple(kp)
+
+
+def _on_shards(core, q, k, v, *args):
+    """``core(q, k, v, *args)``; over DTensors, on each rank's batch and
+    head shard (:func:`_shard_placements`) and returned at q's placements.
+    Attention is independent per sequence and head, so the result is the
+    one-device one, and no einsum inside flattens a sharded dimension
+    (which DTensor's view rules refuse)."""
+    if not hasattr(q, "device_mesh"):
+        return core(q, k, v, *args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    qp, kp = _shard_placements(q, k)
+    # where the q heads are split and the one k head is not, each rank's
+    # gradient of k (and v) is its heads' share of the sum
+    kgrad = tuple(Partial() if a == Shard(2) and b == Replicate() else b
+                  for a, b in zip(qp, kp))
+    # a mask over the cache's stored positions is replicated: its full value
+    args = [a.full_tensor() if hasattr(a, "device_mesh") else a for a in args]
+    out = core(q.redistribute(mesh, qp).to_local(),
+               k.redistribute(mesh, kp).to_local(grad_placements=kgrad),
+               v.redistribute(mesh, kp).to_local(grad_placements=kgrad), *args)
+    return DTensor.from_local(out, mesh, qp, run_check=False, shape=q.shape,
+                              stride=q.stride())
+
+
+# ---------------------------------------------------------------------------
 # Projections
 # ---------------------------------------------------------------------------
 
@@ -252,14 +303,14 @@ def attention(params, x, cfg, *, window=0, kv_x=None, causal=True, use_rope=True
         q = apply_rope(q, *rope_angles(q_pos, cfg.head_dim, cfg.rope_theta))
         k = apply_rope(k, *rope_angles(k_pos, cfg.head_dim, cfg.rope_theta))
     if causal and kv_x is None:
-        out = _full_attention_core(q, k, v, window, cfg)
+        out = _on_shards(_full_attention_core, q, k, v, window, cfg)
     else:
         if causal:
             mask = _causal_window_mask(torch.arange(s, device=dev),
                                        torch.arange(t, device=dev), window)[None]
         else:
             mask = torch.ones((1, s, t), dtype=torch.bool, device=dev)
-        out = _sdpa(q, k, v, mask[:, None], cfg)
+        out = _on_shards(_sdpa, q, k, v, mask[:, None], cfg)
     return _out(params, out, dt)
 
 
@@ -277,7 +328,7 @@ def prefill_attention(params, x, cfg, *, window=0, cache_len=None):
     cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    y = _out(params, _full_attention_core(q, k, v, window, cfg), dt)
+    y = _out(params, _on_shards(_full_attention_core, q, k, v, window, cfg), dt)
     if cache_len == s:
         ck, cv, cpos = k, v, pos
     elif cache_len < s:  # ring: keep the last cache_len positions, rotated
@@ -308,7 +359,6 @@ def decode_attention(params, x, cache, index: int, cfg, *, window=0, use_rope=Tr
     and returns ``(y, cache)``; masking uses the stored positions, and
     slots never written hold position -1."""
     dt = x.dtype
-    b = x.shape[0]
     t = cache["k"].shape[1]
     q, k_new, v_new = _project(params, x, x, dt)
     pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
@@ -322,6 +372,5 @@ def decode_attention(params, x, cache, index: int, cfg, *, window=0, use_rope=Tr
     cache["pos"][slot] = index
     k_pos = cache["pos"]
     valid = _causal_window_mask(pos, k_pos, window) & (k_pos >= 0)[None, :]  # (1, T)
-    mask = valid[None].expand(b, 1, t)
-    out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), mask[:, None], cfg)
+    out = _on_shards(_sdpa, q, cache["k"].to(dt), cache["v"].to(dt), valid[None, None], cfg)
     return _out(params, out, dt), cache

@@ -108,7 +108,68 @@ def embed_spec(cfg):
 def embed_tokens(params, tokens, cfg):
     # gathers the rows first, then casts: the same values as casting the
     # table, without a copy of the whole table in the compute dtype
-    return params["embedding"][tokens].to(compute_dtype(cfg))
+    return _rows(params["embedding"], tokens).to(compute_dtype(cfg))
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of ``x`` over the ranks of each group in ``groups``, held
+    alike by all of them; its gradient arrives whole on every rank, so the
+    backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+
+        x = x.clone()
+        for group in groups:
+            dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _rows(table, tokens):
+    """``table[tokens]``. Over a mesh each rank looks up every token in
+    its own block of the table (its vocabulary rows and embedding columns),
+    zero where a token's row lies in another rank's block; a sum over the
+    mesh dimensions that split the vocabulary (one nonzero term, so
+    exact) and a redistribution to the tokens' placements follow. The
+    table never moves: each rank's gradient is its block's whole gradient.
+    DTensor's own rules for indexing (its backward's ``index_put``) and
+    for ``embedding`` (the masked partial sum, with the tokens split over
+    the batch) fail on a placed table."""
+    if not hasattr(table, "device_mesh"):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = table.device_mesh
+    placed = hasattr(tokens, "device_mesh")
+    ids = tokens.full_tensor() if placed else tokens
+    want = tokens.placements if placed else (Replicate(),) * mesh.ndim
+    coord = mesh.get_coordinate()
+    lo, n, groups, out = 0, table.shape[0], [], []
+    for i, p in enumerate(table.placements):
+        if p == Shard(0):  # mesh dimensions split the vocabulary major to minor
+            n //= mesh.size(i)
+            lo += coord[i] * n
+            groups.append(mesh.get_group(i))
+            out.append(Replicate())
+        elif p == Shard(1):
+            out.append(Shard(ids.dim()))
+        else:
+            out.append(Replicate())
+    local = table.to_local(grad_placements=table.placements)
+    if local.shape[0] != n:
+        raise ValueError(f"embedding rows split unevenly: {local.shape[0]} on a rank, "
+                         f"{n} expected")
+    idx = ids - lo
+    rows = local[idx.clamp(0, n - 1)]
+    rows = torch.where(((idx >= 0) & (idx < n))[..., None], rows, rows.new_zeros(()))
+    if groups:
+        rows = _SumOver.apply(rows, groups)
+    return DTensor.from_local(rows, mesh, tuple(out), run_check=False).redistribute(mesh, want)
 
 
 def unembed(params, x, cfg):

@@ -13,10 +13,15 @@ to its dtype.
 reference's donated buffers (``launch/steps.py`` donates both to its
 jitted step). ``state["step"]`` is an int32 0-dim tensor, so a checkpoint
 holds the reference's leaf kinds.
+
+Leaves may be DTensors over a mesh of several ranks (``launch.steps``):
+each moment keeps its parameter's placements, and :func:`global_norm`
+reduces over the whole mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable
@@ -28,8 +33,19 @@ from repro_torch.checkpoint.checkpoint import flat_leaves, map_tree
 __all__ = ["AdamW", "cosine_schedule", "global_norm"]
 
 
+def _scalars_replicated(tree):
+    """Inside, plain scalar tensors made beside DTensor leaves (the step,
+    the learning rate, the bias corrections) count as replicated."""
+    if not any(hasattr(x, "device_mesh") for x in flat_leaves(tree)):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares;
+    over DTensor leaves a replicated DTensor, reduced over the mesh."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in flat_leaves(tree)))
 
 
@@ -80,7 +96,12 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state, params):
         """One AdamW step -> ``(params, state)``, both updated in place.
-        ``grads`` mirrors ``params`` (any float dtype; it is not written)."""
+        ``grads`` mirrors ``params`` (any float dtype; it is not written;
+        DTensor gradients at their parameters' placements)."""
+        with _scalars_replicated(params):
+            return self._update(grads, state, params)
+
+    def _update(self, grads, state, params):
         step = state["step"] + 1
         if callable(self.learning_rate):
             lr = self.learning_rate(step)

@@ -397,8 +397,8 @@ class _SlotExecutor:
             if any(act is r for r in recovered):
                 continue
             act.ring.close()
+            self.on_done(act)  # counted before the caller can see the end
             act.handle._fail(act.error or err)
-            self.on_done(act)
 
     def seize(self, timeout: float = 5.0) -> list[_Active]:
         """Forcibly detach every hosted session (fleet eviction of a
@@ -530,8 +530,8 @@ class _SlotExecutor:
                 act.ring.close()
                 with self.cond:
                     self.slots[idx] = None
-                act.handle._fail(act.error)
                 self.on_done(act)
+                act.handle._fail(act.error)
                 continue
             leaving = act.handle._leave.is_set()
             if leaving and not act.finished_stream():
@@ -563,8 +563,8 @@ class _SlotExecutor:
                 "serve.retire", "serve", session=act.name, executor=self.name,
                 groups=act.steps, leave=leaving,
             )
+            self.on_done(act)  # counted before the caller can see the result
             act.handle._finish(out, report)
-            self.on_done(act)
 
     def _steppable(self) -> list[tuple[int, _Active]]:
         """Slots that can still produce work: occupied, healthy, not

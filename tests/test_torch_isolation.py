@@ -277,9 +277,11 @@ def test_model_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry)
 def test_unported_model_families_raise_naming_their_item():
     # every model family serves and trains now (queue A items 13(a)-13(c)):
     # each ARCH_ID builds its parameter and cache specs, and no code path
-    # names 13(b) or 13(c) as unported; placement over a device mesh, a
-    # mesh of more than one device and the steps over one still raise, 13(d)
+    # names 13(b) or 13(c) as unported; placement over a mesh gives DTensor
+    # placements, while the production meshes and the steps of a non-dense
+    # family over a mesh of several ranks still raise, 13(d)
     import torch
+    from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.distributed import sharding
@@ -297,18 +299,25 @@ def test_unported_model_families_raise_naming_their_item():
         for item in ("13(b)", "13(c)"):
             assert item not in text or "NotImplementedError" not in text, (path, item)
     spec = {"w": sharding.ParamSpec((2, 3), ("embed", "mlp"))}
-    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
-        sharding.named_shardings(spec, None)
-    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
-        sharding.logical_sharding((2, 3), ("embed", "mlp"), None)
-    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+    four = mesh.Mesh((2, 2), ("data", "model"), torch.device("cpu"))
+    ns = sharding.named_shardings(spec, four)["w"]
+    assert ns.spec == ("data", None) and ns.placements == (Shard(0), Replicate())
+    ns = sharding.logical_sharding((4, 6), ("embed", "mlp"), four)
+    assert ns.spec == ("data", "model") and ns.placements == (Shard(0), Shard(1))
+    with pytest.raises(RuntimeError, match="process group"):
         mesh.make_mesh((2, 2), ("data", "model"), device="cpu")
     with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
         mesh.make_production_mesh()
-    model = build_model(get_config("h2o-danube-1.8b", smoke=True))
-    two = mesh.Mesh((2, 1), ("data", "model"), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
-        steps.jit_train_step(model, AdamW(), two, steps.resolve_rules(model.cfg, two))
+    for arch in ARCH_IDS:
+        model = build_model(get_config(arch, smoke=True))
+        rules = steps.resolve_rules(model.cfg, four)
+        if model.cfg.family == "dense":
+            continue
+        for call in (lambda: steps.jit_train_step(model, AdamW(), four, rules),
+                     lambda: steps.jit_prefill_step(model, four, rules, batch=4, seq=8),
+                     lambda: steps.jit_decode_step(model, four, rules, batch=4, seq=8)):
+            with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+                call()
 
 
 def test_unported_serve_names_raise_naming_their_item():

@@ -47,6 +47,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import AbstractMesh
+from torch.distributed.tensor import Replicate, Shard
 
 from repro.configs import get_config as jget_config
 from repro.data.pipeline import DataPipeline as JPipeline
@@ -327,23 +329,33 @@ def test_opt_state_carries_from_the_reference():
 
 
 def test_larger_meshes_raise_naming_item_13d():
+    # the production meshes are still item 13(d); a mesh of several ranks
+    # needs a process group of its size and never falls back to one device
     cfg = get_config("h2o-danube-1.8b", smoke=True)
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
-        M.make_mesh((2, 1), ("data", "model"), device="cpu")
+    assert not torch.distributed.is_initialized()
     for multi_pod in (False, True):
         with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
             M.make_production_mesh(multi_pod=multi_pod)
+    for call in (lambda: M.make_mesh((2, 1), ("data", "model"), device="cpu"),
+                 lambda: M.make_mesh((2, 2), ("data", "model"), device="cpu"),
+                 lambda: T.main(DANUBE + ["--steps", "1", "--mesh", "2x1", "--device", "cpu"])):
+        with pytest.raises(RuntimeError, match="process group"):
+            call()
+    # the shardings are the reference's PartitionSpecs as DTensor placements
     big = M.Mesh((2, 2), ("data", "model"), torch.device("cpu"))
     rules = S.resolve_rules(cfg, big)
-    for call in (lambda: S.jit_train_step(model, AdamW(), big, rules, batch=4, seq=8),
-                 lambda: S.jit_prefill_step(model, big, rules, batch=4, seq=8),
-                 lambda: S.jit_decode_step(model, big, rules, batch=4, seq=8),
-                 lambda: S.train_state_shardings(model, AdamW(), big, rules),
-                 lambda: S.batch_shardings(S.train_batch_spec(cfg, 4, 8), big, rules),
-                 lambda: T.main(DANUBE + ["--steps", "1", "--mesh", "2x1", "--device", "cpu"])):
-        with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
-            call()
+    params_sh, opt_sh = S.train_state_shardings(model, AdamW(), big, rules)
+    jmesh = AbstractMesh((2, 2), ("data", "model"))
+    jmodel = jbuild_model(jget_config("h2o-danube-1.8b", smoke=True))
+    jparams_sh, jopt_sh = JS.train_state_shardings(jmodel, JAdamW(), jmesh,
+                                                   JS.resolve_rules(jmodel.cfg, jmesh))
+    for got, want in ((params_sh, jparams_sh), (opt_sh, jopt_sh)):
+        assert [tuple(s.spec) for s in flat_leaves(got)] == \
+            [tuple(s.spec) for s in jax.tree_util.tree_leaves(want)]
+    bsh = S.batch_shardings(S.train_batch_spec(cfg, 4, 8), big, rules)
+    assert {k: v.placements for k, v in bsh.items()} == {
+        k: (Shard(0), Replicate()) for k in ("tokens", "labels")}
 
 
 def test_one_device_steps_run_and_mirror_the_reference():
