@@ -213,7 +213,22 @@ then:
    TB/s; the eager operator traffic printed beside it, as no bound) next
    to ``HAND_BOUND_MS`` and the step's measured ms; 14c
    ``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` (one cell of each kind),
-   printing ``fits_hbm``, the bound and ``trace_s``.
+   printing ``fits_hbm``, the bound and ``trace_s``;
+15. (run first, before the build, so that its ranks have the card to
+   themselves) runs the decoder-only families over a ``(2, 2)`` mesh of
+   four gloo ranks that share the card (``MESH_RUNS``: 15a ``gemma3-1b``,
+   15b ``mixtral-8x7b``, 15c ``deepseek-v2-lite-16b``, 15d ``mamba2-780m``
+   and 15e ``recurrentgemma-9b`` at their published widths, the depth
+   cut), in float32 with TF32 off and ``scaled_init``:
+   prefill, decode steps and two train steps held to the same weights in
+   one process (logits within ``MESH_SERVE_RTOL`` and greedy tokens
+   equal; losses, gradient norms, new parameters and AdamW's moments leaf
+   by leaf; an MoE model's routing compared call by call, a sequence held
+   only while it agrees, a train step only while its routing and every
+   earlier step's agree, AdamW's moments after the first step always),
+   with the ms a step, the collectives a step issues and each rank's
+   peak. ``--only-mesh [LABEL,...]`` runs this phase, or some of its runs,
+   alone.
 
 Phases 2-3 are the ``pair_average`` path (B2-B5), phase 5 the other
 filters' path (B6-B9), phase 6 the baselines' path (B10), phase 7 the
@@ -222,9 +237,10 @@ B7), phase 9 (9a-9d) the fleet's path (B2, B4, B6-B9), phase 10 the
 elastic tier's (B2, B4, B6, B7) and phase 11 the tuned runs' (B2,
 B6-B9): every launch counter is set to 0 just before each and read just
 after; a kernel of the path launched no time there fails the run. Phases
-12-14 (the model substrate serving and training, the pipeline, the
-counter and the dry run) hold no kernel of the port: phases 13 and 14
-zero the counters before and fail if any moved. A kernel's ``launches``
+12-15 (the model substrate serving and training, the pipeline, the
+counter, the dry run and the mesh) hold no kernel of the port: phases 13
+and 14 zero the counters before and fail if any moved, and phase 15's
+ranks load none. A kernel's ``launches``
 in the ``{"kernels": [...]}`` line is
 its sum over those phases. The float16/bfloat16 launches of each entry
 point over the whole run (``AccumTally``) go to ``half_launches``. The
@@ -238,11 +254,13 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2179,12 +2197,26 @@ def roofline_phase(smi: str, wrappers: dict) -> dict:
           f"path); {record['seconds']:.1f} s")
     return record
 
-#: phase 15: the dense family over a (2, 2) mesh of four ranks that share
-#: the one card, a gloo group met through a file: gemma3-1b at its published
-#: widths and depth in float32 (TF32 off, ``scaled_init``)
+#: phase 15: the decoder-only families over a (2, 2) mesh of four ranks that
+#: share the one card, a gloo group met through a file, each configuration
+#: at its published widths in float32 (TF32 off, ``scaled_init``) and held
+#: to the same weights in one process. ``layers`` cuts the depth (None: the
+#: published depth) so that the four ranks' shards and the one-process
+#: train state fit the card together (``scripts/torch_mesh_peaks.py``
+#: reckons each on ``meta``)
 MESH_SHAPE, MESH_RANKS = (2, 2), 4
-MESH_SERVE = dict(batch=4, prompt=128, gen=8)
-MESH_TRAIN = dict(batch=8, seq=128, steps=2)
+MESH_RUNS = (
+    dict(label="15a", arch="gemma3-1b", layers=6, batch=4, prompt=128, gen=8,
+         train_batch=8, train_seq=128, train_steps=2),
+    dict(label="15b", arch="mixtral-8x7b", layers=1, batch=4, prompt=128, gen=4,
+         train_batch=8, train_seq=128, train_steps=2),
+    dict(label="15c", arch="deepseek-v2-lite-16b", layers=3, batch=4, prompt=128, gen=4,
+         train_batch=8, train_seq=128, train_steps=2),
+    dict(label="15d", arch="mamba2-780m", layers=8, batch=4, prompt=128, gen=4,
+         train_batch=8, train_seq=128, train_steps=2),
+    dict(label="15e", arch="recurrentgemma-9b", layers=3, batch=4, prompt=128, gen=4,
+         train_batch=8, train_seq=128, train_steps=2),
+)
 MESH_LR = 1e-3
 MESH_TIMEOUT_S = 600.0
 #: against the same weights in one process on the card (ROADMAP.md queue C):
@@ -2246,11 +2278,55 @@ class CollectiveTally:
         return {k: {"calls": self.calls[k], "bytes": self.bytes[k]} for k in sorted(self.calls)}
 
 
-def mesh_rank(rank: int, root: str) -> None:
-    """One of phase 15's four ranks (``chip_smoke.py --mesh-rank R DIR``):
-    the probe, then gemma3-1b's prefill, decode and train steps over the
-    mesh; rank 0 then runs the same in this one process without a mesh and
-    writes ``DIR/result.json``."""
+def _on_lead(t, lead: bool):
+    """The full value of a DTensor as a host array on rank 0 (``None`` on
+    the others): each rank sends its block to rank 0 through gloo on the
+    host, and only rank 0 receives (a full tensor would gather every leaf
+    on every rank, four times the traffic and the memory). Every rank
+    calls it."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    local = t.to_local().detach().to("cpu").contiguous()
+    pieces = [torch.empty_like(local) for _ in range(mesh.size())] if lead else None
+    dist.gather(local, pieces, dst=0)
+    if not lead:
+        return None
+    full = np.empty(tuple(t.shape), dtype=local.numpy().dtype)
+    ranks = mesh.mesh
+    for r, piece in enumerate(pieces):
+        coord = [int(c) for c in (ranks == r).nonzero()[0]]
+        index = [slice(0, n) for n in t.shape]
+        for i, p in enumerate(t.placements):  # mesh dimensions, major to minor
+            if isinstance(p, Shard):
+                d = p.dim
+                n = (index[d].stop - index[d].start) // mesh.size(i)
+                start = index[d].start + coord[i] * n
+                index[d] = slice(start, start + n)
+        full[tuple(index)] = piece.numpy()
+    return full
+
+
+def _route_rows(routes, batch: int) -> list[np.ndarray]:
+    """Each recorded MoE call's expert choices and kept flags as one host
+    array (B, T, 2k) per call: groups are consecutive tokens of the
+    batch-major token order. Every rank calls it (a DTensor's full tensor
+    is a collective)."""
+    from repro_torch.checkpoint.checkpoint import to_host
+
+    rows = []
+    for r in routes:
+        idx, kept = to_host(r["expert_idx"]), to_host(r["kept"])
+        rows.append(np.concatenate([idx.reshape(batch, -1, idx.shape[-1]),
+                                    kept.reshape(batch, -1, kept.shape[-1])], -1))
+    return rows
+
+
+def _mesh_config(run, mesh, dev, lead: bool) -> dict:
+    """One configuration of ``MESH_RUNS`` on every rank: serve, then train,
+    over the mesh; rank 0 then the same in one process; compares on rank 0
+    (every rank sends it its blocks of the parameters and moments)."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint.checkpoint import flat_leaves, map_tree, to_host
@@ -2258,10 +2334,209 @@ def mesh_rank(rank: int, root: str) -> None:
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch import steps
     from repro_torch.launch.inputs import make_train_batch
-    from repro_torch.launch.mesh import make_mesh, start_group
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
     from repro_torch.models.layers import full_float32_matmul
     from repro_torch.optim import AdamW
+
+    t0 = time.perf_counter()
+    published = get_config(run["arch"])
+    cfg = dataclasses.replace(published, dtype="float32",
+                              **({"num_layers": run["layers"]} if run["layers"] else {}))
+    model = build_model(cfg)
+    rules = steps.resolve_rules(cfg, mesh)
+    b, p, gen = run["batch"], run["prompt"], run["gen"]
+    tb, ts = run["train_batch"], run["train_seq"]
+    tokens = make_train_batch(cfg, b, p, seed=1, device=dev)["tokens"]
+    data = DataPipeline(cfg, batch=tb, seq=ts, device=dev)
+    spec = model.cache_spec(b, p + gen)
+    moe = bool(cfg.num_experts)
+
+    def pad(t, s):
+        widths = [w for n, m in reversed(list(zip(t.shape, s.shape))) for w in (0, m - n)]
+        return torch.nn.functional.pad(t, tuple(widths),
+                                       value=s.scale if s.init == "const" else 0)
+
+    def synced(fn, *args):
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize(dev)
+        return out, (time.perf_counter() - t1) * 1e3
+
+    def gap(a, w, relative: bool) -> float:
+        """max |a - w| of two host arrays (over max |w| where
+        ``relative``), computed on the card."""
+        a, w = (torch.from_numpy(x).to(dev) for x in (a, w))
+        err = float((a - w).abs().max())
+        return err / max(float(w.abs().max()), 1e-30) if relative else err
+
+    def host_moments(opt_state):
+        """AdamW's moments as host arrays on rank 0 (every rank calls it)."""
+        out = {}
+        for key in ("mu", "nu"):
+            out[key] = []
+            for t in flat_leaves(opt_state[key]):
+                leaf = _on_lead(t, lead) if hasattr(t, "device_mesh") else to_host(t)
+                if lead:
+                    out[key].append(leaf)
+        return out
+
+    def run_once(mesh_or_none):
+        """Serve, then train, on the mesh or (None) on one device ->
+        (logits, tokens, losses, grad norms, params, AdamW's state and its
+        moments after the first step, times, collectives, MoE routes per
+        call)."""
+        on_mesh = mesh_or_none is not None
+        m = mesh_or_none if on_mesh else make_mesh((1, 1), ("data", "model"), device=dev)
+        r = steps.resolve_rules(cfg, m)
+        params = scaled_init(model, torch.Generator(device=dev).manual_seed(0), dev,
+                             mesh=m, rules=r)
+        prefill, _ = steps.jit_prefill_step(model, m, r, batch=b, seq=p)
+        decode, _ = steps.jit_decode_step(model, m, r, batch=b, seq=p + gen)
+        opt = AdamW(learning_rate=MESH_LR)
+        train, _ = steps.jit_train_step(model, opt, m, r, microbatches=1, batch=tb, seq=ts)
+        out = dict(logits=[], tokens=[], losses=[], grad_norms=[], ms={}, collectives={},
+                   routes={"serve": [], "train": []})
+
+        def step(fn, *args, tally_key=None, routes="serve", rows=b):
+            with contextlib.ExitStack() as stack:
+                tally = (stack.enter_context(CollectiveTally())
+                         if tally_key and on_mesh else None)
+                recorded = stack.enter_context(MOE.recording_routes())
+                res, ms = synced(fn, *args)
+            if tally is not None:
+                out["collectives"][tally_key] = tally.summary()
+            out["routes"][routes].append(_route_rows(recorded, rows))
+            return res, ms
+
+        with torch.no_grad(), full_float32_matmul():
+            (logits, caches), out["ms"]["prefill"] = step(prefill, params, {"tokens": tokens})
+            out["logits"].append(to_host(logits))
+            caches = map_tree(pad, map_tree(lambda t: torch.from_numpy(to_host(t)).to(dev),
+                                            caches), spec)
+            decode_ms = []
+            for i in range(gen):
+                tok = torch.from_numpy(out["logits"][-1].argmax(-1).astype(np.int32)).to(dev)
+                out["tokens"].append(tok.cpu().numpy())
+                (logits, caches), ms = step(decode, params, caches, {"token": tok[:, None]},
+                                            p + i, tally_key="decode_step" if i == 0 else None)
+                decode_ms.append(ms)
+                out["logits"].append(to_host(logits))
+            out["ms"]["decode"] = decode_ms
+        del caches
+        opt_state = opt.init(params)
+        train_ms = []
+        with full_float32_matmul():
+            for i in range(run["train_steps"]):
+                batch = data.batch_at(i)
+                (params, opt_state, met), ms = step(
+                    train, params, opt_state, batch,
+                    tally_key="train_step" if i == 0 else None, routes="train", rows=tb)
+                train_ms.append(ms)
+                out["losses"].append(float(met["loss"]))
+                out["grad_norms"].append(float(met["grad_norm"]))
+                if i == 0 and moe:  # held even where a later step's routing differs
+                    torch.cuda.empty_cache()
+                    out["first_moments"] = host_moments(opt_state)
+        out["ms"]["train"] = train_ms
+        out["params"], out["opt"] = params, opt_state
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = run_once(mesh)
+    split = {"mesh": time.perf_counter() - t0}
+    peaks = [None] * MESH_RANKS
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated(dev) / 1e9)
+    res = {"arch": run["arch"], "layers": cfg.num_layers,
+           "published_layers": published.num_layers, "peak_gb_ranks": peaks,
+           "mesh": {k: got[k] for k in ("tokens", "losses", "grad_norms", "ms", "collectives")}}
+    res["placements"] = {
+        "logits": str(steps._logits_sharding(cfg, mesh, rules, b).placements),
+        "embedding": str(got["params"]["embed"]["embedding"].placements)}
+    torch.cuda.empty_cache()  # the mesh's cached blocks, for the one-process run
+    dist.barrier()
+    want = None
+    if lead:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        want = run_once(None)
+        split["one"] = time.perf_counter() - t1
+        res["one_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        # its state on the host: the card holds one compared leaf at a time
+        want["params"], want["opt"] = (map_tree(to_host, want[k]) for k in ("params", "opt"))
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if lead:
+        res["one"] = {k: want[k] for k in ("tokens", "losses", "grad_norms", "ms")}
+        # MoE: the calls' choices and kept flags; a sequence whose routing
+        # differs in a call is held at no later step (its caches differ), a
+        # train step only while its routing and every earlier step's agree
+        held = np.ones((gen + 1, b), dtype=bool)
+        flips = {"serve": 0, "train": [0] * run["train_steps"]}
+        if moe:
+            disturbed = np.zeros(b, dtype=bool)
+            for s, (ours, theirs) in enumerate(zip(got["routes"]["serve"],
+                                                    want["routes"]["serve"])):
+                for a, w in zip(ours, theirs):
+                    differ = (a != w).any(-1)
+                    flips["serve"] += int(differ.sum())
+                    disturbed |= differ.any(-1)
+                held[s] = ~disturbed
+            for i, (ours, theirs) in enumerate(zip(got["routes"]["train"],
+                                                   want["routes"]["train"])):
+                flips["train"][i] = sum(int((a != w).any(-1).sum())
+                                        for a, w in zip(ours, theirs))
+            res["moe_calls"] = sum(len(x) for x in got["routes"]["serve"])
+        res["routing_flips"] = flips
+        res["positions_held"] = int(held.sum())
+        scale = max(float(np.abs(x).max()) for x in want["logits"])
+        res["logits_max_rel"] = max(
+            (float(np.abs(a - w)[h].max()) / scale
+             for a, w, h in zip(got["logits"], want["logits"], held) if h.any()), default=0.0)
+        res["tokens_equal"] = all(np.array_equal(a[h], w[h]) for a, w, h in
+                                  zip(got["tokens"], want["tokens"], held))
+        res["train_steps_held"] = next(
+            (i for i, n in enumerate(flips["train"]) if n), run["train_steps"])
+        if moe:
+            res["first_moments_max_rel"] = {
+                key: max(gap(a, w, True) for a, w in zip(got["first_moments"][key],
+                                                         want["first_moments"][key]))
+                for key in ("mu", "nu")}
+            del got["first_moments"], want["first_moments"]
+    worst = {"params": 0.0, "mu": 0.0, "nu": 0.0}
+    for key in worst:
+        tree = got["params"] if key == "params" else got["opt"][key]
+        ours = flat_leaves(tree)
+        mine = (flat_leaves(want["params"] if key == "params" else want["opt"][key]) if lead
+                else [None] * len(ours))
+        for leaf, ref in zip(ours, mine):
+            full = _on_lead(leaf, lead)  # rank 0 compares
+            if lead:  # the moments: a fraction of each leaf's largest
+                worst[key] = max(worst[key], gap(full, ref, key != "params"))
+            del full
+    if lead:
+        res["params_max_abs"] = worst["params"]
+        res["moments_max_rel"] = {"mu": worst["mu"], "nu": worst["nu"]}
+        res["lr"] = MESH_LR
+    del got, want
+    torch.cuda.empty_cache()
+    dist.barrier()
+    res["seconds"] = time.perf_counter() - t0
+    res["seconds_split"] = split  # the mesh's run, the one process's; the rest compares
+    return res
+
+
+def mesh_rank(rank: int, root: str, labels=None) -> None:
+    """One of phase 15's four ranks (``chip_smoke.py --mesh-rank R DIR``):
+    the probe, then each configuration of ``MESH_RUNS`` (or those whose
+    label is in ``labels``) over the mesh and, on rank 0, in one process
+    (:func:`_mesh_config`); rank 0 writes ``DIR/result.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, start_group
 
     import faulthandler
 
@@ -2276,147 +2551,48 @@ def mesh_rank(rank: int, root: str) -> None:
     res: dict = {"probe": probe(dev)}
     mesh = make_mesh(MESH_SHAPE, ("data", "model"))
     res["probe_functional"] = probe(dev, functional=True)
-    cfg = dataclasses.replace(get_config("gemma3-1b"), dtype="float32")
-    model = build_model(cfg)
-    rules = steps.resolve_rules(cfg, mesh)
-    b, p, gen = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_SERVE["gen"]
-    tb, ts = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
-    tokens = make_train_batch(cfg, b, p, seed=1, device=dev)["tokens"]
-    data = DataPipeline(cfg, batch=tb, seq=ts, device=dev)
-    spec = model.cache_spec(b, p + gen)
-
-    def pad(t, s):
-        widths = [w for n, m in reversed(list(zip(t.shape, s.shape))) for w in (0, m - n)]
-        return torch.nn.functional.pad(t, tuple(widths),
-                                       value=s.scale if s.init == "const" else 0)
-
-    def synced(fn, *args):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize(dev)
-        return out, (time.perf_counter() - t0) * 1e3
-
-    def run(mesh_or_none):
-        """Serve, then train, on the mesh or (None) on one device ->
-        (logits, tokens, losses, grad norms, params, AdamW's state, times,
-        collectives)."""
-        on_mesh = mesh_or_none is not None
-        m = mesh_or_none if on_mesh else make_mesh((1, 1), ("data", "model"))
-        r = steps.resolve_rules(cfg, m)
-        params = scaled_init(model, torch.Generator(device=dev).manual_seed(0), dev,
-                             mesh=m, rules=r)
-        prefill, _ = steps.jit_prefill_step(model, m, r, batch=b, seq=p)
-        decode, _ = steps.jit_decode_step(model, m, r, batch=b, seq=p + gen)
-        opt = AdamW(learning_rate=MESH_LR)
-        train, _ = steps.jit_train_step(model, opt, m, r, microbatches=1, batch=tb, seq=ts)
-        out = dict(logits=[], tokens=[], losses=[], grad_norms=[], ms={}, collectives={})
-        with torch.no_grad(), full_float32_matmul():
-            (logits, caches), out["ms"]["prefill"] = synced(prefill, params, {"tokens": tokens})
-            out["logits"].append(to_host(logits))
-            caches = map_tree(pad, map_tree(lambda t: torch.from_numpy(to_host(t)).to(dev),
-                                            caches), spec)
-            decode_ms = []
-            for i in range(gen):
-                tok = torch.from_numpy(out["logits"][-1].argmax(-1).astype(np.int32)).to(dev)
-                out["tokens"].append(tok.cpu().numpy())
-                if i == 0 and on_mesh:
-                    with CollectiveTally() as tally:
-                        (logits, caches), ms = synced(decode, params, caches,
-                                                      {"token": tok[:, None]}, p + i)
-                    out["collectives"]["decode_step"] = tally.summary()
-                else:
-                    (logits, caches), ms = synced(decode, params, caches,
-                                                  {"token": tok[:, None]}, p + i)
-                decode_ms.append(ms)
-                out["logits"].append(to_host(logits))
-            out["ms"]["decode"] = decode_ms
-        del caches
-        opt_state = opt.init(params)
-        train_ms = []
-        with full_float32_matmul():
-            for i in range(MESH_TRAIN["steps"]):
-                batch = data.batch_at(i)
-                if i == 0 and on_mesh:
-                    with CollectiveTally() as tally:
-                        (params, opt_state, met), ms = synced(train, params, opt_state, batch)
-                    out["collectives"]["train_step"] = tally.summary()
-                else:
-                    (params, opt_state, met), ms = synced(train, params, opt_state, batch)
-                train_ms.append(ms)
-                out["losses"].append(float(met["loss"]))
-                out["grad_norms"].append(float(met["grad_norm"]))
-        out["ms"]["train"] = train_ms
-        out["params"], out["opt"] = params, opt_state
-        return out
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    got = run(mesh)
-    res["peak_gb_rank"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    res["mesh"] = {k: got[k] for k in ("tokens", "losses", "grad_norms", "ms", "collectives")}
-    res["placements"] = {
-        "logits": str(steps._logits_sharding(cfg, mesh, rules, b).placements),
-        "embedding": str(got["params"]["embed"]["embedding"].placements)}
-    dist.barrier()
-    want = run(None) if lead else None
-    dist.barrier()
-    if lead:
-        res["one"] = {k: want[k] for k in ("tokens", "losses", "grad_norms", "ms")}
-        scale = max(float(np.abs(x).max()) for x in want["logits"])
-        res["logits_max_rel"] = max(float(np.abs(a - w).max()) / scale
-                                    for a, w in zip(got["logits"], want["logits"]))
-        res["tokens_equal"] = all(np.array_equal(a, w) for a, w in
-                                  zip(got["tokens"], want["tokens"]))
-    worst = {"params": 0.0, "mu": 0.0, "nu": 0.0}
-    for key in worst:
-        tree = got["params"] if key == "params" else got["opt"][key]
-        ours = flat_leaves(tree)
-        mine = (flat_leaves(want["params"] if key == "params" else want["opt"][key]) if lead
-                else [None] * len(ours))
-        for leaf, ref in zip(ours, mine):
-            full = leaf.full_tensor()  # every rank gathers; rank 0 compares
-            if lead:
-                err = float((full - ref).abs().max())
-                if key != "params":  # the moments: a fraction of each leaf's largest
-                    err /= max(float(ref.abs().max()), 1e-30)
-                worst[key] = max(worst[key], err)
-            del full
-    if lead:
-        res["params_max_abs"] = worst["params"]
-        res["moments_max_rel"] = {"mu": worst["mu"], "nu": worst["nu"]}
-        res["lr"] = MESH_LR
-        (Path(root) / "result.json").write_text(json.dumps(res, default=str))
+    res["runs"] = {}
+    for run in MESH_RUNS:
+        if labels and run["label"] not in labels:
+            continue
+        res["runs"][run["label"]] = _mesh_config(run, mesh, dev, lead)
+        if lead:  # what has run so far, should a later configuration fail
+            (Path(root) / "result.json").write_text(json.dumps(res, default=str))
     dist.barrier()
     dist.destroy_process_group()
 
 
-def mesh_phase(smi: str, record: dict) -> dict:
-    """Phase 15: the dense family over a ``(2, 2)`` mesh (DTensor
+def mesh_phase(smi: str, labels=None) -> dict:
+    """Phase 15: the decoder-only families over a ``(2, 2)`` mesh (DTensor
     placements over a gloo group) of four ranks that share the one card:
     each rank is this script with ``--mesh-rank``. Prints the probe of
-    gloo's collectives on CUDA tensors, gemma3-1b's prefill, decode (ms a
-    step) and train steps (ms a step) over the mesh beside phase 12c's and
-    13a's one-process ones, the collectives and bytes of one decode and one
-    train step, and holds the logits, greedy tokens, losses, gradient norms
-    and new parameters to the same run in one process on the card. No
-    kernel of the port runs on this path (the ranks load none)."""
+    gloo's collectives on CUDA tensors, then for each configuration of
+    ``MESH_RUNS`` its prefill, decode (ms a step) and train steps (ms a
+    step) over the mesh beside the same in one process, the collectives
+    and bytes of one decode and one train step and each rank's peak, and holds the logits, greedy tokens,
+    losses, gradient norms, new parameters and AdamW's moments to the run
+    in one process on the card; an MoE model's routing is compared call by
+    call, and a sequence is held only while its routing agrees. No kernel
+    of the port runs on this path (the ranks load none)."""
     import tempfile
 
     t15 = time.perf_counter()
     torch.cuda.empty_cache()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    extra = ["--labels", ",".join(labels)] if labels else []
     with tempfile.TemporaryDirectory(prefix="mesh-") as root:
         logs = [open(Path(root) / f"rank{r}.log", "w") for r in range(MESH_RANKS)]
         procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
-                                   str(r), root], env=env, stdout=logs[r],
+                                   str(r), root, *extra], env=env, stdout=logs[r],
                                   stderr=subprocess.STDOUT)
                  for r in range(MESH_RANKS)]
         deadline = time.monotonic() + MESH_TIMEOUT_S
         try:
-            for proc in procs:
-                proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
-        except subprocess.TimeoutExpired:
-            pass
+            # until every rank has ended, one has failed (the others would
+            # wait in a collective) or the deadline
+            while (time.monotonic() < deadline and any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)):
+                time.sleep(0.5)
         finally:
             for proc in procs:
                 if proc.poll() is None:
@@ -2426,52 +2602,103 @@ def mesh_phase(smi: str, record: dict) -> dict:
                 f.close()
         failed = {r: (Path(root) / f"rank{r}.log").read_text()[-4000:]
                   for r, proc in enumerate(procs) if proc.returncode != 0}
-        if failed:
+        if failed:  # the whole logs beside the run's other details
+            (ROOT / "chiprun_out").mkdir(exist_ok=True)
+            for r in range(MESH_RANKS):
+                shutil.copy(Path(root) / f"rank{r}.log", ROOT / "chiprun_out" / f"mesh_rank{r}.log")
+            done = Path(root) / "result.json"
             raise AssertionError(f"phase 15: ranks failed (exit codes "
-                                 f"{[proc.returncode for proc in procs]}): {failed}")
+                                 f"{[proc.returncode for proc in procs]}; finished before: "
+                                 f"{done.read_text()[:6000] if done.exists() else None}): "
+                                 f"{failed}")
         res = json.loads((Path(root) / "result.json").read_text())
     res["seconds"] = time.perf_counter() - t15
     res["card"] = smi
     print(f"phase 15: gloo on CUDA tensors, 4 ranks on one card: torch.distributed "
           f"{json.dumps(res['probe'])}; the functional ops DTensor issues, after make_mesh "
           f"{json.dumps(res['probe_functional'])}")
+    for run in MESH_RUNS:
+        if run["label"] in res["runs"]:
+            _report_mesh_config(run, res["runs"][run["label"]], smi)
+    print(f"phase 15: {res['seconds']:.1f} s")
+    return res
+
+
+def mesh_beside(mesh: dict, record: dict) -> None:
+    """Print 15a's decode and train steps over the mesh beside phase 12c's
+    and 13a's in one process (bfloat16, gemma3 at its full depth)."""
+    run = mesh["runs"]["15a"]
+    c12 = record.get("serve_lm", {}).get("12c", {}).get("decode_ms_per_step")
+    t13 = record.get("train", {}).get("13a", {}).get("median_step_ms")
+    print(f"phase 15a beside phases 12c and 13a: decode "
+          f"{statistics.median(run['mesh']['ms']['decode'][1:]):.2f} ms/step over the mesh "
+          f"({run['layers']} layers, float32) against 12c's {c12} (26 layers, bfloat16, batch "
+          f"4); train {[round(x, 1) for x in run['mesh']['ms']['train']]} ms against 13a's "
+          f"median {t13} (M = 4)")
+
+
+def _report_mesh_config(run, res: dict, smi: str) -> None:
+    """Print one configuration of phase 15 and fail where it does not hold."""
+    label = run["label"]
     mesh_ms, one_ms = res["mesh"]["ms"], res["one"]["ms"]
     dec = statistics.median(mesh_ms["decode"][1:])
     dec_one = statistics.median(one_ms["decode"][1:])
-    c12 = record.get("serve_lm", {}).get("12c", {}).get("decode_ms_per_step")
-    t13 = record.get("train", {}).get("13a", {}).get("median_step_ms")
-    print(f"phase 15: gemma3-1b full width ({MESH_SERVE}, train {MESH_TRAIN}), float32 TF32 off, "
-          f"scaled_init, over a {MESH_SHAPE} mesh of {MESH_RANKS} ranks (gloo) on {smi}: "
-          f"prefill {mesh_ms['prefill']:.1f} ms (first call), decode {dec:.2f} ms/step (median "
-          f"of steps 1-{len(mesh_ms['decode']) - 1}; step 0 {mesh_ms['decode'][0]:.1f} ms), train "
-          f"steps {[round(x, 1) for x in mesh_ms['train']]} ms; one process: decode "
-          f"{dec_one:.2f} ms/step, train {[round(x, 1) for x in one_ms['train']]} ms; phase 12c "
-          f"(bfloat16, batch 4) {c12 if c12 is None else round(c12, 3)} ms/step, phase 13a "
-          f"(bfloat16, M = 4) {t13 if t13 is None else round(t13, 1)} ms/step; peak "
-          f"{res['peak_gb_rank']:.2f} GB a rank")
-    print(f"phase 15: collectives of one decode step {json.dumps(res['mesh']['collectives']['decode_step'])}; "
-          f"of one train step {json.dumps(res['mesh']['collectives']['train_step'])}")
-    print(f"phase 15: against one process: logits {res['logits_max_rel']:.3g} of max |logit| "
-          f"(declared {MESH_SERVE_RTOL}), greedy tokens "
+    cut = (f"{res['layers']} of {res['published_layers']} layers" if run["layers"]
+           else f"{res['layers']} layers")
+    print(f"phase {label}: {run['arch']} full width ({cut}; batch {run['batch']} prompt "
+          f"{run['prompt']} gen {run['gen']}, train batch {run['train_batch']} x "
+          f"{run['train_seq']}), float32 TF32 off, scaled_init, over a {MESH_SHAPE} mesh of "
+          f"{MESH_RANKS} ranks (gloo) on {smi}: prefill {mesh_ms['prefill']:.1f} ms (first "
+          f"call), decode {dec:.2f} ms/step (median of steps 1-{len(mesh_ms['decode']) - 1}; "
+          f"step 0 {mesh_ms['decode'][0]:.1f} ms), train steps "
+          f"{[round(x, 1) for x in mesh_ms['train']]} ms; one process: prefill "
+          f"{one_ms['prefill']:.1f} ms, decode {dec_one:.2f} ms/step, train "
+          f"{[round(x, 1) for x in one_ms['train']]} ms; peak GB a rank "
+          f"{[round(x, 2) for x in res['peak_gb_ranks']]}, one process "
+          f"{res['one_peak_gb']:.2f} GB; {res['seconds']:.1f} s (mesh "
+          f"{res['seconds_split']['mesh']:.1f}, one process {res['seconds_split']['one']:.1f})")
+    print(f"phase {label}: collectives of one decode step "
+          f"{json.dumps(res['mesh']['collectives']['decode_step'])}; of one train step "
+          f"{json.dumps(res['mesh']['collectives']['train_step'])}")
+    moe = ""
+    steps_held = res["train_steps_held"]
+    if "moe_calls" in res:
+        moe = (f"; MoE routing of {res['moe_calls']} serving calls: "
+               f"{res['routing_flips']['serve']} (token, call) choices or drops differ from "
+               f"one process, {res['routing_flips']['train']} in each train step; held at "
+               f"{res['positions_held']} of {(run['gen'] + 1) * run['batch']} (step, sequence) "
+               f"positions and {steps_held} of {run['train_steps']} train steps")
+    print(f"phase {label}: against one process: logits {res['logits_max_rel']:.3g} of max "
+          f"|logit| (declared {MESH_SERVE_RTOL}), greedy tokens "
           f"{'equal' if res['tokens_equal'] else 'DIFFER'}, losses {res['mesh']['losses']} vs "
           f"{res['one']['losses']}, grad norms {res['mesh']['grad_norms']} vs "
-          f"{res['one']['grad_norms']}, new parameters within {res['params_max_abs']:.3g} "
-          f"(2 lr = {2 * MESH_LR}), AdamW's moments within {json.dumps(res['moments_max_rel'])} "
-          f"of each leaf's largest (declared mu {MESH_MOMENT_RTOL}, nu {2 * MESH_MOMENT_RTOL}); "
-          f"placements {res['placements']}; {res['seconds']:.1f} s")
+          f"{res['one']['grad_norms']}; AdamW's moments"
+          + (f" after the first step within {json.dumps(res['first_moments_max_rel'])} of each "
+             f"leaf's largest," if "first_moments_max_rel" in res else "")
+          + f" after the last within {json.dumps(res['moments_max_rel'])} (declared mu "
+          f"{MESH_MOMENT_RTOL}, nu "
+          f"{2 * MESH_MOMENT_RTOL}), new parameters within {res['params_max_abs']:.3g} (2 lr = "
+          f"{2 * MESH_LR}){moe}; placements {res['placements']}")
     if res["logits_max_rel"] > MESH_SERVE_RTOL or not res["tokens_equal"]:
-        raise AssertionError("phase 15: the mesh's logits or greedy tokens differ from one process")
+        raise AssertionError(f"phase {label}: the mesh's logits or greedy tokens differ from "
+                             "one process")
+    if not res["positions_held"] or not steps_held:
+        raise AssertionError(f"phase {label}: the routing differs from one process in the "
+                             f"prefill or the first train step")
     for key, tol in (("losses", MESH_LOSS_RTOL), ("grad_norms", MESH_GN_RTOL)):
-        for a, w in zip(res["mesh"][key], res["one"][key]):
+        for a, w in list(zip(res["mesh"][key], res["one"][key]))[:steps_held]:
             if not (math.isfinite(a) and abs(a - w) <= tol * abs(w)):
-                raise AssertionError(f"phase 15: {key} {a} vs {w} beyond {tol}")
-    if not res["params_max_abs"] <= 2 * MESH_LR * (1 + 1e-5):
-        raise AssertionError(f"phase 15: new parameters {res['params_max_abs']} beyond 2 lr")
-    for key, tol in (("mu", MESH_MOMENT_RTOL), ("nu", 2 * MESH_MOMENT_RTOL)):
-        if not res["moments_max_rel"][key] <= tol:
-            raise AssertionError(f"phase 15: AdamW's {key} {res['moments_max_rel'][key]} of a "
-                                 f"leaf's largest beyond {tol}")
-    return res
+                raise AssertionError(f"phase {label}: {key} {a} vs {w} beyond {tol}")
+    final = ((res["moments_max_rel"],) if steps_held == run["train_steps"] else ())
+    first = (res["first_moments_max_rel"],) if "first_moments_max_rel" in res else ()
+    for worst in first + final:
+        for key, tol in (("mu", MESH_MOMENT_RTOL), ("nu", 2 * MESH_MOMENT_RTOL)):
+            if not worst[key] <= tol:
+                raise AssertionError(f"phase {label}: AdamW's {key} {worst[key]} of a leaf's "
+                                     f"largest beyond {tol}")
+    if final and not res["params_max_abs"] <= 2 * MESH_LR * (1 + 1e-5):
+        raise AssertionError(f"phase {label}: new parameters {res['params_max_abs']} beyond "
+                             "2 lr")
 
 
 def main() -> int:
@@ -2509,6 +2736,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     peak_bw, peak_flops = card_peaks(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    # phase 15 first: its four ranks and its one-process runs need the card
+    # to themselves, before this process holds the other phases' tensors
+    mesh_record = mesh_phase(smi)
     t0 = time.perf_counter()
     _build.library()
     took = time.perf_counter() - t0
@@ -3980,7 +4210,8 @@ def main() -> int:
     record["serve_lm"] = serve_lm_phase(smi)
     record["train"] = train_phase(smi, wrappers)
     record["roofline"] = roofline_phase(smi, wrappers)
-    record["mesh"] = mesh_phase(smi, record)
+    record["mesh"] = mesh_record
+    mesh_beside(mesh_record, record)
 
     main_rows = {r["kernel"]: r for r in rows if r["main"]}
     kernels = [
@@ -4009,12 +4240,13 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
-        mesh_rank(int(sys.argv[2]), sys.argv[3])
+        mesh_rank(int(sys.argv[2]), sys.argv[3],
+                  sys.argv[5].split(",") if sys.argv[4:5] == ["--labels"] else None)
         sys.exit(0)
-    if sys.argv[1:] == ["--only-mesh"]:  # phase 15 alone
+    if sys.argv[1:2] == ["--only-mesh"]:  # phase 15 alone, or its runs LABEL,...
         if not torch.cuda.is_available():
             sys.exit(2)
         print(nvidia_smi())
-        mesh_phase(nvidia_smi(), {})
+        mesh_phase(nvidia_smi(), sys.argv[2].split(",") if len(sys.argv) > 2 else None)
         sys.exit(0)
     sys.exit(main())

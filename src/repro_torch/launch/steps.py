@@ -15,8 +15,9 @@ mesh it is the plain step. Over a mesh of several ranks
 (``launch.mesh.make_mesh``) the step places its inputs by the
 in-shardings (:func:`batch_shardings`, :func:`train_state_shardings`,
 DTensor placements), runs the model on DTensors, and returns its outputs
-in the out-shardings, the loss and ``grad_norm`` replicated. Only the
-dense family runs over such a mesh; the others raise naming ROADMAP.md
+in the out-shardings, the loss and ``grad_norm`` replicated. The
+decoder-only families (:data:`MESH_FAMILIES`: dense, MoE, SSM and hybrid)
+run over such a mesh; the vlm and audio families raise naming ROADMAP.md
 queue A item 13(d).
 """
 
@@ -75,6 +76,7 @@ __all__ = [
     "jit_train_step",
     "jit_prefill_step",
     "jit_decode_step",
+    "MESH_FAMILIES",
 ]
 
 
@@ -113,14 +115,19 @@ def train_state_shardings(model, optimizer, mesh, rules):
     return params_sh, opt_sh
 
 
-def _dense_only(model, mesh, what: str) -> None:
-    """Over a mesh of several ranks only the dense family runs: raise for
-    the others before anything is placed."""
-    if mesh.size > 1 and model.cfg.family != "dense":
+#: the families whose steps run over a mesh of several ranks
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _mesh_family(model, mesh, what: str) -> None:
+    """Over a mesh of several ranks the decoder-only families run
+    (:data:`MESH_FAMILIES`): raise for the others before anything is
+    placed."""
+    if mesh.size > 1 and model.cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{what} of the {model.cfg.family} family over a mesh of shape "
-            f"{mesh.shape}: ROADMAP.md queue A item 13(d); the dense family runs "
-            "over a mesh of several ranks"
+            f"{mesh.shape}: ROADMAP.md queue A item 13(d); the families "
+            f"{', '.join(MESH_FAMILIES)} run over a mesh of several ranks"
         )
 
 
@@ -188,7 +195,7 @@ def jit_train_step(model, optimizer, mesh, rules, *, microbatches=None,
     tensors) the reference lowers it with: it places params, optimizer
     state and batch by their shardings and returns them so placed, the
     loss and ``grad_norm`` replicated."""
-    _dense_only(model, mesh, "the train step")
+    _mesh_family(model, mesh, "the train step")
     cfg = model.cfg
     m = microbatches if microbatches is not None else max(cfg.microbatches, 1)
     step = build_train_step(model, optimizer, microbatches=m)
@@ -237,7 +244,7 @@ def _cache_shardings(model, mesh, rules, batch, seq):
 def jit_prefill_step(model, mesh, rules, *, batch: int, seq: int):
     """The prefill step on ``mesh``: over several ranks it places params
     and batch and returns the logits and caches in their shardings."""
-    _dense_only(model, mesh, "the prefill step")
+    _mesh_family(model, mesh, "the prefill step")
     bspec = train_batch_spec(model.cfg, batch, seq)
     bspec.pop("labels")
     step = torch.no_grad()(build_prefill_step(model))
@@ -256,7 +263,7 @@ def jit_decode_step(model, mesh, rules, *, batch: int, seq: int):
     """The decode step on ``mesh``; it updates the caches in place (the
     reference donates them). Over several ranks it places its inputs and
     returns the logits and caches in their shardings."""
-    _dense_only(model, mesh, "the decode step")
+    _mesh_family(model, mesh, "the decode step")
     bspec = decode_batch_spec(model.cfg, batch)
     abstract = (
         sh.abstract_params(model.spec()),

@@ -14,7 +14,8 @@ Composes the substrate as the reference does:
 
 It takes the reference's flags and ``--device``: it runs on the card
 unless ``--device cpu`` is given, and raises without CUDA. ``--mesh 2x2``
-trains the dense family over a ``(data, model)`` mesh of four ranks: run
+trains a dense, MoE, SSM or hybrid architecture over a ``(data, model)``
+mesh of four ranks: run
 it under a process group of that world size (``torchrun --standalone
 --nproc-per-node 4``, whose environment starts a gloo group, or a group
 the caller started); it raises when the sizes differ. Every rank steps;

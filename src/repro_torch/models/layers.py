@@ -87,6 +87,14 @@ def apply_mlp(params, x, cfg):
     return torch.einsum("...f,fd->...d", h, params["wo"].to(dt))
 
 
+def causal_pad(x, n: int):
+    """``x`` (B, L, ...) with ``n`` zero steps before it along axis 1, as
+    ``F.pad`` pads a causal convolution's input. A concatenation, because
+    DTensor's rule for ``pad`` (torch 2.11) fails on a tensor placed over a
+    mesh."""
+    return torch.cat([x.new_zeros((x.shape[0], n) + tuple(x.shape[2:])), x], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------

@@ -94,12 +94,20 @@ def _out(params, lat, dt):
     return torch.einsum("bshv,hvd->bsd", out, params["wo"].to(dt))
 
 
+def _latent(probs, c_kv):
+    """probs (B,H,S,T), c_kv (B,T,R) -> (B,S,H,R). The product keeps the
+    heads ahead of the queries, as ``probs`` has them: over a mesh that
+    splits the heads, DTensor (torch 2.11) refuses to flatten queries and
+    heads in the other order."""
+    return torch.einsum("bhst,btr->bhsr", probs, c_kv).transpose(1, 2)
+
+
 def _attend(params, q_lat, q_pe, c_kv, k_pe, mask, cfg):
     """mask (B or 1, S, T) bool."""
     dt = q_lat.dtype
     logits = torch.where(mask[:, None], _logits(q_lat, q_pe, c_kv, k_pe, cfg), NEG)
     probs = torch.softmax(logits, -1).to(dt)
-    return _out(params, torch.einsum("bhst,btr->bshr", probs, c_kv), dt)
+    return _out(params, _latent(probs, c_kv), dt)
 
 
 def _attend_qchunked(params, q_lat, q_pe, c_kv, k_pe, cfg, q_chunk=512):
@@ -120,7 +128,7 @@ def _attend_qchunked(params, q_lat, q_pe, c_kv, k_pe, cfg, q_chunk=512):
         mask = q_pos[:, None] >= k_pos[None, :]
         logits = torch.where(mask[None, None], _logits(qli, qpi, c_kv, k_pe, cfg), NEG)
         probs = torch.softmax(logits, -1).to(dt)
-        lats.append(torch.einsum("bhst,btr->bshr", probs, c_kv))
+        lats.append(_latent(probs, c_kv))
     return _out(params, torch.cat(lats, dim=1)[:, :s], dt)
 
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.context import constrain
 from repro_torch.distributed.sharding import ParamSpec
+from repro_torch.models.layers import causal_pad
 
 __all__ = ["rglru_spec", "rglru_state_spec", "apply_rglru", "rglru_decode"]
 
@@ -60,18 +61,54 @@ def rglru_state_spec(cfg, batch: int, *, dtype=torch.float32):
     }
 
 
-def _gates(params, x):
-    """x (..., W) float32 -> a (decay), b (the input term)."""
-    r = torch.sigmoid(x @ params["w_a"].float() + params["b_a"])
-    i = torch.sigmoid(x @ params["w_i"].float() + params["b_i"])
+def _gates(params, x, x_all=None):
+    """x (..., W) float32 -> a (decay), b (the input term). ``x_all``, where
+    given, is the gate products' input: every channel of the rank's ``x``,
+    a shard of them (:func:`_on_channels`)."""
+    x_all = x if x_all is None else x_all
+    r = torch.sigmoid(x_all @ params["w_a"].float() + params["b_a"])
+    i = torch.sigmoid(x_all @ params["w_i"].float() + params["b_i"])
     a = torch.exp(-_C * F.softplus(params["lambda_"].float()) * r)
     b = torch.sqrt(torch.clamp(1.0 - a ** 2, min=1e-12)) * (i * x)
     return a, b
 
 
+def _on_channels(params, xc, step, *states):
+    """``step(a, b, *states)`` with ``a, b = _gates(params, xc)``; over
+    DTensors, on each rank's sequences and channels (as ``xc`` (..., W)
+    splits them, and ``states`` alike). The gates' products read every
+    channel, so each rank gathers ``xc`` for them and keeps its own
+    columns of ``w_a`` and ``w_i``; the rest is elementwise in the
+    channels. No DTensor operator runs inside: torch 2.11 cannot add a
+    split bias to a product's partial sums, nor sum some of the
+    gradients."""
+    if not hasattr(xc, "device_mesh"):
+        return step(*_gates(params, xc), *states)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, last = xc.device_mesh, Shard(xc.ndim - 1)
+    pl = tuple(p if p in (Shard(0), last) else Replicate() for p in xc.placements)
+
+    def weight(t, placements):
+        """This rank's block of a gate weight; each rank of the sequences'
+        split holds its sequences' share of the gradient."""
+        grad = tuple(Partial() if p == Shard(0) else q for p, q in zip(pl, placements))
+        return t.redistribute(mesh, placements).to_local(grad_placements=grad)
+
+    cols = tuple(Shard(1) if p == last else Replicate() for p in pl)
+    chans = tuple(Shard(0) if p == last else Replicate() for p in pl)
+    mine = {k: weight(params[k], cols) for k in ("w_a", "w_i")}
+    mine |= {k: weight(params[k], chans) for k in ("b_a", "b_i", "lambda_")}
+    x = xc.redistribute(mesh, pl).to_local(grad_placements=pl)
+    x_all = xc.redistribute(mesh, tuple(Replicate() if p == last else p for p in pl)).to_local(
+        grad_placements=tuple(Partial() if p == last else p for p in pl))
+    out = step(*_gates(mine, x, x_all), *(t.redistribute(mesh, pl).to_local() for t in states))
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
 def _conv(params, x, cfg):
     k = cfg.conv_width
-    pad = F.pad(x, (0, 0, k - 1, 0))
+    pad = causal_pad(x, k - 1)
     w = params["conv_w"].to(x.dtype)
     out = sum(pad[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
     return out + params["conv_b"].to(x.dtype)
@@ -97,13 +134,12 @@ def apply_rglru(params, u, cfg, *, return_state: bool = False):
     xb = constrain(xb, ("act_batch", "act_seq", "act_mlp"))
     gb = constrain(gb, ("act_batch", "act_seq", "act_mlp"))
     xc = _conv(params, xb, cfg).float()
-    a, b = _gates(params, xc)
-    h = _linear_scan(a, b)
+    h = _on_channels(params, xc, _linear_scan)
     y = h.to(dt) * F.gelu(gb, approximate="tanh")
     out = torch.einsum("blw,wd->bld", y, params["w_out"].to(dt))
     if return_state:
         k = cfg.conv_width
-        tail = F.pad(xb, (0, 0, k - 1, 0))[:, -(k - 1):, :]
+        tail = causal_pad(xb, k - 1)[:, -(k - 1):, :]
         return out, {"lru": h[:, -1, :], "conv": tail.float()}
     return out
 
@@ -117,8 +153,7 @@ def rglru_decode(params, u, state, cfg):
     window = torch.cat([state["conv"].to(dt), xb], dim=1)  # (B,k,W)
     xc = (torch.einsum("bkw,kw->bw", window, params["conv_w"].to(dt))
           + params["conv_b"].to(dt)).float()
-    a, b = _gates(params, xc)
-    h = a * state["lru"].float() + b
+    h = _on_channels(params, xc, lambda a, b, s: a * s + b, state["lru"].float())
     y = h[:, None, :].to(dt) * F.gelu(gb, approximate="tanh")
     out = torch.einsum("blw,wd->bld", y, params["w_out"].to(dt))
     state["lru"].copy_(h)

@@ -44,7 +44,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.checkpoint.checkpoint import flat_leaves, map_tree
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import activation_sharding, active, constrain
 from repro_torch.distributed.sharding import stack_spec
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -275,11 +275,23 @@ def _save_dots(ctx, op, *args, **kwargs):
 def remat(fn, *args, policy: str = "minimal"):
     """``fn(*args)``, its activations recomputed in the backward
     (``jax.checkpoint``): ``minimal`` keeps only the inputs, ``dots`` also
-    the products with no batch dimension (:func:`_save_dots`)."""
+    the products with no batch dimension (:func:`_save_dots`). The
+    recomputation runs under the activation sharding of the call (the
+    backward of CUDA tensors runs on autograd's own thread, where the
+    caller's context is not active), so it places every activation as the
+    forward did."""
     context_fn = noop_context_fn
     if policy == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    ctx = active()
+    if ctx is not None:
+        fn = functools.partial(_under, ctx, fn)
     return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def _under(ctx, fn, *args):
+    with activation_sharding(*ctx):
+        return fn(*args)
 
 
 def training_remat(cfg, mode: str = "train") -> bool:

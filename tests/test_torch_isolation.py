@@ -278,8 +278,9 @@ def test_unported_model_families_raise_naming_their_item():
     # every model family serves and trains now (queue A items 13(a)-13(c)):
     # each ARCH_ID builds its parameter and cache specs, and no code path
     # names 13(b) or 13(c) as unported; placement over a mesh gives DTensor
-    # placements, while the production meshes and the steps of a non-dense
-    # family over a mesh of several ranks still raise, 13(d)
+    # placements; the dense, moe, ssm and hybrid families build their steps
+    # over a mesh of several ranks, while the production meshes and the
+    # steps of the vlm and audio families over such a mesh still raise, 13(d)
     import torch
     from torch.distributed.tensor import Replicate, Shard
 
@@ -308,16 +309,22 @@ def test_unported_model_families_raise_naming_their_item():
         mesh.make_mesh((2, 2), ("data", "model"), device="cpu")
     with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
         mesh.make_production_mesh()
+    families = set()
     for arch in ARCH_IDS:
         model = build_model(get_config(arch, smoke=True))
         rules = steps.resolve_rules(model.cfg, four)
-        if model.cfg.family == "dense":
-            continue
+        families.add(model.cfg.family)
         for call in (lambda: steps.jit_train_step(model, AdamW(), four, rules),
                      lambda: steps.jit_prefill_step(model, four, rules, batch=4, seq=8),
                      lambda: steps.jit_decode_step(model, four, rules, batch=4, seq=8)):
-            with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
-                call()
+            if model.cfg.family in ("vlm", "audio"):
+                with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+                    call()
+            else:
+                step, abstract = call()
+                assert callable(step) and abstract
+    assert families == {"dense", "moe", "ssm", "hybrid", "vlm", "audio"}
+    assert set(steps.MESH_FAMILIES) == {"dense", "moe", "ssm", "hybrid"}
 
 
 def test_unported_serve_names_raise_naming_their_item():

@@ -256,6 +256,24 @@ def test_ssd_prefill_state_and_decode_match(seq):
         _close_tree(state, jstate)
 
 
+def test_ssd_gradient_stays_finite_where_masked_segments_overflow():
+    # mamba2's chunk of 128 at its init (A = -1, dt ~ softplus(0)): the
+    # masked segments' exp overflows. The reference's gradient is NaN
+    # there (0 * inf through its mask); the port's is finite and its
+    # forward the reference's
+    cfg, jcfg = _cfgs("mamba2-780m", ssm_chunk=128)
+    jp, p = _params(JS.ssd_spec(jcfg))
+    x = _x((1, 128, cfg.d_model), 3) * 4
+    assert _rel(S.apply_ssd(p, torch.from_numpy(x), cfg),
+                JS.apply_ssd(jp, jnp.asarray(x), jcfg)) <= MIXER_RTOL
+    jgrad = jax.grad(lambda q: JS.apply_ssd(q, jnp.asarray(x), jcfg).sum())(jp)
+    assert not all(np.isfinite(np.asarray(g)).all() for g in jax.tree_util.tree_leaves(jgrad))
+    live = {k: v.clone().requires_grad_() for k, v in p.items()}
+    grads = torch.autograd.grad(S.apply_ssd(live, torch.from_numpy(x), cfg).sum(),
+                                list(live.values()))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
 # ---------------------------------------------------------------------------
 # Every architecture's specs
 # ---------------------------------------------------------------------------

@@ -329,7 +329,10 @@ def test_opt_state_carries_from_the_reference():
 
 
 def test_larger_meshes_raise_naming_item_13d():
-    # the production meshes are still item 13(d); a mesh of several ranks
+    # the production meshes are still item 13(d), and so are the vlm and
+    # audio families over a mesh of several ranks, whose steps raise before
+    # anything is placed; the moe, ssm and hybrid families build their
+    # steps over it, as the dense family does; a mesh of several ranks
     # needs a process group of its size and never falls back to one device
     cfg = get_config("h2o-danube-1.8b", smoke=True)
     model = build_model(cfg)
@@ -337,6 +340,21 @@ def test_larger_meshes_raise_naming_item_13d():
     for multi_pod in (False, True):
         with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
             M.make_production_mesh(multi_pod=multi_pod)
+    four = M.Mesh((2, 2), ("data", "model"), torch.device("cpu"))
+    for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b", "mamba2-780m", "recurrentgemma-9b",
+                 "llama-3.2-vision-11b", "whisper-large-v3"):
+        other = build_model(get_config(arch, smoke=True))
+        rules = S.resolve_rules(other.cfg, four)
+        builds = (lambda: S.jit_train_step(other, AdamW(), four, rules, batch=4, seq=8),
+                  lambda: S.jit_prefill_step(other, four, rules, batch=4, seq=8),
+                  lambda: S.jit_decode_step(other, four, rules, batch=4, seq=8))
+        for build in builds:
+            if other.cfg.family in ("vlm", "audio"):
+                with pytest.raises(NotImplementedError, match=r"item 13\(d\)"):
+                    build()
+            else:
+                step, _ = build()
+                assert callable(step)
     for call in (lambda: M.make_mesh((2, 1), ("data", "model"), device="cpu"),
                  lambda: M.make_mesh((2, 2), ("data", "model"), device="cpu"),
                  lambda: T.main(DANUBE + ["--steps", "1", "--mesh", "2x1", "--device", "cpu"])):
